@@ -9,16 +9,29 @@ Phases (one JSON line each):
      report of each kernel (the kernels are built here from ``csrc/``).
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
+  2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
+     at the same sizes, against ``tf_lookup_bwd_reference``, timed beside
+     the gradient of ``grid_sample``.
   3. march_diff_fwd (K1) through ``Raycaster.forward`` at the bench workload
      (256^3 volume, tf1 at R = 128, 512^2 image, max_samples 512, sr 1,
      jittered), on a noise volume and on a CT phantom, against
      ``march_diff_plain``.
+  3b. march_diff_bwd (K2) through ``Raycaster.forward`` and
+     ``mean(img^2).backward()`` on both scenes: one K1 and one K2 launch
+     per step, K2's per-ray counts equal to K1's, finite gradients; both
+     gradients against autograd of ``march_diff_plain`` at 512^2 with ERT
+     (summed over 16 tiles of 128^2 rays) and at a 128^2 image with ERT off
+     and on; ``grad_step_ms``.
   4. march_nondiff (K3) through ``Raycaster.raycast_nondiff`` (sr 4) on both
      scenes against ``march_nondiff_plain``.
-  5. profile: device time by kernel and the busy share of both entry
-     points on the noise scene (torch.profiler).
+  5. profile: device time by kernel and the busy share of the forward, the
+     gradient step and the inference render on the noise scene
+     (torch.profiler).
+  5b. train: 5 steps of the volume-fitting loop of
+     ``examples/optimize_volume.py`` at 256^3 and 512^2, 2 views.
   6. golden: the card's renders of the sphere fixtures of
-     ``tests/golden_renders.npz``.
+     ``tests/golden_renders.npz``, and K2 on that sphere at sampling rate
+     0.8 against the plain march and through ``value_and_grad_render``.
   7. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -31,6 +44,7 @@ of f32 outside the tensor cores.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -65,6 +79,41 @@ NONDIFF_VISIT_OPS = POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + 2
 NONDIFF_SHADE_OPS = (GRADIENT_POINTS_OPS + STENCIL_OPS + OPACITY_OPS
                      + SHADE_OPS - 1 + COMPOSITE_OPS - 1)
 TF_LOOKUP_OPS = TF_LERP_OPS
+# The backward of a TF lerp: t, max, floor, frac, the low/high clamps and
+# 1 - frac (7); 8 weight products and 8 accumulations into d_tf; the slope
+# (4 differences, 4 products, 3 sums), times R - 1, and the mask (3).
+TF_LERP_BWD_OPS = 7 + 16 + 11 + 1 + 3
+TF_LOOKUP_BWD_OPS = TF_LERP_BWD_OPS
+# K2, per composited sample: the forward recompute (DIFF_SAMPLE_OPS), then
+# the backward chain, each step once.  Composite: the colour cotangent T*g,
+# g.c, the prefix, U - P, T_b/f and the product (13).  Shading: d of the TF
+# colour and of light*alpha (14), of alpha through the opacity correction
+# (8), of the light clamp (2), the specular power (3), r.v (3), the
+# reflection (3), n.l (9), the normal (12) and the unit-normal VJP (17).
+# The TF lerp backward (TF_LERP_BWD_OPS minus the 7 shared with the
+# forward).  The scatter: 7 points x 8 corners, a product and an
+# accumulation each, weights shared with the forward, and 3 negations.
+COMPOSITE_BWD_OPS = 13
+SHADE_BWD_OPS = 14 + 8 + 2 + 3 + 3 + 3 + 9 + 12 + 17
+SCATTER_OPS = 7 * 8 * 2 + 3
+BWD_SAMPLE_OPS = (DIFF_SAMPLE_OPS + COMPOSITE_BWD_OPS + SHADE_BWD_OPS
+                  + TF_LERP_BWD_OPS - 7 + SCATTER_OPS)
+# A composited sample whose volume cotangent is exactly 0 (K2 counts the
+# others: on these scenes, samples whose two TF texels both have alpha 0,
+# such as ct_phantom's empty space and tf1's transparent bands on noise; the
+# opacity is 0 there and stays 0 as the intensity moves, so the shaded
+# colour is 0 whatever the normal) needs no gradient points, no shading and
+# no scatter: its value, TF colour, opacity and composite, the composite's
+# backward, alpha's through the opacity correction (8) and the TF lerp's
+# (d_tf).
+QUIET_SAMPLE_OPS = (POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + OPACITY_OPS
+                    + COMPOSITE_OPS + COMPOSITE_BWD_OPS + 8
+                    + TF_LERP_BWD_OPS - 7)
+# K2 against autograd of the plain march, per gradient tensor, times its
+# max |g|.  Both run the same f32 arithmetic per sample (the kernels round
+# the trilinear sum and the TF lerp as the plain march does); only the order
+# of the atomic adds differs, which has stayed below 1e-5 * max |g|.
+K2_GRAD_TOL = 1e-4
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -181,6 +230,12 @@ def main() -> int:
     kernels = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # The phases added with the backward draw from their own generator, so
+    # the forward phases see the same data as before.
+    gen_b = torch.Generator(device=dev)
+    gen_b.manual_seed(1)
+    gen_c = torch.Generator(device=dev)     # K2's 512^2 cotangents
+    gen_c.manual_seed(2)
 
     # -- 2. K0 tf_lookup_fwd -------------------------------------------------
     n = 1 << 23
@@ -234,6 +289,69 @@ def main() -> int:
         replaces="differender_tpu/ops/tf_lookup.py:66",
         launches=k0_launches, max_abs_err=k0_err, **k0)
 
+    # -- 2b. K0b tf_lookup_bwd ------------------------------------------------
+    cot = torch.rand((n, 4), generator=gen_b, device=dev) - 0.5
+    k0b_launches, k0b_err, k0b_err_tf, k0b = 0, 0.0, 0.0, None
+    for R in (128, 4096):
+        tf = torch.rand((R, 4), generator=gen_b, device=dev)
+        tf_leaf = tf.clone().requires_grad_()
+        x_leaf = inten.clone().requires_grad_()
+        P.reset_launch_counts()
+        d_tf, d_x = torch.autograd.grad(P.tf_lookup(tf_leaf, x_leaf),
+                                        (tf_leaf, x_leaf), cot)
+        sync()
+        launches = P.launch_counts()["tf_lookup_bwd"]
+        require(launches == 1, f"tf_lookup's backward launched K0b "
+                               f"{launches} times")
+        require(bool(torch.isfinite(d_tf).all() & torch.isfinite(d_x).all()),
+                "K0b gradients finite")
+        ref_tf, ref_x = P.tf_lookup_bwd_reference(tf, inten, cot)
+        err_x = float((d_x - ref_x).abs().max())
+        scale = float(ref_tf.abs().max())
+        err_tf = float((d_tf - ref_tf).abs().max())
+        require(err_x <= 1e-5 and err_tf <= 1e-4 * scale,
+                f"K0b at R={R}: d_intensity {err_x} > 1e-5 or d_tf {err_tf}"
+                f" > 1e-4 * {scale}")
+        ms = cuda_ms(lambda: P.tf_lookup_bwd(tf, inten, cot), 5, per_pair=40)
+        profiler_ms = profile(lambda: P.tf_lookup_bwd(tf, inten, cot),
+                              40)["device_ms"]
+        plain_ms = cuda_ms(lambda: P.tf_lookup_bwd_reference(tf, inten, cot),
+                           5, per_pair=10)
+        tex = tf.t().reshape(1, 4, 1, R).contiguous().requires_grad_()
+        grid = torch.stack([inten * 2.0 - 1.0, torch.zeros_like(inten)],
+                           -1).reshape(1, 1, n, 2).requires_grad_()
+        lib_cot = cot.t().reshape(1, 4, 1, n).contiguous()
+
+        def lib():
+            out = F.grid_sample(tex, grid, mode="bilinear",
+                                padding_mode="border", align_corners=True)
+            return torch.autograd.grad(out, (tex, grid), lib_cot)
+
+        library_ms = cuda_ms(lib, 5, per_pair=10)
+        b_ms, b_by = bound(n * 4 + n * 16 + R * 16 + n * 4 + R * 16,
+                           n * TF_LOOKUP_BWD_OPS)
+        emit({"phase": "tf_lookup_bwd", "R": R, "n": n,
+              "launches": launches, "max_abs_err_d_intensity": err_x,
+              "max_abs_err_d_tf": err_tf, "max_abs_d_tf": scale, "ms": ms,
+              "profiler_ms": profiler_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "library": "autograd.grad of F.grid_sample w.r.t. texture "
+                         "and grid, forward included",
+              "bound_ms": b_ms, "bound_by": b_by, "nvidia_smi": smi})
+        k0b_launches += launches
+        k0b_err = max(k0b_err, err_x)
+        k0b_err_tf = max(k0b_err_tf, err_tf / scale)
+        if R == 128:
+            k0b = dict(ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        del tf_leaf, x_leaf, d_tf, d_x, ref_tf, ref_x, tex, grid, lib_cot
+    kernels["tf_lookup_bwd"] = dict(
+        route="cuda", source="differender_tpu_torch/csrc/tf_lookup.cu",
+        replaces="differender_tpu/ops/tf_lookup.py:72",
+        launches=k0b_launches, max_abs_err=k0b_err,
+        max_rel_err_d_tf=k0b_err_tf, **k0b)
+    del cot, inten
+
     # -- 3./4. K1 and K3 through the Raycaster ---------------------------------
     res, img, R = 256, 512, 128
     rc = P.Raycaster((res, res, res), (img, img), R, sampling_rate=1.0,
@@ -244,11 +362,16 @@ def main() -> int:
     lf = torch.tensor([1.2, 0.8, 2.0], device=dev)
     scenes = {"noise": lambda: P.noise_volume(res, seed=0),
               "ct_phantom": lambda: P.ct_phantom(res)}
-    for name, replaces in (("march_diff_fwd", "differender_tpu/render.py:395"),
-                           ("march_nondiff", "differender_tpu/render.py:642")):
+    for name, src, replaces in (
+            ("march_diff_fwd", "march.cu", "differender_tpu/render.py:395"),
+            ("march_diff_bwd", "march_bwd.cu",
+             "differender_tpu/render.py:395"),
+            ("march_nondiff", "march.cu", "differender_tpu/render.py:642")):
         kernels[name] = dict(
-            route="cuda", source="differender_tpu_torch/csrc/march.cu",
+            route="cuda", source=f"differender_tpu_torch/csrc/{src}",
             replaces=replaces, launches=0, max_abs_err=0.0, library_ms=None)
+    kernels["march_diff_bwd"]["replaces_note"] = (
+        "the XLA VJP of march_diff (march_vjp='ad'): no Pallas kernel")
 
     def record(name, scene, launches, max_err, k_ms, p_ms, b_ms, b_by):
         k = kernels[name]
@@ -273,6 +396,68 @@ def main() -> int:
         diff = int((got - want).abs().max())
         require(diff <= 1, f"{name}: a ray differs by {diff} samples")
         return diff
+
+    def k2_grad_errs(got_pair, want_pair, label):
+        """max |K2 - plain| / max |plain| of d_volume and d_tf, each held
+        to K2_GRAD_TOL."""
+        errs = []
+        for got, want, what in zip(got_pair, want_pair,
+                                   ("d_volume", "d_tf")):
+            e = float((got - want).abs().max())
+            m = float(want.abs().max())
+            require(bool(torch.isfinite(got).all()) and m > 0
+                    and e <= K2_GRAD_TOL * m,
+                    f"K2 {what} on {label}: max |diff| {e} > "
+                    f"{K2_GRAD_TOL} * {m}")
+            errs.append(e / m)
+        return errs
+
+    def knife_mask(steps_k, steps_p, label):
+        """Rays that K1 and the plain march end at the same sample.  A ray
+        on the ERT knife edge gets no cotangent in either backward."""
+        agree = steps_k == steps_p
+        n_knife = int((~agree).sum())
+        require(n_knife <= 0.001 * agree.numel(),
+                f"{n_knife} knife-edge rays on {label}")
+        return agree, n_knife
+
+    def k2_vs_plain(vol_i, tf_c, rays_s, cfg_s, g_s, ert, label, sr=1.0):
+        """K2 against autograd of the plain march for the cotangent g_s."""
+        label = f"{label} ({cfg_s.image_shape}, ert={ert})"
+        img_s, steps_s = P.march_diff_fwd(vol_i, tf_c, rays_s, cfg_s, sr,
+                                          ert=ert)
+        with torch.no_grad():
+            _, steps_p = P.march_diff_plain(vol_i, tf_c, rays_s, cfg_s, sr,
+                                            ert=ert)
+        agree, n_knife = knife_mask(steps_s, steps_p, label)
+        g_m = g_s * agree[..., None]
+        got = P.march_diff_bwd(vol_i, tf_c, rays_s, cfg_s, sr, img_s, g_m,
+                               ert=ert)[:2]
+        want = P.march_diff_bwd_plain(vol_i, tf_c, rays_s, cfg_s, sr, g_m,
+                                      ert=ert)[:2]
+        return k2_grad_errs(got, want, label), n_knife, img_s, g_m
+
+    def plain_bwd_tiled(vol_i, tf_c, rays_f, cfg_f, g_f, tile):
+        """Autograd of the plain march (sampling rate 1) for the cotangent
+        g_f, summed over tile x tile blocks of the same rays: rays are
+        independent and the gradient is linear in the cotangent, so the
+        blocks add up to the whole image's gradient in a fraction of its
+        autograd memory."""
+        H, W = cfg_f.image_shape
+        d_v, d_t = torch.zeros_like(vol_i), torch.zeros_like(tf_c)
+        for r in range(0, H, tile):
+            for c in range(0, W, tile):
+                blk = (slice(r, r + tile), slice(c, c + tile))
+                rays_b = rays_f._replace(
+                    dirs=rays_f.dirs[blk], entry=rays_f.entry[blk],
+                    exit=rays_f.exit[blk], n_samples=rays_f.n_samples[blk])
+                cfg_b = cfg_f.replace(image_shape=tuple(
+                    rays_b.n_samples.shape))
+                dv_b, dt_b, _ = P.march_diff_bwd_plain(
+                    vol_i, tf_c, rays_b, cfg_b, 1.0, g_f[blk])
+                d_v += dv_b
+                d_t += dt_b
+        return d_v, d_t
 
     for scene, make in scenes.items():
         vol_user = torch.from_numpy(make()).to(dev)[None]
@@ -322,6 +507,139 @@ def main() -> int:
         record("march_diff_fwd", scene, launches, max_err, k_ms, p_ms, b_ms,
                b_by)
 
+        # K2: the gradient step, forward and backward through the Raycaster.
+        v_leaf = vol_user.clone().requires_grad_()
+        t_leaf = tf_user.clone().requires_grad_()
+
+        def grad_step():
+            v_leaf.grad = t_leaf.grad = None
+            img_ = rc.forward(v_leaf, t_leaf, lf, u=u)
+            img_.square().mean().backward()
+            return img_
+
+        P.reset_launch_counts()
+        img_g = grad_step()
+        sync()
+        counts = P.launch_counts()
+        require(counts["march_diff_fwd"] == 1
+                and counts["march_diff_bwd"] == 1,
+                f"a gradient step launched K1 {counts['march_diff_fwd']}x "
+                f"and K2 {counts['march_diff_bwd']}x on {scene}")
+        launches = counts["march_diff_bwd"]
+        require(bool(torch.isfinite(v_leaf.grad).all()
+                     & torch.isfinite(t_leaf.grad).all()),
+                f"K2 gradients finite on {scene}")
+        # The same step by the wrappers: K2's own per-ray counts against
+        # K1's, and its gradients against the Raycaster's.
+        rays = P.make_rays(lf, cfg, 1.0, u=u)
+        image, steps = P.march_diff_fwd(vol_i, tf_i, rays, cfg, 1.0)
+        require(torch.equal(image, img_g.detach().permute(1, 2, 0)),
+                f"K1 image differs between two calls on {scene}")
+        g_img = 2.0 * image / image.numel()
+        d_v, d_t, steps_bwd = P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0,
+                                               image, g_img)
+        sync()
+        require(torch.equal(steps_bwd, steps),
+                f"K2's per-ray counts differ from K1's on "
+                f"{int((steps_bwd != steps).sum())} rays ({scene})")
+        same_v = float((P.volume_from_internal(d_v) - v_leaf.grad[0])
+                       .abs().max()) / float(d_v.abs().max())
+        same_t = float((d_t.t() - t_leaf.grad).abs().max()) / float(
+            d_t.abs().max())
+        require(same_v <= 1e-4 and same_t <= 1e-4,
+                f"K2 by the wrapper and by autograd differ: {same_v}, "
+                f"{same_t} ({scene})")
+        bwd_samples = int((steps_bwd - 1).sum())
+        scattered = torch.zeros((img, img), dtype=torch.int32, device=dev)
+        P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image, g_img,
+                         scattered=scattered)
+        n_scattered = int(scattered.sum())
+        k2_ms = cuda_ms(lambda: P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0,
+                                                 image, g_img), 10)
+        step_ms = host_ms(grad_step, 7)
+        b_ms, b_by = bound(3 * vol_bytes + R * 32 + ray_bytes
+                           + img * img * 36,
+                           n_scattered * BWD_SAMPLE_OPS
+                           + (bwd_samples - n_scattered) * QUIET_SAMPLE_OPS)
+        # K2 at the main path's own shape, ERT on, against autograd of the
+        # plain march summed over 16 tiles of 128^2 rays (one 512^2 autograd
+        # march would take tens of GB on ct_phantom), for a cotangent with
+        # both signs.  The rays K1 ends elsewhere than the plain march (K1's
+        # check above) get none.
+        agree, n_knife_full = knife_mask(steps, want_steps,
+                                         f"{scene} (512, 512)")
+        g_full = (torch.rand((img, img, 4), generator=gen_c, device=dev)
+                  - 0.3) * agree[..., None]
+        got_full = P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image,
+                                    g_full)[:2]
+        sync()
+        t_plain = time.perf_counter()
+        want_full = plain_bwd_tiled(vol_i, tf_i, rays, cfg, g_full, 128)
+        sync()
+        plain_full_ms = (time.perf_counter() - t_plain) * 1e3
+        full_errs = k2_grad_errs(got_full, want_full,
+                                 f"{scene} (512, 512), ert=True")
+        del got_full, want_full, g_full
+        # Against autograd of the plain march at a 128^2 image: ERT off and
+        # on, and on noise the TF-gradient rule of R > 1024 and an opaque TF.
+        cfg_s = cfg.replace(image_shape=(128, 128))
+        u_s = torch.rand((128, 128), generator=gen_b, device=dev)
+        rays_s = P.make_rays(lf, cfg_s, 1.0, u=u_s)
+        g_s = torch.rand((128, 128, 4), generator=gen_b, device=dev) - 0.3
+        small = {}
+        cases = [("tf1", tf_i, False), ("tf1", tf_i, True)]
+        if scene == "noise":
+            # The TF-gradient rule of R > 1024 (K2's global-memory TF), and
+            # a TF alpha of exactly 1 (K2's exact last sample, its restart
+            # and its stop at T = 0).
+            opaque = tf_i.clone()
+            opaque[40:, 3] = 1.0
+            cases += [("tf1_R2048", P.get_tf("tf1", 2048, device=dev), True),
+                      ("opaque", opaque, False), ("opaque", opaque, True)]
+        for label, tf_c, ert in cases:
+            errs, n_knife, img_s, g_m = k2_vs_plain(vol_i, tf_c, rays_s,
+                                                    cfg_s, g_s, ert,
+                                                    f"{scene} {label}")
+            small[f"{label}_ert_{ert}"] = {"rel_err_d_volume": errs[0],
+                                          "rel_err_d_tf": errs[1],
+                                          "knife_edge_rays": n_knife}
+        img_s, _ = P.march_diff_fwd(vol_i, tf_i, rays_s, cfg_s, 1.0)
+        g_m = g_s
+        k2_small_ms = cuda_ms(lambda: P.march_diff_bwd(
+            vol_i, tf_i, rays_s, cfg_s, 1.0, img_s, g_m), 10)
+        plain_small_ms = cuda_ms(lambda: P.march_diff_bwd_plain(
+            vol_i, tf_i, rays_s, cfg_s, 1.0, g_m), 1, warm=0)
+        torch.cuda.empty_cache()
+        k2_err = max(max(max(v["rel_err_d_volume"], v["rel_err_d_tf"])
+                         for v in small.values()), *full_errs)
+        emit({"phase": "march_diff_bwd", "scene": scene, "image": img,
+              "launches": launches, "k1_launches": counts["march_diff_fwd"],
+              "counts_equal_k1": True, "samples": bwd_samples,
+              "samples_scattering": n_scattered,
+              "wrapper_vs_autograd_rel": [same_v, same_t],
+              "vs_plain_512_ert_True": {"rel_err_d_volume": full_errs[0],
+                                        "rel_err_d_tf": full_errs[1],
+                                        "knife_edge_rays": n_knife_full},
+              "vs_plain_128": small, "tolerance": K2_GRAD_TOL,
+              "ms": k2_ms, "grad_step_ms": step_ms,
+              "plain_ms": plain_full_ms, "ms_128": k2_small_ms,
+              "plain_ms_128": plain_small_ms,
+              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+              "ptxas": [ln for ln in info.ptxas.get("march_bwd.cu", [])
+                        if "Used" in ln or "spill" in ln],
+              "nvidia_smi": smi})
+        k = kernels["march_diff_bwd"]
+        k["launches"] += launches
+        k["max_abs_err"] = max(k["max_abs_err"], k2_err)
+        k["max_abs_err_is"] = "max |diff| / max |g| per gradient tensor"
+        if scene == "noise":
+            k.update(ms=k2_ms, plain_ms=plain_full_ms,
+                     plain_ms_note="autograd of march_diff_plain over 16 "
+                                   "tiles of 128^2, host clock",
+                     bound_ms=b_ms, bound_by=b_by, grad_step_ms=step_ms)
+            grad_step_profile = profile(grad_step)
+        del v_leaf, t_leaf, img_g, d_v, d_t, image, g_img
+
         # K3: the inference path.
         P.reset_launch_counts()
         nd = rc.raycast_nondiff(vol_user, tf_user, lf)
@@ -363,10 +681,54 @@ def main() -> int:
             emit({"phase": "profile", "scene": scene,
                   "forward": profile(
                       lambda: rc.forward(vol_user, tf_user, lf, u=u)),
+                  "grad_step": grad_step_profile,
                   "raycast_nondiff": profile(
                       lambda: rc.raycast_nondiff(vol_user, tf_user, lf)),
                   "nvidia_smi": smi})
         del vol_user, vol_i
+
+    # -- 5b. train: volume fitting (examples/optimize_volume.py) ---------------
+    clean = torch.from_numpy(P.ct_phantom(res)).to(dev)
+    corrupt = torch.rand(clean.shape, generator=gen_b, device=dev) < 0.05
+    start = torch.where(corrupt, torch.rand(clean.shape, generator=gen_b,
+                                            device=dev), clean)
+    views = torch.stack([P.in_circles(0.0, device=dev),
+                         P.get_rand_pos(gen_b)])
+    targets = rc.raycast_nondiff(clean[None, None].expand(2, 1, res, res, res),
+                                 tf_user, views)
+    v_fit = start[None].clone().requires_grad_()
+    opt, sched = P.adamw_onecycle([v_fit], 0.05, 5)
+    losses, step_times, grad_max = [], [], []
+    P.reset_launch_counts()
+    for _ in range(5):
+        sync()
+        t_step = time.perf_counter()
+        opt.zero_grad()
+        loss = P.dssim_mse_loss(
+            rc(v_fit.expand(2, 1, res, res, res), tf_user, views), targets)
+        loss.backward()
+        opt.step()
+        sched.step()
+        P.project_unit(v_fit)
+        sync()
+        step_times.append((time.perf_counter() - t_step) * 1e3)
+        losses.append(float(loss.detach()))
+        grad_max.append(float(v_fit.grad.abs().max()))
+        require(math.isfinite(losses[-1]) and math.isfinite(grad_max[-1]),
+                f"train: non-finite loss or gradient {losses[-1]}, "
+                f"{grad_max[-1]}")
+    counts = P.launch_counts()
+    require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    require(counts["march_diff_fwd"] == 10 and counts["march_diff_bwd"] == 10,
+            f"train: 5 steps of 2 views launched {counts}")
+    emit({"phase": "train", "volume": res, "image": img, "views": 2,
+          "steps": 5, "loss": losses, "grad_abs_max": grad_max,
+          "step_ms": step_times,
+          "vol_l1_to_clean": [float((start - clean).abs().mean()),
+                              float((v_fit.detach()[0] - clean).abs()
+                                    .mean())],
+          "launches": counts, "nvidia_smi": smi})
+    del clean, corrupt, start, targets, v_fit, opt, sched
 
     # -- 6. golden fixtures ----------------------------------------------------
     golden = np.load(os.path.join(ROOT, "tests", "golden_renders.npz"))
@@ -386,8 +748,35 @@ def main() -> int:
                          .cpu().numpy() - golden["nondiff"]).max())
     require(d_err <= 1e-4 and n_err <= 1e-4,
             f"golden fixtures: diff {d_err}, nondiff {n_err}")
+    # K2 at the sphere's sampling rate 0.8 (opacity exponent 1.25; the bench
+    # runs at 1), against the plain march and through value_and_grad_render.
+    g_w = torch.rand((16, 16, 4), generator=gen_b, device=dev) - 0.3
+    g_rays = P.make_rays(glf, gcfg, 0.8)
+    sphere_grads = {}
+    for ert in (False, True):
+        errs, _, _, _ = k2_vs_plain(sphere, gtf, g_rays, gcfg, g_w, ert,
+                                    "sphere", sr=0.8)
+        P.reset_launch_counts()
+        _, (dv_e, dt_e) = P.value_and_grad_render(
+            sphere, gtf, glf, gcfg, lambda o: torch.sum(o.image * g_w), 0.8,
+            ert=ert)
+        counts = P.launch_counts()
+        require(counts["march_diff_fwd"] == 1
+                and counts["march_diff_bwd"] == 1,
+                f"value_and_grad_render launched {counts}")
+        img_k, _ = P.march_diff_fwd(sphere, gtf, g_rays, gcfg, 0.8, ert=ert)
+        dv_w, dt_w, _ = P.march_diff_bwd(sphere, gtf, g_rays, gcfg, 0.8,
+                                         img_k, g_w, ert=ert)
+        same = max(float((dv_e - dv_w).abs().max() / dv_w.abs().max()),
+                   float((dt_e - dt_w).abs().max() / dt_w.abs().max()))
+        require(same <= 1e-4, f"value_and_grad_render against K2: {same}")
+        sphere_grads[f"ert_{ert}"] = {"rel_err_d_volume": errs[0],
+                                      "rel_err_d_tf": errs[1],
+                                      "value_and_grad_rel": same}
+        k = kernels["march_diff_bwd"]
+        k["max_abs_err"] = max(k["max_abs_err"], *errs)
     emit({"phase": "golden", "diff_max_abs_err": d_err,
-          "nondiff_max_abs_err": n_err})
+          "nondiff_max_abs_err": n_err, "k2_sphere_sr0.8": sphere_grads})
 
     # -- 7. kernels line and the contract line ----------------------------------
     for name, k in kernels.items():

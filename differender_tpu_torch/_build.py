@@ -24,8 +24,8 @@ from typing import Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("tf_lookup.cu", "march.cu")
-_HEADERS = ("tf_lerp.cuh",)
+_SOURCES = ("tf_lookup.cu", "march.cu", "march_bwd.cu")
+_HEADERS = ("tf_lerp.cuh", "march_common.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_NAME = "libdifferender_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -136,7 +136,11 @@ def library() -> ctypes.CDLL:
     i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.dr_tf_lookup_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
     lib.dr_tf_lookup_fwd.restype = i32
-    for name in ("dr_march_diff_fwd", "dr_march_nondiff"):
+    lib.dr_tf_lookup_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
+                                     ptr]
+    lib.dr_tf_lookup_bwd.restype = i32
+    for name in ("dr_march_diff_fwd", "dr_march_diff_bwd",
+                 "dr_march_nondiff"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, i32, ptr]
         fn.restype = i32

@@ -91,7 +91,8 @@ class RenderConfig:
                 "7-point central-difference stencil")
         if self.camera_grads:
             raise NotImplementedError(
-                "camera_grads=True is not ported (no backward march yet)")
+                "camera_grads=True is not ported: the backward march K2 "
+                "returns no camera gradient yet")
 
     @property
     def height(self) -> int:
@@ -125,6 +126,13 @@ class RenderConfig:
     def diff_march_steps(self, sampling_rate: float) -> int:
         """Trip-count bound of the differentiable march."""
         return min(self.max_samples, self.max_steps_for(sampling_rate))
+
+    def use_blockwise_grad(self) -> bool:
+        """Always False.  The JAX package splits its 512^3-class backward
+        into host-level blocks; the port's backward kernel K2 keeps only
+        O(H*W) state beside the volume, so one strategy serves every size.
+        Kept so code written for the JAX package's config still runs."""
+        return False
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -31,108 +31,7 @@
 //                                                        (render.py:716-745)
 #include <cuda_runtime.h>
 
-#include "tf_lerp.cuh"
-
-// Mirrored field for field by differender_tpu_torch/render.py::_MarchArgs.
-struct MarchArgs {
-  const float* dx;
-  const float* dy;
-  const float* dz;
-  const float* t0;
-  const float* dt;
-  const int* n;
-  const float* volume;
-  const float* tf;
-  const float* origin;
-  float* image;    // (H*W, 4)
-  int* steps;      // K1: valid_steps; K3: samples visited
-  int* shaded;     // K3: samples composited; unused by K1
-  int H, W, X, Y, Z, R, max_steps, ert;
-  float scale_x, scale_y, scale_z, delta, inv_sr, thr;
-  float ambient, diffuse, specular, shininess;
-  float lc_r, lc_g, lc_b, alpha_skip;
-};
-
-// Positions and voxel coordinates are rounded after every multiply and add
-// (__fmul_rn/__fadd_rn are never contracted into an FMA), as the plain
-// version rounds them: the TF's steep alpha ramps turn a one-ulp shift of
-// the position into a visible change of the sample's opacity.
-__device__ __forceinline__ float voxel_axis(float p, float scale, int size,
-                                            int& lo, int& hi) {
-  const float c = __fmul_rn(
-      fminf(fmaxf(__fadd_rn(__fmul_rn(0.5f, p), 0.5f), 0.0f), 1.0f), scale);
-  const float lo_f = floorf(c);
-  lo = (int)lo_f;
-  hi = min(lo + 1, size - 1);
-  return c - lo_f;
-}
-
-__device__ __forceinline__ float ray_coord(float o, float t, float d) {
-  return __fadd_rn(o, __fmul_rn(t, d));
-}
-
-__device__ __forceinline__ float trilinear(const MarchArgs& a, float px,
-                                           float py, float pz) {
-  int x0, x1, y0, y1, z0, z1;
-  const float fx = voxel_axis(px, a.scale_x, a.X, x0, x1);
-  const float fy = voxel_axis(py, a.scale_y, a.Y, y0, y1);
-  const float fz = voxel_axis(pz, a.scale_z, a.Z, z0, z1);
-  const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-  // 64-bit flat offsets (x*Y + y)*Z + z.
-  const long long r00 = ((long long)x0 * a.Y + y0) * a.Z;
-  const long long r10 = ((long long)x1 * a.Y + y0) * a.Z;
-  const long long r01 = ((long long)x0 * a.Y + y1) * a.Z;
-  const long long r11 = ((long long)x1 * a.Y + y1) * a.Z;
-  const float* v = a.volume;
-  // Corner order and weight products of sampling.py::_corner_weights.
-  float s = __ldg(v + r00 + z0) * ((gx * gy) * gz);
-  s += __ldg(v + r10 + z0) * ((fx * gy) * gz);
-  s += __ldg(v + r01 + z0) * ((gx * fy) * gz);
-  s += __ldg(v + r11 + z0) * ((fx * fy) * gz);
-  s += __ldg(v + r00 + z1) * ((gx * gy) * fz);
-  s += __ldg(v + r10 + z1) * ((fx * gy) * fz);
-  s += __ldg(v + r01 + z1) * ((gx * fy) * fz);
-  s += __ldg(v + r11 + z1) * ((fx * fy) * fz);
-  return s;
-}
-
-// Premultiplied (rgb * light * alpha, alpha) of one sample: opacity
-// correction and headlight shading (shading.py::shade_soa).
-template <bool kClampLight>
-__device__ __forceinline__ float4 shade(const MarchArgs& a, float4 c,
-                                        float px, float py, float pz,
-                                        float gx, float gy, float gz,
-                                        float vdx, float vdy, float vdz,
-                                        float ox, float oy, float oz) {
-  const float alpha = 1.0f - powf(fmaxf(1.0f - c.w, 0.0f), a.inv_sr);
-
-  const float g2 = gx * gx + gy * gy + gz * gz;
-  const bool has_n = g2 > 0.0f;
-  const float m = has_n ? rsqrtf(g2) : 0.0f;
-  const float nx = gx * m, ny = gy * m, nz = gz * m;
-
-  float ldx = px - ox, ldy = py - (oy + 1.0f), ldz = pz - oz;
-  const float lmag = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
-  const float inv = 1.0f / (lmag > 0.0f ? lmag : 1.0f);
-  ldx *= inv;
-  ldy *= inv;
-  ldz *= inv;
-
-  const float dot = nx * ldx + ny * ldy + nz * ldz;
-  const float diffuse = a.diffuse * (has_n ? fmaxf(dot, 0.0f) : 0.0f);
-  const float rx = ldx - 2.0f * dot * nx;
-  const float ry = ldy - 2.0f * dot * ny;
-  const float rz = ldz - 2.0f * dot * nz;
-  const float r_dot_v = fmaxf(-(rx * vdx + ry * vdy + rz * vdz), 0.0f);
-  const float specular =
-      a.specular * (has_n ? powf(r_dot_v, a.shininess) : 0.0f);
-
-  float light = diffuse + specular + a.ambient;
-  if (kClampLight) light = fminf(1.0f, light);
-  const float la = light * alpha;
-  return make_float4(c.x * la * a.lc_r, c.y * la * a.lc_g, c.z * la * a.lc_b,
-                     alpha);
-}
+#include "march_common.cuh"
 
 template <bool kGlobalTf>
 __global__ void __launch_bounds__(128) march_diff_fwd_kernel(MarchArgs a) {
@@ -149,22 +48,13 @@ __global__ void __launch_bounds__(128) march_diff_fwd_kernel(MarchArgs a) {
   const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
   const float t0 = a.t0[p], dt = a.dt[p];
   const int steps = min(a.n[p], a.max_steps);
-  const float d = a.delta;
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
   int cnt = 1;
   for (int s = 0; s < steps; ++s) {
     if (a.ert && !(T > a.thr)) break;
-    const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
-    const float px = ray_coord(ox, t, dx), py = ray_coord(oy, t, dy),
-                pz = ray_coord(oz, t, dz);
-    const float v = trilinear(a, px, py, pz);
-    const float gx = trilinear(a, px + d, py, pz) - trilinear(a, px - d, py, pz);
-    const float gy = trilinear(a, px, py + d, pz) - trilinear(a, px, py - d, pz);
-    const float gz = trilinear(a, px, py, pz + d) - trilinear(a, px, py, pz - d);
-    const float4 c = tf_lerp<kGlobalTf>(tf, a.R, v);
-    const float4 sh = shade<true>(a, c, px, py, pz, gx, gy, gz, dx, dy, dz,
-                                  ox, oy, oz);
+    const float4 sh = march_sample<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz,
+                                              dx, dy, dz).sh;
     r += T * sh.x;
     g += T * sh.y;
     b += T * sh.z;
@@ -200,12 +90,16 @@ __global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
     const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
     const float px = ray_coord(ox, t, dx), py = ray_coord(oy, t, dy),
                 pz = ray_coord(oz, t, dz);
-    const float4 c = tf_lerp<kGlobalTf>(tf, a.R, trilinear(a, px, py, pz));
+    const float4 c =
+        tf_lerp<kGlobalTf>(tf, a.R, trilinear<false>(a, px, py, pz));
     if (!(c.w > a.alpha_skip)) continue;
     ++shaded;
-    const float gx = trilinear(a, px + d, py, pz) - trilinear(a, px - d, py, pz);
-    const float gy = trilinear(a, px, py + d, pz) - trilinear(a, px, py - d, pz);
-    const float gz = trilinear(a, px, py, pz + d) - trilinear(a, px, py, pz - d);
+    const float gx = trilinear<false>(a, px + d, py, pz) -
+                     trilinear<false>(a, px - d, py, pz);
+    const float gy = trilinear<false>(a, px, py + d, pz) -
+                     trilinear<false>(a, px, py - d, pz);
+    const float gz = trilinear<false>(a, px, py, pz + d) -
+                     trilinear<false>(a, px, py, pz - d);
     const float4 sh = shade<false>(a, c, px, py, pz, gx, gy, gz, dx, dy, dz,
                                    ox, oy, oz);
     r += T * sh.x;

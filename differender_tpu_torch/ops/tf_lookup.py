@@ -1,16 +1,22 @@
-"""Transfer-function lookup: kernel K0 ``tf_lookup_fwd`` (counterpart of
-``differender_tpu/ops/tf_lookup.py``, forward only).
+"""Transfer-function lookup with its gradient: kernels K0 ``tf_lookup_fwd``
+and K0b ``tf_lookup_bwd`` (counterpart of
+``differender_tpu/ops/tf_lookup.py``).
 
-``tf_lookup`` launches the CUDA kernel in ``csrc/tf_lookup.cu`` on a CUDA
-tensor and takes the plain version on a CPU tensor.  The march kernels K1
-and K3 use the same lerp (``csrc/tf_lerp.cuh``) at every sample.
+``tf_lookup`` is a ``torch.autograd.Function``.  On CUDA tensors its forward
+launches K0 and its backward K0b, both in ``csrc/tf_lookup.cu``; on CPU
+tensors they take the plain versions :func:`tf_lookup_reference` and
+:func:`tf_lookup_bwd_reference`.  The gradient is the Pallas kernel's
+(``_bwd_kernel``): ``d_intensity`` is kept only where ``0 < i*(R-1) < R-1``
+on the raw t, which keeps the slope at interior integer t, unlike the march's
+``frac > 0`` rule (``sampling.tf_lerp_bwd``).  The march kernels K1, K2 and
+K3 use the same lerp and lerp backward (``csrc/tf_lerp.cuh``) per sample.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from ..sampling import apply_tf
+from ..sampling import apply_tf, tf_lerp_bwd
 
 
 def tf_lookup_reference(tf: torch.Tensor,
@@ -20,33 +26,95 @@ def tf_lookup_reference(tf: torch.Tensor,
     return apply_tf(tf, intensity)
 
 
-def tf_lookup(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
-    """RGBA lookup of ``intensity`` (any shape) in ``tf`` (R, 4) f32.
+def tf_lookup_bwd_reference(tf: torch.Tensor, intensity: torch.Tensor,
+                            g: torch.Tensor):
+    """Plain torch version of the backward: ``(d_tf (R, 4), d_intensity)``
+    for the output cotangent ``g`` (..., 4), with the Pallas kernel's mask."""
+    return tf_lerp_bwd(tf, intensity, g, "pallas")
 
-    On CUDA tensors this launches K0 on PyTorch's current stream and counts
-    the launch in ``tf_lookup.launches``; on CPU tensors it returns
-    :func:`tf_lookup_reference`.
-    """
-    if _build.uses_plain(intensity):
-        return tf_lookup_reference(tf, intensity)
+
+def _check(tf, intensity):
     if tf.device != intensity.device:
         raise ValueError(f"tf on {tf.device}, intensity on {intensity.device}")
     if tf.dtype != torch.float32 or intensity.dtype != torch.float32:
         raise TypeError("tf_lookup takes float32 tf and intensity")
     if tf.ndim != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
         raise ValueError(f"tf must be (R, 4); got {tuple(tf.shape)}")
-    tf = tf.contiguous()
+    tf = tf.detach().contiguous()
     if tf.data_ptr() % 16:
         tf = tf.clone()          # float4 loads need 16-byte alignment
-    flat = intensity.contiguous().reshape(-1)
+    return tf, intensity.detach().contiguous().reshape(-1)
+
+
+def tf_lookup_fwd(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
+    """The forward: K0 on CUDA tensors (counted in
+    ``tf_lookup_fwd.launches``), :func:`tf_lookup_reference` on CPU."""
+    if _build.uses_plain(intensity):
+        return tf_lookup_reference(tf, intensity)
+    tf, flat = _check(tf, intensity)
     out = torch.empty(flat.shape + (4,), dtype=torch.float32,
                       device=flat.device)
     _build.check(_build.library().dr_tf_lookup_fwd(
         flat.data_ptr(), tf.data_ptr(), out.data_ptr(), flat.numel(),
         tf.shape[0], flat.device.index, _build.stream_of(flat)),
         "tf_lookup_fwd")
-    tf_lookup.launches += 1
+    tf_lookup_fwd.launches += 1
     return out.reshape(tuple(intensity.shape) + (4,))
 
 
-tf_lookup.launches = 0
+tf_lookup_fwd.launches = 0
+
+
+def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
+                  g: torch.Tensor):
+    """The backward: K0b on CUDA tensors (counted in
+    ``tf_lookup_bwd.launches``), :func:`tf_lookup_bwd_reference` on CPU.
+    Returns ``(d_tf (R, 4), d_intensity)``; ``d_tf`` is summed with f32
+    atomics, so its last bits vary from run to run."""
+    if _build.uses_plain(intensity):
+        return tf_lookup_bwd_reference(tf, intensity, g)
+    tf, flat = _check(tf, intensity)
+    if g.device != flat.device or g.dtype != torch.float32:
+        raise TypeError(f"g must be float32 on {flat.device}")
+    if tuple(g.shape) != tuple(intensity.shape) + (4,):
+        raise ValueError(f"g must have shape {tuple(intensity.shape) + (4,)};"
+                         f" got {tuple(g.shape)}")
+    g = g.detach().contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()            # float4 loads need 16-byte alignment
+    d_int = torch.empty_like(flat)
+    d_tf = torch.zeros_like(tf)
+    _build.check(_build.library().dr_tf_lookup_bwd(
+        flat.data_ptr(), tf.data_ptr(), g.data_ptr(), d_int.data_ptr(),
+        d_tf.data_ptr(), flat.numel(), tf.shape[0], flat.device.index,
+        _build.stream_of(flat)), "tf_lookup_bwd")
+    tf_lookup_bwd.launches += 1
+    return d_tf, d_int.reshape(intensity.shape)
+
+
+tf_lookup_bwd.launches = 0
+
+
+class _TfLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tf, intensity):
+        ctx.save_for_backward(tf, intensity)
+        return tf_lookup_fwd(tf, intensity)
+
+    @staticmethod
+    def backward(ctx, g):
+        tf, intensity = ctx.saved_tensors
+        d_tf, d_int = tf_lookup_bwd(tf, intensity, g)
+        need_tf, need_int = ctx.needs_input_grad
+        return (d_tf if need_tf else None), (d_int if need_int else None)
+
+
+def tf_lookup(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
+    """RGBA lookup of ``intensity`` (any shape) in ``tf`` (R, 4) f32,
+    differentiable in both.  K0 forward and K0b backward on CUDA tensors, on
+    PyTorch's current stream; the plain versions on CPU tensors."""
+    return _TfLookup.apply(tf, intensity)
+
+
+__all__ = ["tf_lookup", "tf_lookup_fwd", "tf_lookup_bwd",
+           "tf_lookup_reference", "tf_lookup_bwd_reference"]

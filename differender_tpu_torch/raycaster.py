@@ -4,6 +4,9 @@
 Inputs: volume ``([BS,] 1, D, H, W)``, transfer function ``([BS,] 4, R)``,
 camera ``([BS,] 3)``; if any of them is batched, all are broadcast to the
 batch.  Output ``([BS,] 4, H, W)``.  A batch is a Python loop over views.
+``forward`` is differentiable with respect to the volume and the TF (an
+unbatched input broadcast over a batch gets the sum of its views'
+gradients); the camera gets no gradient, as in the reference.
 """
 from __future__ import annotations
 
@@ -114,9 +117,10 @@ class Raycaster(nn.Module):
 
     def forward(self, volume, tf, look_from, u: Optional[torch.Tensor] = None,
                 sampling_rate: Optional[float] = None) -> torch.Tensor:
-        """Differentiable-path render (forward only); returns
-        ``([BS,] 4, H, W)``.  ``u`` ((H, W), or (BS, H, W) for a batch)
-        jitters ray starts with the given draw."""
+        """Differentiable-path render; returns ``([BS,] 4, H, W)``,
+        differentiable with respect to ``volume`` and ``tf``.  ``u``
+        ((H, W), or (BS, H, W) for a batch) jitters ray starts with the
+        given draw."""
         return self.forward_with_aux(volume, tf, look_from, u,
                                      sampling_rate).image
 

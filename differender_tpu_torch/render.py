@@ -1,13 +1,17 @@
-"""The ray-march renderer, forward paths (counterpart of
-``differender_tpu/render.py``).
+"""The ray-march renderer (counterpart of ``differender_tpu/render.py``).
 
-``march_diff`` runs kernel K1 (``march_diff_fwd``) and ``march_nondiff``
-kernel K3 (``march_nondiff``), both in ``csrc/march.cu``, on CUDA tensors.
-On CPU tensors each takes its plain sequential version beside it, which the
-tests hold against the JAX package and ``chip_smoke.py`` holds the kernels
-against on the card.  Both versions march each ray front to back and carry
-the transmittance ``T`` multiplicatively: a step composites while
-``T > f32(1 - ert_threshold)``, and the image alpha is ``1 - T``.
+``march_diff`` is a ``torch.autograd.Function``: on CUDA tensors its forward
+is kernel K1 (``march_diff_fwd``, ``csrc/march.cu``) and its backward kernel
+K2 (``march_diff_bwd``, ``csrc/march_bwd.cu``), which recomputes the march
+and scatters ``d_volume`` and ``d_tf``.  ``march_nondiff`` is kernel K3
+(``csrc/march.cu``).  On CPU tensors each takes its plain sequential version
+beside it, which the tests hold against the JAX package and
+``chip_smoke.py`` holds the kernels against on the card; the plain
+differentiable march is differentiated by autograd.  Every version marches
+each ray front to back and carries the transmittance ``T``
+multiplicatively: a step composites while ``T > f32(1 - ert_threshold)``,
+and the image alpha is ``1 - T``.  Gradients flow to the volume and the TF,
+never to the camera (as in the reference).
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 from . import _build
 from .config import RenderConfig
 from .geometry import RayBundle, make_rays, march_params
-from .sampling import apply_tf, sample_with_gradient, trilinear, voxel_scale
+from .sampling import (TF_DOT_MAX_TEXELS, apply_tf, march_tf,
+                       sample_with_gradient, trilinear, voxel_scale)
 from .shading import shade
 
 
@@ -55,7 +60,9 @@ def _ray_soa(rays: RayBundle):
 def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
                  nondiff):
     """Sequential march over the rays still alive; returns the flat
-    composite ``(rgb, T)`` and per-ray counts ``(visited, composited)``."""
+    composite ``(rgb, T)`` and per-ray counts ``(visited, composited)``.
+    Out of place, so autograd differentiates it when the volume or the TF
+    requires grad (the differentiable path's TF is :func:`march_tf`)."""
     origin = rays.origin.to(torch.float32)
     dirs, t0, dt, _ = _ray_soa(rays)
     N = dirs.shape[0]
@@ -71,7 +78,7 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
     while True:
         alive = limit[idx] > s
         if ert:
-            alive &= T[idx] > thr
+            alive &= T.detach()[idx] > thr
         idx = idx[alive]
         if idx.numel() == 0:
             break
@@ -86,25 +93,28 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
         else:
             intensity, grad = sample_with_gradient(volume, pos,
                                                    config.normal_delta)
-            rgba = apply_tf(tf, intensity)
+            rgba = march_tf(tf, intensity)
             on = idx
         shaded = shade(pos, grad, rgba, dirs[on], origin, sampling_rate,
                        config, clamp_light=not nondiff)
         Ti = T[on]
-        rgb[on] += Ti[:, None] * shaded[:, :3]
-        T[on] = Ti * (1.0 - shaded[:, 3])
+        rgb = rgb.index_add(0, on, Ti[:, None] * shaded[:, :3])
+        T = T.index_copy(0, on, Ti * (1.0 - shaded[:, 3]))
         composited[on] += 1
         s += 1
     return rgb, T, visited, composited
 
 
-@torch.no_grad()
 def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
                      rays: RayBundle, config: RenderConfig, sampling_rate,
                      ert: bool = True):
-    """Plain torch differentiable-path march (forward).  Marches samples
+    """Plain torch differentiable-path march.  Marches samples
     ``s < min(n, max_samples)`` with the headlight clamped; returns
-    ``(image (H, W, 4), valid_steps (H, W) int32)``."""
+    ``(image (H, W, 4), valid_steps (H, W) int32)``.  Autograd
+    differentiates it through the shading and TF rules of
+    :mod:`~differender_tpu_torch.shading` and
+    :mod:`~differender_tpu_torch.sampling`: it is K2's oracle, not a
+    hand-derived backward."""
     H, W = config.image_shape
     limit = torch.clamp(rays.n_samples.reshape(-1), max=config.max_samples)
     rgb, T, _, comp = _plain_march(volume, tf, rays, config, sampling_rate,
@@ -136,7 +146,7 @@ def march_nondiff_plain(volume: torch.Tensor, tf: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class _MarchArgs(ctypes.Structure):
-    """Mirror of ``struct MarchArgs`` in ``csrc/march.cu``."""
+    """Mirror of ``struct MarchArgs`` in ``csrc/march_common.cuh``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "dx", "dy", "dz", "t0", "dt", "n", "volume", "tf", "origin",
         "image", "steps", "shaded")]
@@ -148,6 +158,12 @@ class _MarchArgs(ctypes.Structure):
             "lc_r", "lc_g", "lc_b", "alpha_skip")])
 
 
+class _MarchBwdArgs(ctypes.Structure):
+    """Mirror of ``struct MarchBwdArgs`` in ``csrc/march_bwd.cu``."""
+    _fields_ = [("f", _MarchArgs)] + [(f, ctypes.c_void_p) for f in (
+        "grad", "d_volume", "d_tf")]
+
+
 def _checked(name, t, dev, shape=None, dtype=torch.float32):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}; the volume on {dev}")
@@ -156,12 +172,15 @@ def _checked(name, t, dev, shape=None, dtype=torch.float32):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}; "
                          f"got {tuple(t.shape)}")
-    return t.contiguous()
+    return t.detach().contiguous()
 
 
-def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
-                  max_steps, with_shaded):
-    """Validate, allocate the outputs and launch one march kernel."""
+def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
+                image, steps, shaded=None):
+    """Validate the operands and fill ``MarchArgs``.  Returns the struct and
+    the tensors it points into, which the caller keeps referenced until the
+    launch is enqueued (the caching allocator keeps their memory for the
+    stream after that)."""
     dev = volume.device
     H, W = config.image_shape
     volume = _checked("volume", volume, dev, config.volume_shape)
@@ -177,11 +196,9 @@ def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
     t0 = _checked("t0", t0, dev, (H * W,))
     dt = _checked("dt", dt, dev, (H * W,))
     n = _checked("n_samples", n, dev, (H * W,), torch.int32)
-
-    image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
-    steps = torch.empty((H, W), dtype=torch.int32, device=dev)
-    shaded = (torch.empty((H, W), dtype=torch.int32, device=dev)
-              if with_shaded else None)
+    image = _checked("image", image, dev, (H, W, 4))
+    if image.data_ptr() % 16:
+        image = image.clone()    # float4 loads need 16-byte alignment
     scale = voxel_scale(config.volume_shape)
     X, Y, Z = config.volume_shape
     lc = config.light_color
@@ -197,29 +214,150 @@ def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
         _ert_threshold(config), config.ambient, config.diffuse,
         config.specular, config.shininess, lc[0], lc[1], lc[2],
         config.alpha_skip)
+    return args, (volume, tf, origin, dx, dy, dz, t0, dt, n, image)
+
+
+def _launch(entry, args, volume):
     fn = getattr(_build.library(), entry)
-    # The tensors above stay referenced until the launch is enqueued; the
-    # caching allocator keeps their memory for the stream after that.
-    _build.check(fn(ctypes.byref(args), dev.index,
+    _build.check(fn(ctypes.byref(args), volume.device.index,
                     _build.stream_of(volume)), entry)
+
+
+def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
+                  max_steps, with_shaded):
+    """Allocate the outputs and launch one forward march kernel."""
+    H, W = config.image_shape
+    dev = volume.device
+    image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+    steps = torch.empty((H, W), dtype=torch.int32, device=dev)
+    shaded = (torch.empty((H, W), dtype=torch.int32, device=dev)
+              if with_shaded else None)
+    args, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
+                             max_steps, image, steps, shaded)
+    _launch(entry, args, keep[0])
     return image, steps, shaded
+
+
+def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
+                   config: RenderConfig, sampling_rate, ert: bool = True):
+    """Kernel K1 on CUDA tensors (one launch, counted in
+    ``march_diff_fwd.launches``), :func:`march_diff_plain` on CPU tensors.
+    Returns ``(image (H, W, 4), valid_steps (H, W))``; no autograd."""
+    if _build.uses_plain(volume):
+        with torch.no_grad():
+            return march_diff_plain(volume, tf, rays, config, sampling_rate,
+                                    ert)
+    image, steps, _ = _launch_march(
+        "dr_march_diff_fwd", volume, tf, rays, config, sampling_rate, ert,
+        config.max_samples, with_shaded=False)
+    march_diff_fwd.launches += 1
+    return image, steps
+
+
+march_diff_fwd.launches = 0
+
+
+def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
+                         rays: RayBundle, config: RenderConfig,
+                         sampling_rate, grad: torch.Tensor,
+                         ert: bool = True):
+    """Plain version of K2: autograd of :func:`march_diff_plain` for the
+    image cotangent ``grad`` (H, W, 4).  Returns ``(d_volume, d_tf,
+    valid_steps)``."""
+    with torch.enable_grad():
+        v = volume.detach().requires_grad_(True)
+        t = tf.detach().requires_grad_(True)
+        image, steps = march_diff_plain(v, t, rays, config, sampling_rate,
+                                        ert)
+        d_v, d_t = torch.autograd.grad(image, (v, t), grad,
+                                       allow_unused=True)
+    d_v = torch.zeros_like(volume) if d_v is None else d_v
+    d_t = torch.zeros_like(tf) if d_t is None else d_t
+    return d_v, d_t, steps
+
+
+def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
+                   config: RenderConfig, sampling_rate, image: torch.Tensor,
+                   grad: torch.Tensor, ert: bool = True, *,
+                   scattered: Optional[torch.Tensor] = None):
+    """Backward of the differentiable march for the image cotangent
+    ``grad`` (H, W, 4): kernel K2 on CUDA tensors (one launch, counted in
+    ``march_diff_bwd.launches``), :func:`march_diff_bwd_plain` on CPU.
+
+    ``image`` is K1's output for the same inputs: K2 recomputes the march
+    front to back, bitwise as K1 marched it, and needs the finished
+    composite to know each sample's share of what lies behind it.  Returns
+    ``(d_volume (X, Y, Z), d_tf (R, 4), valid_steps (H, W))``, the last
+    counted by K2 itself.  ``d_volume`` and ``d_tf`` are summed with f32
+    atomics, so their last bits vary from run to run.  ``scattered``, an
+    (H, W) int32 tensor beside the volume, receives each ray's count of
+    samples that add anything to ``d_volume`` (K2 only: the operation
+    count of its bound in ``chip_smoke.py``)."""
+    if _build.uses_plain(volume):
+        if scattered is not None:
+            raise ValueError("scattered is counted by kernel K2 only; "
+                             "the volume is on the CPU")
+        return march_diff_bwd_plain(volume, tf, rays, config, sampling_rate,
+                                    grad, ert)
+    H, W = config.image_shape
+    dev = volume.device
+    steps = torch.empty((H, W), dtype=torch.int32, device=dev)
+    if scattered is not None:
+        _checked("scattered", scattered, dev, (H, W), torch.int32)
+        if not scattered.is_contiguous():
+            raise ValueError("scattered must be contiguous")
+    fwd, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
+                            config.max_samples, image, steps, scattered)
+    grad = _checked("image cotangent", grad, dev, (H, W, 4))
+    if grad.data_ptr() % 16:
+        grad = grad.clone()      # float4 loads need 16-byte alignment
+    d_volume = torch.zeros(config.volume_shape, dtype=torch.float32,
+                           device=dev)
+    d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
+    args = _MarchBwdArgs(fwd, grad.data_ptr(), d_volume.data_ptr(),
+                         d_tf.data_ptr())
+    _launch("dr_march_diff_bwd", args, keep[0])
+    march_diff_bwd.launches += 1
+    return d_volume, d_tf, steps
+
+
+march_diff_bwd.launches = 0
+
+
+class _MarchDiff(torch.autograd.Function):
+    """K1 forward, K2 backward.  Saves the inputs and the image (O(H*W)
+    state beside the volume); ``valid_steps`` is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, volume, tf, rays, config, sampling_rate, ert):
+        image, steps = march_diff_fwd(volume, tf, rays, config,
+                                      sampling_rate, ert)
+        ctx.save_for_backward(volume, tf, image)
+        ctx.march = (rays, config, sampling_rate, ert)
+        ctx.mark_non_differentiable(steps)
+        return image, steps
+
+    @staticmethod
+    def backward(ctx, g_image, _g_steps):
+        volume, tf, image = ctx.saved_tensors
+        rays, config, sampling_rate, ert = ctx.march
+        d_volume, d_tf, _ = march_diff_bwd(volume, tf, rays, config,
+                                           sampling_rate, image, g_image,
+                                           ert)
+        need_v, need_t = ctx.needs_input_grad[:2]
+        return (d_volume if need_v else None, d_tf if need_t else None,
+                None, None, None, None)
 
 
 def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                config: RenderConfig, sampling_rate, ert: bool = True):
-    """Differentiable-path march, forward: kernel K1 on CUDA tensors (one
-    launch, counted in ``march_diff.launches``), :func:`march_diff_plain`
-    on CPU tensors.  Returns ``(image (H, W, 4), valid_steps (H, W))``."""
+    """Differentiable-path march, differentiable in ``volume`` and ``tf``:
+    K1 forward and K2 backward on CUDA tensors, :func:`march_diff_plain`
+    (differentiated by autograd) on CPU tensors.  Returns
+    ``(image (H, W, 4), valid_steps (H, W))``."""
     if _build.uses_plain(volume):
         return march_diff_plain(volume, tf, rays, config, sampling_rate, ert)
-    image, steps, _ = _launch_march(
-        "dr_march_diff_fwd", volume, tf, rays, config, sampling_rate, ert,
-        config.max_samples, with_shaded=False)
-    march_diff.launches += 1
-    return image, steps
-
-
-march_diff.launches = 0
+    return _MarchDiff.apply(volume, tf, rays, config, sampling_rate, ert)
 
 
 def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
@@ -245,13 +383,10 @@ march_nondiff.launches = 0
 # ---------------------------------------------------------------------------
 
 def _inputs(volume, tf, look_from, config):
-    if torch.is_grad_enabled() and (volume.requires_grad
-                                    or tf.requires_grad):
-        raise NotImplementedError(
-            "gradients of the render are not ported yet; call under "
-            "torch.no_grad() or pass tensors that do not require grad")
+    """f32 views of the inputs; the camera never gets a gradient."""
     dev = volume.device
-    look_from = torch.as_tensor(look_from, dtype=torch.float32, device=dev)
+    look_from = torch.as_tensor(look_from, dtype=torch.float32,
+                                device=dev).detach()
     return volume.to(torch.float32), tf.to(torch.float32), look_from
 
 
@@ -260,7 +395,7 @@ def render(volume: torch.Tensor, tf: torch.Tensor, look_from,
            u: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None,
            ert: bool = True) -> RenderOutput:
-    """Differentiable-path render of one view, forward only.
+    """Differentiable-path render of one view.
 
     Args:
         volume: (X, Y, Z) f32 volume, internal axis order.
@@ -273,7 +408,9 @@ def render(volume: torch.Tensor, tf: torch.Tensor, look_from,
             draw ``u`` from when ``u`` is not given.  With neither there is
             no jitter.
         ert: early ray termination.
-    Runs where ``volume`` lives: kernel K1 on CUDA, the plain march on CPU.
+    Runs where ``volume`` lives: kernels K1 (forward) and K2 (backward) on
+    CUDA, the plain march on CPU.  The image is differentiable with respect
+    to ``volume`` and ``tf``; ``look_from`` gets no gradient.
     """
     sr = config.sampling_rate if sampling_rate is None else sampling_rate
     volume, tf, look_from = _inputs(volume, tf, look_from, config)
@@ -306,6 +443,30 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
                         n_samples=rays.n_samples)
 
 
-__all__ = ["RenderOutput", "march_diff", "march_diff_plain",
-           "march_nondiff", "march_nondiff_plain", "render",
-           "render_nondiff"]
+def value_and_grad_render(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                          config: RenderConfig, loss_fn,
+                          sampling_rate: Optional[float] = None,
+                          u: Optional[torch.Tensor] = None, ert: bool = True,
+                          loss_args: tuple = ()):
+    """Loss and ``(d_volume, d_tf)`` of ``loss_fn(render(...), *loss_args)``.
+
+    The counterpart of ``differender_tpu/render.py::value_and_grad_render``.
+    K2 holds only O(H*W) state beside the volume, so one strategy serves
+    every size: ``config.use_blockwise_grad()`` changes nothing here.
+    ``u`` takes the place of the JAX package's jitter key.  Returns
+    ``(loss, (d_volume, d_tf))``, all detached."""
+    v = volume.detach().to(torch.float32).requires_grad_(True)
+    t = tf.detach().to(torch.float32).requires_grad_(True)
+    with torch.enable_grad():
+        out = render(v, t, look_from, config, sampling_rate, u=u, ert=ert)
+        loss = loss_fn(out, *loss_args)
+        d_v, d_t = torch.autograd.grad(loss, (v, t), allow_unused=True)
+    d_v = torch.zeros_like(v) if d_v is None else d_v
+    d_t = torch.zeros_like(t) if d_t is None else d_t
+    return loss.detach(), (d_v, d_t)
+
+
+__all__ = ["RenderOutput", "march_diff", "march_diff_fwd", "march_diff_bwd",
+           "march_diff_plain", "march_diff_bwd_plain", "march_nondiff",
+           "march_nondiff_plain", "render", "render_nondiff",
+           "value_and_grad_render"]

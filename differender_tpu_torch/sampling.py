@@ -1,8 +1,10 @@
 """Volume sampling and transfer-function lookup, the plain torch versions
 (counterpart of ``differender_tpu/sampling.py``).
 
-These are the per-op oracles of the march kernels in ``csrc/march.cu``,
-which repeat the same f32 arithmetic per thread.  Flat voxel offsets are
+These are the per-op oracles of the march kernels in ``csrc/march.cu`` and
+``csrc/march_bwd.cu``, which repeat the same f32 arithmetic per thread.
+Sampling is differentiable by autograd of its gathers; the TF lookup keeps
+the JAX package's two VJP rules (:func:`march_tf`).  Flat voxel offsets are
 int64: ``(x*Y + y)*Z + z`` overflows int32 soon after 1024^3.
 """
 from __future__ import annotations
@@ -65,8 +67,12 @@ def corner_flat_weights(pos: torch.Tensor, volume_shape):
 def trilinear(volume: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Trilinear sample of ``volume`` (X, Y, Z) at ``pos`` (..., 3)."""
     flat, w = corner_flat_weights(pos, tuple(volume.shape))
-    vals = volume.reshape(-1)[flat]
-    return torch.sum(vals * w, dim=-1)
+    terms = volume.reshape(-1)[flat] * w
+    # Corner by corner, in the kernels' order and rounding.
+    out = terms[..., 0]
+    for c in range(1, 8):
+        out = out + terms[..., c]
+    return out
 
 
 def sample_with_gradient(volume: torch.Tensor, pos: torch.Tensor,
@@ -85,9 +91,14 @@ def sample_with_gradient(volume: torch.Tensor, pos: torch.Tensor,
 def apply_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
     """1D linear RGBA lookup into ``tf`` (R, 4): ``t = max(i*(R-1), 0)``,
     ``low = min(floor t, R-1)``, ``high = min(low+1, R-1)``, so intensities
-    outside [0, 1] clamp to the end texels.  Returns ``(..., 4)``."""
+    outside [0, 1] clamp to the end texels.  Returns ``(..., 4)``.
+
+    Its gradient is plain autograd of the gather-lerp, the rule of the JAX
+    march's TF for R > 1024 (``sampling.py::apply_tf_soa``): the slope
+    ``tf[high] - tf[low]`` at every t, half of it at ``i == 0`` (the tie of
+    ``max``)."""
     R = tf.shape[0]
-    t = torch.clamp(intensity * float(R - 1), min=0.0)
+    t = torch.maximum(intensity * float(R - 1), intensity.new_zeros(()))
     low_f = torch.floor(t)
     frac = (t - low_f)[..., None]
     low = torch.clamp(low_f, max=float(R - 1)).to(torch.int64)
@@ -95,6 +106,85 @@ def apply_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
     return tf[low] * (1.0 - frac) + tf[high] * frac
 
 
+def tf_lerp_bwd(tf: torch.Tensor, intensity: torch.Tensor, g: torch.Tensor,
+                mask: str):
+    """Both cotangents of the TF lerp for the cotangent ``g`` (..., 4);
+    returns ``(d_tf (R, 4), d_intensity (...))``.
+
+    ``d_tf`` puts ``(1 - frac) g`` on ``low`` and ``frac g`` on ``high``
+    (the lerp's weights).  ``d_intensity = ((tf[high] - tf[low]) . g)
+    * (R-1)`` where ``mask`` allows it, else 0:
+
+    * ``"dot"`` -- where ``frac > 0``: the VJP of the JAX march's TF for
+      R <= 1024 (``sampling.py::_apply_tf_dot_bwd``), zero at integer t and
+      at the clipped ends;
+    * ``"pallas"`` -- where ``0 < i*(R-1) < R-1`` on the raw t: the Pallas
+      kernel ``ops/tf_lookup.py::_bwd_kernel``.
+
+    The same rules, and autograd's rule of :func:`apply_tf`, are the modes
+    of ``tf_lerp_bwd`` in ``csrc/tf_lerp.cuh``."""
+    R = tf.shape[0]
+    shape = intensity.shape
+    x = intensity.reshape(-1)
+    gm = g.reshape(-1, 4)
+    t_raw = x * float(R - 1)
+    t = torch.clamp(t_raw, min=0.0)
+    low_f = torch.floor(t)
+    frac = t - low_f
+    low = torch.clamp(low_f, max=float(R - 1)).to(torch.int64)
+    high = torch.clamp(low + 1, max=R - 1)
+    d_tf = torch.zeros_like(tf)
+    d_tf.index_add_(0, low, (1.0 - frac)[:, None] * gm)
+    d_tf.index_add_(0, high, frac[:, None] * gm)
+    slope = (tf[high] - tf[low]) * gm
+    d_t = slope[:, 0] + slope[:, 1] + slope[:, 2] + slope[:, 3]
+    if mask == "dot":
+        keep = frac > 0.0
+    elif mask == "pallas":
+        keep = (t_raw > 0.0) & (t_raw < float(R - 1))
+    else:
+        raise ValueError(f"mask must be 'dot' or 'pallas'; got {mask!r}")
+    d_int = torch.where(keep, d_t * float(R - 1), torch.zeros_like(d_t))
+    return d_tf, d_int.reshape(shape)
+
+
+class _ApplyTfDot(torch.autograd.Function):
+    """:func:`apply_tf` values with the ``"dot"`` VJP of
+    :func:`tf_lerp_bwd`."""
+
+    @staticmethod
+    def forward(ctx, tf, intensity):
+        ctx.save_for_backward(tf, intensity)
+        return apply_tf(tf, intensity)
+
+    @staticmethod
+    def backward(ctx, g):
+        tf, intensity = ctx.saved_tensors
+        d_tf, d_int = tf_lerp_bwd(tf, intensity, g, "dot")
+        need_tf, need_int = ctx.needs_input_grad
+        return (d_tf if need_tf else None), (d_int if need_int else None)
+
+
+def apply_tf_dot(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
+    """The JAX march's TF for R <= 1024 (``sampling.py::apply_tf_dot``):
+    the values of :func:`apply_tf`, its own VJP (``"dot"`` rule)."""
+    return _ApplyTfDot.apply(tf, intensity)
+
+
+# The JAX march takes the MXU-dot TF up to this many texels and the
+# gather-lerp above it (differender_tpu/render.py:213-217).
+TF_DOT_MAX_TEXELS = 1024
+
+
+def march_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
+    """The differentiable march's TF lookup: :func:`apply_tf_dot` for
+    R <= 1024, :func:`apply_tf` above, so each R gets its JAX gradient."""
+    if tf.shape[0] <= TF_DOT_MAX_TEXELS:
+        return apply_tf_dot(tf, intensity)
+    return apply_tf(tf, intensity)
+
+
 __all__ = ["voxel_scale", "voxel_coords", "corner_indices_weights",
            "corner_flat_weights", "trilinear", "sample_with_gradient",
-           "apply_tf"]
+           "apply_tf", "apply_tf_dot", "march_tf", "tf_lerp_bwd",
+           "TF_DOT_MAX_TEXELS"]

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import differender_tpu_torch as P
-from differender_tpu_torch.render import _MarchArgs
+from differender_tpu_torch.render import _MarchArgs, _MarchBwdArgs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "differender_tpu_torch")
@@ -61,10 +61,13 @@ def test_cpu_tensors_never_launch():
                          tf_resolution=16, max_samples=8)
     tf = P.get_tf("tf1", 16, device="cpu")
     lf = torch.tensor([1.2, 0.8, 2.0])
-    P.render(vol, tf, lf, cfg)
+    vol.requires_grad_(True)
+    tf.requires_grad_(True)
+    P.render(vol, tf, lf, cfg).image.sum().backward()
     P.render_nondiff(vol, tf, lf, cfg)
-    P.tf_lookup(tf, torch.rand(10))
-    assert P.launch_counts() == {"tf_lookup_fwd": 0, "march_diff_fwd": 0,
+    P.tf_lookup(tf, torch.rand(10)).sum().backward()
+    assert P.launch_counts() == {"tf_lookup_fwd": 0, "tf_lookup_bwd": 0,
+                                 "march_diff_fwd": 0, "march_diff_bwd": 0,
                                  "march_nondiff": 0}
 
 
@@ -99,13 +102,24 @@ def test_meta_tensors_are_refused():
 def test_march_args_mirror_the_c_struct():
     """The ctypes mirror lists the fields of ``struct MarchArgs`` in order,
     so the kernel reads each argument where Python wrote it."""
-    with open(os.path.join(PKG, "csrc", "march.cu")) as f:
+    with open(os.path.join(PKG, "csrc", "march_common.cuh")) as f:
         src = f.read()
     body = re.search(r"struct MarchArgs \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     c_fields = re.findall(r"(\w+)\s*[,;]", body)
     assert c_fields == [name for name, _ in _MarchArgs._fields_]
     assert ctypes.sizeof(_MarchArgs) == 12 * 8 + 8 * 4 + 14 * 4
+
+
+def test_march_bwd_args_mirror_the_c_struct():
+    """K2's argument struct wraps K1's and adds three pointers, in order."""
+    with open(os.path.join(PKG, "csrc", "march_bwd.cu")) as f:
+        src = f.read()
+    body = re.search(r"struct MarchBwdArgs \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    c_fields = re.findall(r"(\w+)\s*[,;]", body)
+    assert c_fields == [name for name, _ in _MarchBwdArgs._fields_]
+    assert ctypes.sizeof(_MarchBwdArgs) == ctypes.sizeof(_MarchArgs) + 3 * 8
 
 
 def test_build_is_lazy_and_keyed_on_sources():
@@ -115,6 +129,8 @@ def test_build_is_lazy_and_keyed_on_sources():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library.cache_info().currsize == 0
+    for name in ("march_bwd.cu", "march_common.cuh"):
+        assert name in _build._SOURCES + _build._HEADERS
 
 
 def test_state_from_numpy_layouts():

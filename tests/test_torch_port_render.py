@@ -165,9 +165,36 @@ def test_march_diff_returns_plain_on_cpu(golden):
     assert bool((visited <= rays.n_samples).all())
 
 
-def test_render_refuses_requires_grad(golden):
+def test_render_grads_flow_on_cpu(golden):
+    """Gradients reach the volume and the TF, never the camera."""
     _, (vol, tf, lf), cfg = golden
-    with pytest.raises(NotImplementedError):
-        P.render(vol.clone().requires_grad_(), tf, lf, cfg)
+    vol = vol.clone().requires_grad_()
+    tf = tf.clone().requires_grad_()
+    lf = lf.clone().requires_grad_()
+    img = P.render(vol, tf, lf, cfg).image
+    assert img.requires_grad
+    img.square().mean().backward()
+    for g in (vol.grad, tf.grad):
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float(g.abs().max()) > 0.0
+    assert lf.grad is None
     with torch.no_grad():
-        P.render(vol.clone().requires_grad_(), tf, lf, cfg)
+        assert not P.render(vol, tf, lf, cfg).image.requires_grad
+
+
+def test_march_diff_bwd_is_plain_on_cpu(golden):
+    """On CPU tensors K2's wrapper is autograd of the plain march; the
+    per-ray count of scattering samples exists only in the kernel."""
+    _, (vol, tf, lf), cfg = golden
+    rays = P.make_rays(lf, cfg, 0.8)
+    image, _ = P.march_diff(vol, tf, rays, cfg, 0.8)
+    g = torch.from_numpy(np.random.default_rng(5).random(
+        image.shape, np.float32) - 0.3)
+    got = P.march_diff_bwd(vol, tf, rays, cfg, 0.8, image, g)
+    want = P.march_diff_bwd_plain(vol, tf, rays, cfg, 0.8, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="K2 only"):
+        P.march_diff_bwd(vol, tf, rays, cfg, 0.8, image, g,
+                         scattered=torch.zeros(cfg.image_shape,
+                                               dtype=torch.int32))

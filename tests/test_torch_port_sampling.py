@@ -1,6 +1,7 @@
 """Sampling, TF lookup, shading and TF presets of the torch port against the
 JAX package (CPU, f32)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -143,3 +144,107 @@ def test_scenes_match():
     np.testing.assert_array_equal(P.ct_phantom(24), jscenes.ct_phantom(24))
     np.testing.assert_array_equal(P.noise_volume(16, seed=3),
                                   jscenes.noise_volume(16, seed=3))
+
+
+# -- Gradients: the clamped unit-normal VJP and the march's two TF rules ------
+
+def test_unit_normal_vjp():
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=(200, 3)).astype(np.float32)
+    g[:10] = 0.0                                     # |g| = 0: clamped
+    g[10:20] *= 1e-8                                 # below the clamp
+    v = rng.normal(size=(200, 3)).astype(np.float32)
+    n_j, pull = jax.vjp(jsh.unit_normal, jnp.asarray(g))
+    (want,) = pull(jnp.asarray(v))
+    gt = torch.from_numpy(g).requires_grad_()
+    n_p = psh.unit_normal(gt)
+    (got,) = torch.autograd.grad(n_p, gt, torch.from_numpy(v))
+    np.testing.assert_allclose(n_p.detach().numpy(), np.asarray(n_j),
+                               atol=ATOL)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _tf_edge_intensities(R, rng):
+    """Random intensities plus t = 0, t < 0, t > R-1, t = R-1 and interior
+    t that land exactly on integers in f32 (the subgradient cases)."""
+    k = np.arange(1, R - 1, max(1, (R - 2) // 24), dtype=np.float32)
+    x = k / np.float32(R - 1)
+    on_int = x[(x * np.float32(R - 1)) == np.round(x * np.float32(R - 1))]
+    assert on_int.size > 0
+    return np.concatenate([
+        rng.random(400, np.float32), on_int,
+        np.array([0.0, 0.0, -0.3, 1.0, 1.3, 0.999999], np.float32)])
+
+
+@pytest.mark.parametrize("R", [17, 128, 2048])
+def test_march_tf_vjp_matches_jax(R):
+    """R <= 1024: the MXU-dot VJP (slope only where frac > 0); R > 1024:
+    AD of the gather-lerp (slope at every t, half at i = 0).  These are the
+    TF operands of the JAX march (render.py:213-217)."""
+    rng = np.random.default_rng(R)
+    tf = rng.random((R, 4), np.float32)
+    x = _tf_edge_intensities(R, rng)
+    g = rng.random((x.size, 4), np.float32) - 0.5
+    if R <= P.sampling.TF_DOT_MAX_TEXELS:
+        fn = js.apply_tf_dot
+    else:
+        def fn(t, i):
+            return jnp.stack(js.apply_tf_soa(js.tf_table8(t), i), axis=-1)
+    out_j, pull = jax.vjp(fn, jnp.asarray(tf), jnp.asarray(x))
+    want_tf, want_x = pull(jnp.asarray(g))
+    tt = torch.from_numpy(tf).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = ps.march_tf(tt, xt)
+    got_tf, got_x = torch.autograd.grad(out, (tt, xt), torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               atol=ATOL)
+    np.testing.assert_allclose(got_tf.numpy(), np.asarray(want_tf),
+                               atol=1e-5)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x),
+                               rtol=1e-5, atol=1e-4)
+    # The subgradient cases are where the two rules differ.
+    t = x * np.float32(R - 1)
+    at_int = (t == np.round(t)) & (t > 0) & (t < R - 1)
+    if R <= P.sampling.TF_DOT_MAX_TEXELS:
+        assert (got_x.numpy()[at_int] == 0).all()
+    else:
+        assert (got_x.numpy()[at_int] != 0).any()
+
+
+@pytest.mark.parametrize("clamp_light", [True, False])
+def test_shade_vjp_matches_jax(clamp_light):
+    """shade's gradients in the TF colour and the volume gradient: ties of
+    max/min split as in JAX, including a TF alpha of exactly 1."""
+    rng = np.random.default_rng(6)
+    n = 300
+    pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    grad = rng.normal(size=(n, 3)).astype(np.float32) * 0.3
+    grad[:20] = 0.0
+    rgba = rng.random((n, 4), np.float32)
+    rgba[20:40, 3] = 1.0
+    vd = rng.normal(size=(n, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    lf = np.array([1.2, 0.8, 2.0], np.float32)
+    cot = rng.random((n, 4), np.float32) - 0.5
+    kw = dict(volume_shape=SHAPE, image_shape=(4, 4))
+
+    def j_fn(g_, c_):
+        return jsh.shade(jnp.asarray(pos), g_, c_, jnp.asarray(vd),
+                         jnp.asarray(lf), 1.0, JConfig(**kw),
+                         clamp_light=clamp_light)
+
+    _, pull = jax.vjp(j_fn, jnp.asarray(grad), jnp.asarray(rgba))
+    want_g, want_c = pull(jnp.asarray(cot))
+    gt = torch.from_numpy(grad).requires_grad_()
+    ct = torch.from_numpy(rgba).requires_grad_()
+    out = psh.shade(torch.from_numpy(pos), gt, ct, torch.from_numpy(vd),
+                    torch.from_numpy(lf), 1.0, P.RenderConfig(**kw),
+                    clamp_light=clamp_light)
+    got_g, got_c = torch.autograd.grad(out, (gt, ct), torch.from_numpy(cot))
+    assert np.isfinite(got_g.numpy()).all()
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
+                               rtol=1e-4, atol=1e-4)

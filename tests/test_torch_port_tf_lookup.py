@@ -1,6 +1,7 @@
 """The port's TF lookup (K0's plain version) against the JAX package's
 reference and its Pallas kernel in interpret mode (CPU)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -63,3 +64,50 @@ def test_cpu_lookup_does_not_launch():
     tf, x = _data(64, 32, 2)
     P.tf_lookup(torch.from_numpy(tf), torch.from_numpy(x))
     assert P.launch_counts()["tf_lookup_fwd"] == 0
+
+
+def _int_t_data(n, R, seed):
+    """``_data`` plus intensities whose t = i*(R-1) is an exact integer in
+    f32: where the Pallas mask and the march's ``frac > 0`` rule differ."""
+    tf, x = _data(n, R, seed)
+    k = np.arange(1, R - 1, dtype=np.float32) / np.float32(R - 1)
+    k = k[(k * np.float32(R - 1)) == np.round(k * np.float32(R - 1))]
+    return tf, np.concatenate([x, k])
+
+
+@pytest.mark.parametrize("R", [32, 128])
+def test_grads_match_pallas_kernel(R):
+    """``tf_lookup``'s gradients against ``jax.grad`` of the Pallas kernel
+    (interpret mode), every intensity included: the raw mask
+    ``0 < i*(R-1) < R-1`` keeps the slope at interior integer t."""
+    tf, x = _int_t_data(3000, R, R + 2)
+    w = np.random.default_rng(R).random((x.size, 4), np.float32) - 0.5
+
+    def loss(t, i):
+        return jnp.sum(tf_lookup_pallas(t, i) * jnp.asarray(w))
+
+    with pltpu.force_tpu_interpret_mode():
+        want_tf, want_x = jax.grad(loss, argnums=(0, 1))(jnp.asarray(tf),
+                                                          jnp.asarray(x))
+    tt = torch.from_numpy(tf).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    torch.sum(P.tf_lookup(tt, xt) * torch.from_numpy(w)).backward()
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want_tf),
+                               atol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x),
+                               rtol=1e-5, atol=1e-4)
+    t = x * np.float32(R - 1)
+    at_int = (t == np.round(t)) & (t > 0) & (t < R - 1)
+    assert at_int.any() and (xt.grad.numpy()[at_int] != 0).all()
+    assert (xt.grad.numpy()[t <= 0] == 0).all()
+
+
+def test_bwd_reference_is_the_cpu_backward():
+    tf, x = _int_t_data(500, 64, 4)
+    g = np.random.default_rng(5).random((x.size, 4), np.float32)
+    d_tf, d_x = P.tf_lookup_bwd(torch.from_numpy(tf), torch.from_numpy(x),
+                                torch.from_numpy(g))
+    r_tf, r_x = P.tf_lookup_bwd_reference(
+        torch.from_numpy(tf), torch.from_numpy(x), torch.from_numpy(g))
+    assert torch.equal(d_tf, r_tf) and torch.equal(d_x, r_x)
+    assert P.launch_counts()["tf_lookup_bwd"] == 0
