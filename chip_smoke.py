@@ -23,7 +23,12 @@ Phases (one JSON line each):
      (summed over 16 tiles of 128^2 rays) and at a 128^2 image with ERT off
      and on; ``grad_step_ms``.
   4. march_nondiff (K3) through ``Raycaster.raycast_nondiff`` (sr 4) on both
-     scenes against ``march_nondiff_plain``.
+     scenes: one K6 and one K7 launch (the occupancy grid's build) and one
+     K3 launch that jumps over empty space; K3 without the grid against
+     ``march_nondiff_plain`` without it, K3 with the grid bitwise equal to
+     K3 without it (image and composited counts on every ray), and against
+     ``march_nondiff_plain`` with the grid; ``raycast_ms`` with the grid and
+     without it (``occupancy_skip=False``), timed alternately.
   5. profile: device time by kernel and the busy share of the forward, the
      gradient step and the inference render on the noise scene
      (torch.profiler).
@@ -32,7 +37,21 @@ Phases (one JSON line each):
   6. golden: the card's renders of the sphere fixtures of
      ``tests/golden_renders.npz``, and K2 on that sphere at sampling rate
      0.8 against the plain march and through ``value_and_grad_render``.
-  7. the ``kernels`` line, then the contract line as the last line.
+  7. bricks: brick_sums (K4) and brick_rows (K5), the three variants of the
+     TPU DMA probe ``experiments/exp_pallas_dma.py`` at its sizes and seeds
+     (256^3 volume, 32^3 bricks, 2048 origins aligned and unaligned, a
+     4096-brick table), against their plain versions at ``rtol=1e-5``, and
+     origins out of range giving NaN rows.
+  8. occupancy: cell_minmax (K6), cell_distance (K7) and ``build_occupancy``
+     at 256^3 on noise and ct_phantom, auto cell (2, max_dist 48) and cell 8
+     (max_dist 12): K6 and K7 equal to their plain versions, the card's grid
+     equal to the whole build on CPU copies of the volume and the TF.
+  9. viewer: the JAX package's inference example at full width (800^2,
+     sampling rate 16, tf1, camera (0, 1, -2.3)) on its synthetic volume and
+     ct_phantom at 256^3: K3 with the grid bitwise equal to K3 without it,
+     and against the plain march with the grid on the same 800^2 rays;
+     samples visited and ``raycast_ms`` with and without the grid.
+  10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
 check raises, so the script exits non-zero and prints no result.  It also
@@ -79,6 +98,10 @@ NONDIFF_VISIT_OPS = POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + 2
 NONDIFF_SHADE_OPS = (GRADIENT_POINTS_OPS + STENCIL_OPS + OPACITY_OPS
                      + SHADE_OPS - 1 + COMPOSITE_OPS - 1)
 TF_LOOKUP_OPS = TF_LERP_OPS
+# K3's occupancy lookup at a head sample: its position, the macrocell index
+# on 3 axes (scale, offset, clamp, multiply, divide, truncate, clamp), the
+# flat index, and the jump (d - 1, multiply, divide, cap, compare).
+JUMP_OPS = POSITION_OPS + 3 * 8 + 4 + 6
 # The backward of a TF lerp: t, max, floor, frac, the low/high clamps and
 # 1 - frac (7); 8 weight products and 8 accumulations into d_tf; the slope
 # (4 differences, 4 products, 3 sums), times R - 1, and the mask (3).
@@ -185,6 +208,32 @@ def main() -> int:
             sync()
             ts.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts)
+
+    def host_ms_ab(fa, fb, reps, warm=1):
+        """Median host times of ``fa`` and ``fb``, each ending in a
+        synchronize, called in turn so that the host's drifts hit both."""
+        for _ in range(warm):
+            fa()
+            fb()
+        sync()
+        ts = ([], [])
+        for _ in range(reps):
+            for fn, out in zip((fa, fb), ts):
+                t = time.perf_counter()
+                fn()
+                sync()
+                out.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts[0]), statistics.median(ts[1])
+
+    def timed_once(fn):
+        """``fn()`` and its device time by one pair of CUDA events."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        sync()
+        return out, a.elapsed_time(b)
 
     def profile(fn, reps=3):
         """Device time by kernel over ``reps`` calls of ``fn``, per call,
@@ -356,6 +405,9 @@ def main() -> int:
     res, img, R = 256, 512, 128
     rc = P.Raycaster((res, res, res), (img, img), R, sampling_rate=1.0,
                      jitter=True, max_samples=512, seed=0)
+    rc_off = P.Raycaster((res, res, res), (img, img), R, sampling_rate=1.0,
+                         jitter=True, max_samples=512, seed=0,
+                         occupancy_skip=False)
     cfg = rc.config
     tf_user = P.get_tf_torch_layout("tf1", R, device=dev)
     tf_i = P.tf_to_internal(tf_user).contiguous()
@@ -372,6 +424,19 @@ def main() -> int:
             replaces=replaces, launches=0, max_abs_err=0.0, library_ms=None)
     kernels["march_diff_bwd"]["replaces_note"] = (
         "the XLA VJP of march_diff (march_vjp='ad'): no Pallas kernel")
+    for name, src, replaces in (
+            ("brick_sums", "bricks.cu", "experiments/exp_pallas_dma.py:41"),
+            ("brick_rows", "bricks.cu", "experiments/exp_pallas_dma.py:72"),
+            ("cell_minmax", "bricks.cu", "differender_tpu/occupancy.py:88"),
+            ("cell_distance", "distance.cu",
+             "differender_tpu/occupancy.py:144")):
+        kernels[name] = dict(
+            route="cuda", source=f"differender_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=0, max_abs_err=0.0)
+    kernels["cell_minmax"]["replaces_note"] = (
+        "the reduce_window pair of _cell_minmax: XLA, no Pallas kernel")
+    kernels["cell_distance"]["replaces_note"] = (
+        "the dilation rounds of build_occupancy: XLA, no Pallas kernel")
 
     def record(name, scene, launches, max_err, k_ms, p_ms, b_ms, b_by):
         k = kernels[name]
@@ -396,6 +461,29 @@ def main() -> int:
         diff = int((got - want).abs().max())
         require(diff <= 1, f"{name}: a ray differs by {diff} samples")
         return diff
+
+    def grid_jumps(grid):
+        """Whether any cell lies at distance 2 or more: else K3 looks up
+        nothing (it reads the field's largest value on the device)."""
+        return int(grid.dist.max()) >= 2
+
+    def grid_read_bytes(grid):
+        """The distance field, if K3 reads it."""
+        return grid.dist.numel() * 4 if grid_jumps(grid) else 0
+
+    def lookups(grid, visited, composited):
+        """K3's grid lookups: one before each sample that follows one that
+        did not composite (within one per ray: the first sample has one, a
+        ray's last has none after it); none without a jump in the grid."""
+        return visited - composited if grid_jumps(grid) else 0
+
+    def count_build(counts, what):
+        """One K6 and one K7 launch per grid build."""
+        require(counts["cell_minmax"] == 1 and counts["cell_distance"] == 1,
+                f"{what} launched K6 {counts['cell_minmax']}x and K7 "
+                f"{counts['cell_distance']}x")
+        for name in ("cell_minmax", "cell_distance"):
+            kernels[name]["launches"] += counts[name]
 
     def k2_grad_errs(got_pair, want_pair, label):
         """max |K2 - plain| / max |plain| of d_volume and d_tf, each held
@@ -640,43 +728,88 @@ def main() -> int:
             grad_step_profile = profile(grad_step)
         del v_leaf, t_leaf, img_g, d_v, d_t, image, g_img
 
-        # K3: the inference path.
+        # K3: the inference path, through the occupancy grid (K6).
         P.reset_launch_counts()
         nd = rc.raycast_nondiff(vol_user, tf_user, lf)
         sync()
-        launches = P.launch_counts()["march_nondiff"]
+        counts = P.launch_counts()
+        launches = counts["march_nondiff"]
         require(launches == 1, f"raycast_nondiff launched K3 {launches}x")
+        count_build(counts, "raycast_nondiff")
         require(nd.shape == (4, img, img) and bool(torch.isfinite(nd).all())
                 and float(nd.min()) >= 0.0 and float(nd.max()) <= 1.0,
                 f"K3 image shape/range on {scene}")
         sr = 4.0
         rays = P.make_rays(lf, cfg, sr)
+        # Without the grid, against the plain march without it.
         want, want_vis, want_comp = P.march_nondiff_plain(vol_i, tf_i, rays,
                                                           cfg, sr)
         max_err, frac_over, n_over = image_check(
             f"K3 {scene}", nd.permute(1, 2, 0), want)
-        _, vis, comp = P.march_nondiff(vol_i, tf_i, rays, cfg, sr)
+        img_n, vis, comp = P.march_nondiff(vol_i, tf_i, rays, cfg, sr)
         vis_diff = count_check(f"K3 {scene} visited", vis, want_vis)
         comp_diff = count_check(f"K3 {scene} composited", comp, want_comp)
         visited, composited = int(vis.sum()), int(comp.sum())
-        fwd_ms = host_ms(lambda: rc.raycast_nondiff(vol_user, tf_user, lf), 7)
-        k_ms = cuda_ms(lambda: P.march_nondiff(vol_i, tf_i, rays, cfg, sr), 10)
-        p_ms = cuda_ms(lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg,
-                                                     sr), 1, warm=0)
-        b_ms, b_by = bound(vol_bytes + R * 16 + ray_bytes + img * img * 24,
-                           visited * NONDIFF_VISIT_OPS
-                           + composited * NONDIFF_SHADE_OPS)
+        # With the grid: bitwise K3 without it, and the plain march with it.
+        grid = P.build_occupancy(vol_i, tf_i, cfg)
+        img_g, vis_g, comp_g = P.march_nondiff(vol_i, tf_i, rays, cfg, sr,
+                                               grid)
+        sync()
+        require(torch.equal(img_g, nd.permute(1, 2, 0)),
+                f"K3 by the wrapper differs from raycast_nondiff on {scene}")
+        require(torch.equal(img_g, img_n) and torch.equal(comp_g, comp),
+                f"K3 with the grid differs from K3 without it on {scene}: "
+                f"{int((img_g != img_n).any(-1).sum())} pixels, "
+                f"{int((comp_g != comp).sum())} composited counts")
+        (want_g, _, want_comp_g), p_ms = timed_once(
+            lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg, sr, grid))
+        max_err_g, _, n_over_g = image_check(f"K3 {scene} with the grid",
+                                             img_g, want_g)
+        comp_diff_g = count_check(f"K3 {scene} composited with the grid",
+                                  comp_g, want_comp_g)
+        visited_g = int(vis_g.sum())
+        fwd_ms, fwd_ms_no_grid = host_ms_ab(
+            lambda: rc.raycast_nondiff(vol_user, tf_user, lf),
+            lambda: rc_off.raycast_nondiff(vol_user, tf_user, lf), 9)
+        k_ms = cuda_ms(lambda: P.march_nondiff(vol_i, tf_i, rays, cfg, sr,
+                                               grid), 10)
+        k_ms_no_grid = cuda_ms(lambda: P.march_nondiff(vol_i, tf_i, rays,
+                                                       cfg, sr), 10)
+        p_ms_no_grid = cuda_ms(lambda: P.march_nondiff_plain(
+            vol_i, tf_i, rays, cfg, sr), 1, warm=0)
+        b_ms, b_by = bound(vol_bytes + grid_read_bytes(grid) + R * 16
+                           + ray_bytes + img * img * 24,
+                           visited_g * NONDIFF_VISIT_OPS
+                           + composited * NONDIFF_SHADE_OPS
+                           + lookups(grid, visited_g, composited) * JUMP_OPS)
+        b_ms_no_grid, _ = bound(vol_bytes + R * 16 + ray_bytes
+                                + img * img * 24,
+                                visited * NONDIFF_VISIT_OPS
+                                + composited * NONDIFF_SHADE_OPS)
         emit({"phase": "march_nondiff", "scene": scene, "image": img,
               "sampling_rate": sr, "launches": launches,
+              "build_launches": [counts["cell_minmax"],
+                                 counts["cell_distance"]],
               "max_abs_err": max_err, "pixels_over_2e-4": n_over,
               "frac_over_2e-4": frac_over, "visited_max_diff": vis_diff,
               "composited_max_diff": comp_diff,
-              "samples_visited": visited,
+              "grid": {"shape": grid.shape, "cell": grid.cell,
+                       "jumps": grid_jumps(grid), "equal_to_no_grid": True,
+                       "max_abs_err_vs_plain": max_err_g,
+                       "pixels_over_2e-4_vs_plain": n_over_g,
+                       "composited_max_diff_vs_plain": comp_diff_g},
+              "samples_visited": visited_g,
+              "samples_visited_no_grid": visited,
               "samples_composited": composited, "raycast_ms": fwd_ms,
-              "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-              "bound_ms": b_ms, "bound_by": b_by, "nvidia_smi": smi})
-        record("march_nondiff", scene, launches, max_err, k_ms, p_ms, b_ms,
-               b_by)
+              "raycast_ms_no_grid": fwd_ms_no_grid, "ms": k_ms, "ms_no_grid": k_ms_no_grid, "plain_ms": p_ms,
+              "plain_ms_no_grid": p_ms_no_grid, "library_ms": None,
+              "bound_ms": b_ms, "bound_by": b_by,
+              "bound_ms_no_grid": b_ms_no_grid, "nvidia_smi": smi})
+        record("march_nondiff", scene, launches, max(max_err, max_err_g),
+               k_ms, p_ms, b_ms, b_by)
+        if scene == "noise":
+            kernels["march_nondiff"]["ms_no_grid"] = k_ms_no_grid
+        del grid, img_g, img_n, want, want_g
         if scene == "noise":
             emit({"phase": "profile", "scene": scene,
                   "forward": profile(
@@ -778,7 +911,295 @@ def main() -> int:
     emit({"phase": "golden", "diff_max_abs_err": d_err,
           "nondiff_max_abs_err": n_err, "k2_sphere_sr0.8": sphere_grads})
 
-    # -- 7. kernels line and the contract line ----------------------------------
+    # -- 7. bricks: K4 and K5 on the TPU DMA probe's variants ------------------
+    # experiments/exp_pallas_dma.py's sizes, and its draws in its order.
+    V, B, n_b, NB = 256, 32, 2048, 4096
+    rng = np.random.default_rng(0)
+    vol_b = torch.from_numpy(rng.random((V, V, V), np.float32)).to(dev)
+    al = rng.integers(0, (V - B) // 8, size=(n_b, 3)) * 8
+    al[:, 2] = (al[:, 2] // 16) * 16
+    un = rng.integers(0, V - B, size=(n_b, 3))
+    table = torch.from_numpy(rng.random((NB, B, B * B), np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, NB, size=(n_b,))
+                           .astype(np.int32)).to(dev)
+    origins = {"A1_aligned": torch.from_numpy(al.astype(np.int32)).to(dev),
+               "A2_unaligned": torch.from_numpy(un.astype(np.int32)).to(dev)}
+    P.reset_launch_counts()
+    outs = {k: P.brick_sums(vol_b, o) for k, o in origins.items()}
+    outs["A3_bricked_rows"] = P.brick_rows(table, idx)
+    sync()
+    counts = P.launch_counts()
+    require(counts["brick_sums"] == 2 and counts["brick_rows"] == 1,
+            f"the probe's variants launched {counts}")
+
+    def sums_check(label, got, want):
+        """Every row within rtol 1e-5 of the plain version, lanes equal."""
+        require(got.shape == want.shape and bool((got == got[:, :1]).all()),
+                f"{label}: shape {tuple(got.shape)} or lanes differ")
+        err = (got - want).abs()
+        rel = float((err / want.abs()).max())
+        require(rel <= 1e-5, f"{label}: max relative error {rel} > 1e-5")
+        return float(err.max()), rel
+
+    def union_voxels(o, b):
+        """Voxels inside at least one b^3 brick at the origins o."""
+        diff = torch.zeros((V + 1,) * 3, dtype=torch.int32, device=dev)
+        o = o.long()
+        for cx in (0, 1):
+            for cy in (0, 1):
+                for cz in (0, 1):
+                    diff.index_put_(
+                        (o[:, 0] + cx * b, o[:, 1] + cy * b, o[:, 2] + cz * b),
+                        torch.full((o.shape[0],), (-1) ** (cx + cy + cz),
+                                   dtype=torch.int32, device=dev),
+                        accumulate=True)
+        cover = diff.cumsum(0).cumsum(1).cumsum(2)[:V, :V, :V]
+        return int((cover > 0).sum())
+
+    brick_bytes = B ** 3 * 4
+    out_bytes = n_b * 128 * 4
+    bricks_out = {}
+    for label, o in origins.items():
+        want = P.brick_sums_reference(vol_b, o)
+        err, rel = sums_check(label, outs[label], want)
+        # A brick partly or wholly outside the volume gives a NaN row.
+        bad = torch.cat([o[:2], torch.tensor(
+            [[V - B + 1, 0, 0], [0, -1, 0], [0, 0, V]], dtype=torch.int32,
+            device=dev)])
+        got_bad = P.brick_sums(vol_b, bad)
+        require(torch.equal(got_bad[:2], outs[label][:2])
+                and bool(torch.isnan(got_bad[2:]).all())
+                and bool(torch.isnan(P.brick_sums_reference(vol_b, bad)[2:])
+                         .all()),
+                f"{label}: out-of-range origins do not give NaN rows")
+        ms = cuda_ms(lambda: P.brick_sums(vol_b, o), 10, per_pair=10)
+        plain_ms = cuda_ms(lambda: P.brick_sums_reference(vol_b, o), 5)
+        union = union_voxels(o, B)
+        b_ms, b_by = bound(union * 4 + n_b * 12 + out_bytes, n_b * B ** 3)
+        bricks_out[label] = dict(
+            launches=1, max_abs_err=err, max_rel_err=rel, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            union_voxels=union,
+            bound_ms_each_brick_from_hbm=bound(n_b * brick_bytes + out_bytes,
+                                               0)[0],
+            library_ms=None)
+    want = P.brick_rows_reference(table, idx)
+    err, rel = sums_check("A3_bricked_rows", outs["A3_bricked_rows"], want)
+    bad = torch.tensor([int(idx[0]), NB, -1], dtype=torch.int32, device=dev)
+    got_bad = P.brick_rows(table, bad)
+    require(torch.equal(got_bad[0], outs["A3_bricked_rows"][0])
+            and bool(torch.isnan(got_bad[1:]).all()),
+            "A3: indices out of range do not give NaN rows")
+    ms = cuda_ms(lambda: P.brick_rows(table, idx), 10, per_pair=10)
+    plain_ms = cuda_ms(lambda: P.brick_rows_reference(table, idx), 5)
+
+    def lib_rows():
+        return table.index_select(0, idx).sum((1, 2))
+
+    lib_err = float((lib_rows() - want[:, 0]).abs().max())
+    library_ms = cuda_ms(lib_rows, 5, per_pair=2)
+    distinct = int(torch.unique(idx).numel())
+    b_ms, b_by = bound(distinct * brick_bytes + n_b * 4 + out_bytes,
+                       n_b * B ** 3)
+    bricks_out["A3_bricked_rows"] = dict(
+        launches=1, max_abs_err=err, max_rel_err=rel, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        distinct_bricks=distinct,
+        bound_ms_each_brick_from_hbm=bound(n_b * brick_bytes + out_bytes,
+                                           0)[0],
+        library_ms=library_ms,
+        library="table.index_select(0, idx).sum((1, 2))",
+        library_max_abs_diff=lib_err)
+    emit({"phase": "bricks", "V": V, "B": B, "n": n_b, "NB": NB,
+          "tolerance_rtol": 1e-5, "variants": bricks_out,
+          "nvidia_smi": smi})
+    a2 = bricks_out["A2_unaligned"]
+    kernels["brick_sums"].update(
+        launches=counts["brick_sums"],
+        max_abs_err=max(bricks_out[k]["max_abs_err"]
+                        for k in origins),
+        max_rel_err=max(bricks_out[k]["max_rel_err"] for k in origins),
+        ms=a2["ms"], ms_A1_aligned=bricks_out["A1_aligned"]["ms"],
+        plain_ms=a2["plain_ms"], bound_ms=a2["bound_ms"],
+        bound_by=a2["bound_by"], library_ms=None,
+        library_note="none: no single call gathers bricks at arbitrary "
+                     "origins")
+    a3 = bricks_out["A3_bricked_rows"]
+    kernels["brick_rows"].update(
+        launches=counts["brick_rows"], max_abs_err=a3["max_abs_err"],
+        max_rel_err=a3["max_rel_err"], ms=a3["ms"],
+        plain_ms=a3["plain_ms"], bound_ms=a3["bound_ms"],
+        bound_by=a3["bound_by"], library_ms=a3["library_ms"])
+    del vol_b, table, idx, origins, outs, want, got_bad
+    torch.cuda.empty_cache()
+
+    # -- 8. occupancy: K6, K7 and the grid's build ---------------------------
+    tf_cpu = tf_i.cpu()
+    for scene, make in scenes.items():
+        vol_i = P.volume_to_internal(torch.from_numpy(make()).to(dev))
+        vol_i = vol_i.contiguous()
+        vol_cpu = vol_i.cpu()
+        for cell_arg, md_arg in ((None, None), (8, 12)):
+            cell, md = cfg.resolved_occupancy()
+            if cell_arg is not None:
+                cell, md = cell_arg, md_arg
+            P.reset_launch_counts()
+            grid = P.build_occupancy(vol_i, tf_i, cfg, cell_arg, md_arg)
+            sync()
+            count_build(P.launch_counts(), "build_occupancy")
+            # The whole build on CPU copies runs the plain versions only.
+            cpu = P.build_occupancy(vol_cpu, tf_cpu, cfg, cell_arg, md_arg)
+            require(grid.shape == cpu.shape and grid.cell == cell
+                    and grid.cell_world == cpu.cell_world
+                    and torch.equal(grid.dist.cpu(), cpu.dist),
+                    f"build_occupancy on the card differs from the CPU build "
+                    f"on {scene} at cell {cell}")
+            lo, hi = P.cell_minmax(vol_i, cell)
+            lo_p, hi_p = P.cell_minmax_reference(vol_i, cell)
+            require(torch.equal(lo, lo_p) and torch.equal(hi, hi_p),
+                    f"K6 differs from its plain version on {scene} at cell "
+                    f"{cell}")
+            k7_args = (lo, hi, tf_i, cfg.alpha_skip, md)
+            dist, far = P.cell_distance(*k7_args)
+            dist_p, far_p = P.cell_distance_reference(*k7_args)
+            require(torch.equal(dist, dist_p) and torch.equal(far, far_p)
+                    and torch.equal(dist.reshape(-1), grid.dist)
+                    and torch.equal(grid.far, far_p),
+                    f"K7 differs from its plain version on {scene} at cell "
+                    f"{cell}")
+            ms = cuda_ms(lambda: P.cell_minmax(vol_i, cell), 10, per_pair=5)
+            plain_ms = cuda_ms(lambda: P.cell_minmax_reference(vol_i, cell), 5)
+            ms7 = cuda_ms(lambda: P.cell_distance(*k7_args), 10, per_pair=5)
+            plain7 = cuda_ms(lambda: P.cell_distance_reference(*k7_args), 3)
+            build_ms = host_ms(lambda: P.build_occupancy(
+                vol_i, tf_i, cfg, cell_arg, md_arg), 7)
+            build_dev_ms = cuda_ms(lambda: P.build_occupancy(
+                vol_i, tf_i, cfg, cell_arg, md_arg), 7)
+            n_cells = lo.numel()
+            b_ms, b_by = bound(vol_bytes + 2 * n_cells * 4,
+                               2 * n_cells * (cell + 2) ** 3)
+            # K7 reads (lo, hi) and the TF and writes an int per cell and
+            # the largest; its table takes R^2 / 2 maxima, the
+            # classification 8 operations per cell (2 products, floor, ceil,
+            # 4 clamps), and each of the three passes at least one
+            # comparison per cell.
+            b7_ms, b7_by = bound(n_cells * 12 + R * 16 + 4,
+                                 R * R / 2 + n_cells * (8 + 3))
+            emit({"phase": "occupancy", "scene": scene, "cell": cell,
+                  "max_dist": md, "grid": grid.shape,
+                  "minmax_equal": True, "distance_equal": True,
+                  "equal_to_cpu_build": True,
+                  "empty_share": float((grid.dist >= 2).float().mean()),
+                  "cell_minmax": {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by},
+                  "cell_distance": {"ms": ms7, "plain_ms": plain7,
+                                    "bound_ms": b7_ms, "bound_by": b7_by},
+                  "build_ms": build_ms, "build_device_ms": build_dev_ms,
+                  "nvidia_smi": smi})
+            if scene == "ct_phantom" and cell_arg is None:
+                kernels["cell_minmax"].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    build_ms=build_ms, library_ms=None,
+                    library_note="none: no single call gives a window's "
+                                 "min and max (max_pool3d gives one)")
+                kernels["cell_distance"].update(
+                    ms=ms7, plain_ms=plain7, bound_ms=b7_ms, bound_by=b7_by,
+                    library_ms=None,
+                    library_note="none: no single call gives a distance "
+                                 "transform")
+            del grid, cpu, lo, hi, lo_p, hi_p, k7_args, dist, dist_p
+        del vol_i, vol_cpu
+
+    # -- 9. viewer: the inference example at full width ---------------------
+    v_img, v_sr = 800, 16.0
+    rc_v = P.Raycaster((res, res, res), (v_img, v_img), R, jitter=False)
+    rc_v_off = P.Raycaster((res, res, res), (v_img, v_img), R, jitter=False,
+                           occupancy_skip=False)
+    cfg_v = rc_v.config
+    lf_v = torch.tensor([0.0, 1.0, -2.3], device=dev)
+    for scene, make in (("synthetic", lambda: P.synthetic_volume(res)),
+                        ("ct_phantom", lambda: P.ct_phantom(res))):
+        vol_user = torch.from_numpy(make()).to(dev)[None]
+        vol_i = P.volume_to_internal(vol_user[0]).contiguous()
+        P.reset_launch_counts()
+        nd = rc_v.raycast_nondiff(vol_user, tf_user, lf_v, sampling_rate=v_sr)
+        sync()
+        counts = P.launch_counts()
+        require(counts["march_nondiff"] == 1,
+                f"the viewer's raycast_nondiff launched {counts}")
+        count_build(counts, "the viewer's raycast_nondiff")
+        kernels["march_nondiff"]["launches"] += counts["march_nondiff"]
+        require(nd.shape == (4, v_img, v_img)
+                and bool(torch.isfinite(nd).all())
+                and float(nd.min()) >= 0.0 and float(nd.max()) <= 1.0,
+                f"viewer image shape/range on {scene}")
+        rays = P.make_rays(lf_v, cfg_v, v_sr)
+        grid = P.build_occupancy(vol_i, tf_i, cfg_v)
+        img_g, vis_g, comp_g = P.march_nondiff(vol_i, tf_i, rays, cfg_v,
+                                               v_sr, grid)
+        img_n, vis_n, comp_n = P.march_nondiff(vol_i, tf_i, rays, cfg_v,
+                                               v_sr)
+        sync()
+        require(torch.equal(img_g, nd.permute(1, 2, 0)),
+                f"viewer: K3 by the wrapper differs from raycast_nondiff on "
+                f"{scene}")
+        require(torch.equal(img_g, img_n) and torch.equal(comp_g, comp_n),
+                f"viewer: K3 with the grid differs from K3 without it on "
+                f"{scene}: {int((img_g != img_n).any(-1).sum())} pixels, "
+                f"{int((comp_g != comp_n).sum())} composited counts")
+        # K3 with the grid against the plain march with it, on the same
+        # 800^2 rays.
+        (want, want_vis, want_comp), plain_ms = timed_once(
+            lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg_v, v_sr,
+                                          grid))
+        max_err, frac_over, n_over = image_check(f"viewer {scene}", img_g,
+                                                 want)
+        comp_diff = count_check(f"viewer {scene} composited", comp_g,
+                                want_comp)
+        vis_diff = int((vis_g - want_vis).abs().max())
+        raycast_ms, raycast_ms_no_grid = host_ms_ab(
+            lambda: rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
+                                         sampling_rate=v_sr),
+            lambda: rc_v_off.raycast_nondiff(vol_user, tf_user, lf_v,
+                                             sampling_rate=v_sr), 5)
+        k_ms = cuda_ms(lambda: P.march_nondiff(vol_i, tf_i, rays, cfg_v,
+                                               v_sr, grid), 5)
+        k_ms_no_grid = cuda_ms(lambda: P.march_nondiff(vol_i, tf_i, rays,
+                                                       cfg_v, v_sr), 5)
+        visited_g, visited_n = int(vis_g.sum()), int(vis_n.sum())
+        composited = int(comp_g.sum())
+        b_ms, b_by = bound(vol_bytes + grid_read_bytes(grid) + R * 16
+                           + v_img * v_img * 48,
+                           visited_g * NONDIFF_VISIT_OPS
+                           + composited * NONDIFF_SHADE_OPS
+                           + lookups(grid, visited_g, composited) * JUMP_OPS)
+        emit({"phase": "viewer", "scene": scene, "image": v_img,
+              "sampling_rate": v_sr, "camera": [0.0, 1.0, -2.3],
+              "grid": {"shape": grid.shape, "cell": grid.cell},
+              "launches": counts, "equal_to_no_grid": True,
+              "samples_visited": visited_g,
+              "samples_visited_no_grid": visited_n,
+              "visited_ratio": visited_n / max(visited_g, 1),
+              "samples_composited": composited,
+              "max_n_samples": int(rays.n_samples.max()),
+              "raycast_ms": raycast_ms,
+              "raycast_ms_no_grid": raycast_ms_no_grid, "ms": k_ms,
+              "ms_no_grid": k_ms_no_grid, "bound_ms": b_ms,
+              "bound_by": b_by,
+              "vs_plain": {"max_abs_err": max_err,
+                           "pixels_over_2e-4": n_over,
+                           "frac_over_2e-4": frac_over,
+                           "composited_max_diff": comp_diff,
+                           "visited_max_diff": vis_diff,
+                           "plain_ms": plain_ms},
+              "nvidia_smi": smi})
+        kernels["march_nondiff"]["max_abs_err"] = max(
+            kernels["march_nondiff"]["max_abs_err"], max_err)
+        del vol_user, vol_i, grid, img_g, img_n, nd, want, want_vis
+        del want_comp
+        torch.cuda.empty_cache()
+
+    # -- 10. kernels line and the contract line ---------------------------------
     for name, k in kernels.items():
         require(k["launches"] > 0, f"{name} was never launched on its path")
     emit({"kernels": [dict(name=name, max_abs_diff=k["max_abs_err"], **k)

@@ -5,8 +5,11 @@ with ``nvcc`` at first use): ``tf_lookup_fwd`` (K0) and ``tf_lookup_bwd``
 (K0b) behind :func:`tf_lookup`; ``march_diff_fwd`` (K1) and
 ``march_diff_bwd`` (K2) behind :func:`render`, :meth:`Raycaster.forward`
 and their gradients (:func:`value_and_grad_render`); ``march_nondiff`` (K3)
-behind :func:`render_nondiff` and :meth:`Raycaster.raycast_nondiff`.  CPU
-tensors go to plain torch versions of the same functions.  Importing the
+behind :func:`render_nondiff` and :meth:`Raycaster.raycast_nondiff`, which
+jumps over empty space through the occupancy grid that ``cell_minmax`` (K6)
+and ``cell_distance`` (K7) build (:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows``
+(K5), the box sums of the TPU DMA probe.  CPU tensors go to plain torch
+versions of the same functions.  Importing the
 package needs neither a GPU nor ``nvcc``.
 """
 from typing import Dict
@@ -14,9 +17,14 @@ from typing import Dict
 from .config import RenderConfig
 from .geometry import (MarchParams, RayBundle, make_rays, march_params,
                        ray_aabb, ray_directions)
-from .interop import state_from_numpy
+from .interop import occupancy_from_numpy, state_from_numpy
 from .losses import dssim_mse_loss, mse_loss, ssim
-from .ops import (tf_lookup, tf_lookup_bwd, tf_lookup_bwd_reference,
+from .occupancy import (OccupancyGrid, build_occupancy, jump_steps,
+                        tf_alpha_range_max)
+from .ops import (brick_rows, brick_rows_reference, brick_sums,
+                  brick_sums_reference, cell_distance,
+                  cell_distance_reference, cell_minmax, cell_minmax_reference,
+                  tf_lookup, tf_lookup_bwd, tf_lookup_bwd_reference,
                   tf_lookup_fwd, tf_lookup_reference)
 from .optim import (adamw_onecycle, nan_to_num_grads, project_nonneg,
                     project_unit, tf_momentum)
@@ -28,7 +36,7 @@ from .render import (RenderOutput, march_diff, march_diff_bwd,
                      render_nondiff, value_and_grad_render)
 from .transfer import get_tf, get_tf_torch_layout, tex_from_pts
 from .utils.camera import get_rand_pos, in_circles
-from .utils.scenes import ct_phantom, noise_volume
+from .utils.scenes import ct_phantom, noise_volume, synthetic_volume
 
 __version__ = "0.1.0"
 
@@ -39,6 +47,10 @@ KERNEL_WRAPPERS = {
     "march_diff_fwd": march_diff_fwd,
     "march_diff_bwd": march_diff_bwd,
     "march_nondiff": march_nondiff,
+    "brick_sums": brick_sums,
+    "brick_rows": brick_rows,
+    "cell_minmax": cell_minmax,
+    "cell_distance": cell_distance,
 }
 
 
@@ -65,5 +77,10 @@ __all__ = [
     "tf_momentum", "project_nonneg", "project_unit", "nan_to_num_grads",
     "adamw_onecycle", "in_circles", "get_rand_pos", "get_tf",
     "get_tf_torch_layout", "tex_from_pts", "ct_phantom", "noise_volume",
+    "synthetic_volume", "OccupancyGrid", "build_occupancy",
+    "jump_steps", "tf_alpha_range_max",
+    "occupancy_from_numpy", "brick_sums", "brick_rows", "cell_minmax",
+    "brick_sums_reference", "brick_rows_reference", "cell_minmax_reference",
+    "cell_distance", "cell_distance_reference",
     "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
 ]

@@ -24,7 +24,8 @@ from typing import Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("tf_lookup.cu", "march.cu", "march_bwd.cu")
+_SOURCES = ("tf_lookup.cu", "march.cu", "march_bwd.cu", "bricks.cu",
+            "distance.cu")
 _HEADERS = ("tf_lerp.cuh", "march_common.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_NAME = "libdifferender_kernels.so"
@@ -143,6 +144,18 @@ def library() -> ctypes.CDLL:
                  "dr_march_nondiff"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, i32, ptr]
+        fn.restype = i32
+    lib.dr_brick_sums.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i32,
+                                  ptr]
+    lib.dr_brick_rows.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i32,
+                                  ptr]
+    lib.dr_cell_minmax.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, i32,
+                                   ptr]
+    lib.dr_cell_distance.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float,
+                                     i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                                     ptr, i32, ptr]
+    for fn in (lib.dr_brick_sums, lib.dr_brick_rows, lib.dr_cell_minmax,
+               lib.dr_cell_distance):
         fn.restype = i32
     lib.dr_error_string.argtypes = [i32]
     lib.dr_error_string.restype = ctypes.c_char_p

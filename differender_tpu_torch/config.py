@@ -1,12 +1,15 @@
 """Static render configuration (counterpart of ``differender_tpu/config.py``).
 
 ``RenderConfig`` keeps every field of the JAX package's dataclass so that one
-keyword dict builds both.  The semantic fields drive the port; the fields
-that tune the TPU march (tables, remat blocks, compaction, VJP modes,
-occupancy) are accepted and ignored, because the CUDA kernels march each ray
-on its own thread and none of those knobs changes the rendered values.
-Fields that would change the result and that the port does not implement yet
-raise ``NotImplementedError``.
+keyword dict builds both.  The semantic fields drive the port, and so do the
+occupancy fields (``occupancy_skip``, ``occupancy_cell``,
+``occupancy_max_dist``, ``occupancy_jump_every``): the inference march K3
+jumps over empty space through the grid of
+:mod:`~differender_tpu_torch.occupancy`.  The fields that tune the TPU march
+(tables, remat blocks, compaction, VJP modes) are accepted and ignored,
+because the CUDA kernels march each ray on its own thread and none of those
+knobs changes the rendered values.  Fields that would change the result and
+that the port does not implement yet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,13 @@ class RenderConfig:
             sample.
         normal_delta: central-difference step of the gradient stencil, in
             normalized [-1, 1] coordinates.
+        occupancy_skip: the inference render builds an occupancy grid when
+            none is passed, and K3 jumps over empty space (the image does
+            not change).
+        occupancy_cell/occupancy_max_dist: macrocell edge in voxels and
+            distance-field saturation; 0 = auto (:meth:`resolved_occupancy`).
+        occupancy_jump_every: look up a jump at most every Nth sample
+            (values below 1 mean 1, as in the JAX package).
 
     The remaining fields tune the JAX package's TPU march and are ignored
     here (see the module docstring).
@@ -62,7 +72,8 @@ class RenderConfig:
     # Result-changing options not ported yet: True raises.
     analytic_normals: bool = False
     camera_grads: bool = False
-    # TPU performance knobs: accepted, ignored.
+    # TPU performance knobs: accepted, ignored, except the four occupancy_*
+    # fields, which drive the inference march's empty-space skip.
     block_size: int = 32
     unroll: int = 1
     cell_gather: bool = True
@@ -133,6 +144,25 @@ class RenderConfig:
         O(H*W) state beside the volume, so one strategy serves every size.
         Kept so code written for the JAX package's config still runs."""
         return False
+
+    def resolved_occupancy(self) -> Tuple[int, int]:
+        """``(cell, max_dist)`` with the auto (0) defaults resolved, as the
+        JAX package resolves them.  Cell: the smallest edge in
+        {2, 4, 8, 16, 32} whose macrocell grid has at most 2^21 cells (a
+        distance field of at most 8 MB).  Max_dist: about 96 voxels of jump
+        reach whatever the cell."""
+        cell = self.occupancy_cell
+        if cell == 0:
+            for cell in (2, 4, 8, 16, 32):
+                n_cells = 1
+                for s in self.volume_shape:
+                    n_cells *= -(-s // cell)
+                if n_cells <= 1 << 21:
+                    break
+        md = self.occupancy_max_dist
+        if md == 0:
+            md = max(2, 96 // cell)
+        return cell, md
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -19,9 +19,17 @@
 // a warp walk neighbouring voxels and share cache lines; the TF sits in
 // shared memory; the transmittance is carried multiplicatively and each
 // thread exits at ERT, so no work is spent past it.  K3 samples the 6
-// gradient points only when the TF alpha passes alpha_skip.  No hardware
-// texture filtering: its 8-bit weights would break parity with the f32
-// weights of the reference.
+// gradient points only when the TF alpha passes alpha_skip, and with an
+// occupancy grid (occupancy.py) it jumps over empty space: at its head
+// sample it reads the macrocell's distance d and skips
+// floor((d - 1) * cell_world / dt) samples that provably classify at or
+// below alpha_skip (occupancy_jump in march_common.cuh).  JAX rounds each
+// jump down to a march block so that its blocked composite stays bitwise;
+// K3 composites per thread and takes the whole jump.  Positions stay
+// t0 + s*dt from the sample index, so a jump lands on the no-skip lattice and
+// the image is bitwise K3's without the grid.  No hardware texture
+// filtering: its 8-bit weights would break parity with the f32 weights of
+// the reference.
 //
 // Semantics held to (differender_tpu line refs):
 //   positions t = t0 + s*dt, p = origin + t*d            (render.py:220-229)
@@ -84,15 +92,28 @@ __global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
   int visited = 0, shaded = 0;
-  for (int s = 0; s < steps; ++s) {
+  // With a grid, look up the head's jump at every jump_every-th iteration,
+  // except right after a composited sample: that sample's cell is occupied,
+  // so the next one's cell is at distance <= 1 (no jump) unless a step
+  // crosses a whole cell, and then a lookup skipped costs one sample.  A
+  // grid with no cell at distance 2 or more gives no jump: no lookups.
+  const bool grid = a.occ != nullptr && __ldg(a.occ_far) >= 2;
+  bool look = grid;
+  for (int s = 0, it = 0; s < steps; ++s, ++it) {
     if (!(T > a.thr)) break;
+    if (look && it % a.jump_every == 0) {
+      s += occupancy_jump(a, s, steps - s, t0, dt, ox, oy, oz, dx, dy, dz);
+      if (s >= steps) break;
+    }
     ++visited;
     const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
     const float px = ray_coord(ox, t, dx), py = ray_coord(oy, t, dy),
                 pz = ray_coord(oz, t, dz);
     const float4 c =
         tf_lerp<kGlobalTf>(tf, a.R, trilinear<false>(a, px, py, pz));
+    look = grid;
     if (!(c.w > a.alpha_skip)) continue;
+    look = false;
     ++shaded;
     const float gx = trilinear<false>(a, px + d, py, pz) -
                      trilinear<false>(a, px - d, py, pz);

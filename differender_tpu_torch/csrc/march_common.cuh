@@ -25,10 +25,17 @@ struct MarchArgs {
   int* steps;      // K1, K2: valid_steps; K3: samples visited
   int* shaded;     // K3: samples composited; K2 (if set): samples that add
                    // to d_volume; unused by K1
+  const int* occ;  // K3: the occupancy grid's (nx*ny*nz) distance field, or
+                   // null for no empty-space skip; unused by K1/K2
+  const int* occ_far;  // K3 with a grid: its largest distance (one int);
+                       // below 2 no ray can jump, and K3 looks up nothing
   int H, W, X, Y, Z, R, max_steps, ert;
+  int nx, ny, nz, cell, jump_every;  // the grid's shape, its cell edge in
+                                     // voxels; look up every Nth iteration
   float scale_x, scale_y, scale_z, delta, inv_sr, thr;
   float ambient, diffuse, specular, shininess;
   float lc_r, lc_g, lc_b, alpha_skip;
+  float cell_world;  // world L-inf size of one macrocell step
 };
 
 // Positions and voxel coordinates are rounded after every multiply and add
@@ -47,6 +54,37 @@ __device__ __forceinline__ float voxel_axis(float p, float scale, int size,
 
 __device__ __forceinline__ float ray_coord(float o, float t, float d) {
   return __fadd_rn(o, __fmul_rn(t, d));
+}
+
+// Macrocell index of a position on one axis, as occupancy.py::jump_steps
+// computes it: the voxel coordinate of voxel_axis, divided by the cell edge,
+// truncated and clamped to the grid (scale is f32(size - 1 - 1e-4) there
+// too).
+__device__ __forceinline__ int occ_axis(float p, float scale, int cell,
+                                        int n) {
+  const float c = __fmul_rn(
+      fminf(fmaxf(__fadd_rn(__fmul_rn(0.5f, p), 0.5f), 0.0f), 1.0f), scale);
+  return min((int)__fdiv_rn(c, (float)cell), n - 1);
+}
+
+// Samples K3 may skip from the head sample s without evaluating them, at
+// most `left` (occupancy.py::jump_steps): the head's cell lies at L-inf
+// distance d (in macrocells) from any cell whose TF alpha can exceed
+// alpha_skip, so every point within (d - 1) * cell_world of the head
+// classifies at or below alpha_skip.
+__device__ __forceinline__ int occupancy_jump(const MarchArgs& a, int s,
+                                              int left, float t0, float dt,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
+  const int cx = occ_axis(ray_coord(ox, t, dx), a.scale_x, a.cell, a.nx);
+  const int cy = occ_axis(ray_coord(oy, t, dy), a.scale_y, a.cell, a.ny);
+  const int cz = occ_axis(ray_coord(oz, t, dz), a.scale_z, a.cell, a.nz);
+  const int d = __ldg(a.occ + ((long long)cx * a.ny + cy) * a.nz + cz);
+  if (d <= 1 || !(dt > 0.0f)) return 0;
+  const float q =
+      __fdiv_rn(__fmul_rn((float)(d - 1), a.cell_world), fmaxf(dt, 1e-30f));
+  return (int)fminf(q, (float)left);
 }
 
 // s + x*w: with kExact rounded after the product and the sum; otherwise an

@@ -1,10 +1,13 @@
 """Carry renderer state from the numpy arrays the JAX package works on into
 the port's tensors.  The renderer has no weights; its state is the volume,
-the transfer function and the camera."""
+the transfer function and the camera, and for the inference march an
+occupancy grid."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .occupancy import OccupancyGrid
 
 
 def state_from_numpy(volume, tf, look_from, *, layout: str = "internal",
@@ -40,4 +43,21 @@ def state_from_numpy(volume, tf, look_from, *, layout: str = "internal",
                  for a in (vol, tf_, lf))
 
 
-__all__ = ["state_from_numpy"]
+def occupancy_from_numpy(dist, shape, cell, cell_world, *, device="cuda"):
+    """An :class:`~differender_tpu_torch.occupancy.OccupancyGrid` on
+    ``device`` from a grid's fields as numpy data (for instance a grid the
+    JAX package built: ``np.asarray(grid.dist), grid.shape, grid.cell,
+    grid.cell_world``).  ``dist`` must hold ``nx*ny*nz`` distances."""
+    shape = tuple(int(s) for s in shape)
+    d = np.asarray(dist).reshape(-1)
+    if len(shape) != 3 or d.size != shape[0] * shape[1] * shape[2]:
+        raise ValueError(f"dist of {d.size} cells does not fit a grid of "
+                         f"shape {shape}")
+    d = d.astype(np.int32)
+    far = np.array([d.max() if d.size else 0], np.int32)
+    return OccupancyGrid(
+        dist=torch.from_numpy(d).to(device), shape=shape, cell=int(cell),
+        cell_world=float(cell_world), far=torch.from_numpy(far).to(device))
+
+
+__all__ = ["state_from_numpy", "occupancy_from_numpy"]

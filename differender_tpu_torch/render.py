@@ -4,7 +4,9 @@
 is kernel K1 (``march_diff_fwd``, ``csrc/march.cu``) and its backward kernel
 K2 (``march_diff_bwd``, ``csrc/march_bwd.cu``), which recomputes the march
 and scatters ``d_volume`` and ``d_tf``.  ``march_nondiff`` is kernel K3
-(``csrc/march.cu``).  On CPU tensors each takes its plain sequential version
+(``csrc/march.cu``), which jumps over empty space through an occupancy grid
+(:mod:`~differender_tpu_torch.occupancy`) when it is given one.  On CPU
+tensors each takes its plain sequential version
 beside it, which the tests hold against the JAX package and
 ``chip_smoke.py`` holds the kernels against on the card; the plain
 differentiable march is differentiated by autograd.  Every version marches
@@ -24,6 +26,8 @@ import torch
 from . import _build
 from .config import RenderConfig
 from .geometry import RayBundle, make_rays, march_params
+from .occupancy import build_occupancy, jump_steps
+from .ops.bricks import grid_shape
 from .sampling import (TF_DOT_MAX_TEXELS, apply_tf, march_tf,
                        sample_with_gradient, trilinear, voxel_scale)
 from .shading import shade
@@ -53,41 +57,69 @@ def _ray_soa(rays: RayBundle):
         rays.n_samples.reshape(n)
 
 
+def _check_grid(occupancy, config) -> None:
+    """Raises unless ``occupancy`` (if any) is the macrocell grid of the
+    config's volume."""
+    if occupancy is not None and (
+            occupancy.cell < 1 or tuple(occupancy.shape)
+            != grid_shape(config.volume_shape, occupancy.cell)):
+        raise ValueError(f"occupancy grid {tuple(occupancy.shape)} at cell "
+                         f"{occupancy.cell} does not fit a volume of "
+                         f"{tuple(config.volume_shape)}")
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
 def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
-                 nondiff):
+                 nondiff, occupancy=None):
     """Sequential march over the rays still alive; returns the flat
     composite ``(rgb, T)`` and per-ray counts ``(visited, composited)``.
-    Out of place, so autograd differentiates it when the volume or the TF
-    requires grad (the differentiable path's TF is :func:`march_tf`)."""
+    Each ray carries its own step index ``s``.  With an ``occupancy`` grid
+    (inference march only) a ray jumps at its head as kernel K3 does: at
+    every ``occupancy_jump_every``-th iteration, unless its last sample
+    composited.  Out of place, so autograd differentiates it when the volume
+    or the TF requires grad (the differentiable path's TF is
+    :func:`march_tf`)."""
     origin = rays.origin.to(torch.float32)
     dirs, t0, dt, _ = _ray_soa(rays)
     N = dirs.shape[0]
     dev = volume.device
     thr = _ert_threshold(config)
     skip = float(np.float32(config.alpha_skip))
+    every = max(1, config.occupancy_jump_every)
     T = torch.ones(N, dtype=torch.float32, device=dev)
     rgb = torch.zeros(N, 3, dtype=torch.float32, device=dev)
     visited = torch.zeros(N, dtype=torch.int32, device=dev)
     composited = torch.zeros(N, dtype=torch.int32, device=dev)
+    s = torch.zeros(N, dtype=torch.int32, device=dev)
+    look = torch.full((N,), occupancy is not None, device=dev)
     idx = torch.arange(N, device=dev)
-    s = 0
+    it = 0
     while True:
-        alive = limit[idx] > s
+        alive = limit[idx] > s[idx]
         if ert:
             alive &= T.detach()[idx] > thr
         idx = idx[alive]
+        if occupancy is not None and it % every == 0 and idx.numel():
+            j = idx[look[idx]]
+            tj = t0[j] + s[j].to(torch.float32) * dt[j]
+            pj = origin + tj[:, None] * dirs[j]
+            adv = jump_steps(occupancy, config.volume_shape, pj[:, 0],
+                             pj[:, 1], pj[:, 2], dt[j])
+            s[j] += torch.minimum(adv, limit[j] - s[j])
+            idx = idx[limit[idx] > s[idx]]
         if idx.numel() == 0:
             break
         visited[idx] += 1
-        t = t0[idx] + float(s) * dt[idx]
+        t = t0[idx] + s[idx].to(torch.float32) * dt[idx]
         pos = origin + t[:, None] * dirs[idx]
         if nondiff:
             rgba = apply_tf(tf, trilinear(volume, pos))
             keep = rgba[:, 3] > skip
+            if occupancy is not None:
+                look[idx] = ~keep
             rgba, pos, on = rgba[keep], pos[keep], idx[keep]
             _, grad = sample_with_gradient(volume, pos, config.normal_delta)
         else:
@@ -101,7 +133,8 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
         rgb = rgb.index_add(0, on, Ti[:, None] * shaded[:, :3])
         T = T.index_copy(0, on, Ti * (1.0 - shaded[:, 3]))
         composited[on] += 1
-        s += 1
+        s[idx] += 1
+        it += 1
     return rgb, T, visited, composited
 
 
@@ -126,16 +159,21 @@ def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
 @torch.no_grad()
 def march_nondiff_plain(volume: torch.Tensor, tf: torch.Tensor,
                         rays: RayBundle, config: RenderConfig,
-                        sampling_rate):
+                        sampling_rate, occupancy=None):
     """Plain torch inference march.  No ``max_samples`` cap; a sample
     composites only if its TF alpha is ``> alpha_skip``; no light clamp;
-    the image ends with ``min(1, .)``.  Returns ``(image (H, W, 4),
-    visited (H, W), composited (H, W))``: the samples each ray examined and
-    the samples it composited."""
+    the image ends with ``min(1, .)``.  With an ``occupancy`` grid
+    (:class:`~differender_tpu_torch.occupancy.OccupancyGrid` of this volume
+    and TF) each ray jumps over samples that provably classify at or below
+    ``alpha_skip``, as K3 does; the image does not change.  Returns
+    ``(image (H, W, 4), visited (H, W), composited (H, W))``: the samples
+    each ray evaluated and the samples it composited."""
     H, W = config.image_shape
+    _check_grid(occupancy, config)
     limit = rays.n_samples.reshape(-1)
     rgb, T, vis, comp = _plain_march(volume, tf, rays, config, sampling_rate,
-                                     limit, ert=True, nondiff=True)
+                                     limit, ert=True, nondiff=True,
+                                     occupancy=occupancy)
     image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1)
     image = torch.clamp(image, max=1.0).reshape(H, W, 4)
     return image, vis.reshape(H, W), comp.reshape(H, W)
@@ -149,13 +187,14 @@ class _MarchArgs(ctypes.Structure):
     """Mirror of ``struct MarchArgs`` in ``csrc/march_common.cuh``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "dx", "dy", "dz", "t0", "dt", "n", "volume", "tf", "origin",
-        "image", "steps", "shaded")]
+        "image", "steps", "shaded", "occ", "occ_far")]
         + [(f, ctypes.c_int) for f in (
-            "H", "W", "X", "Y", "Z", "R", "max_steps", "ert")]
+            "H", "W", "X", "Y", "Z", "R", "max_steps", "ert",
+            "nx", "ny", "nz", "cell", "jump_every")]
         + [(f, ctypes.c_float) for f in (
             "scale_x", "scale_y", "scale_z", "delta", "inv_sr", "thr",
             "ambient", "diffuse", "specular", "shininess",
-            "lc_r", "lc_g", "lc_b", "alpha_skip")])
+            "lc_r", "lc_g", "lc_b", "alpha_skip", "cell_world")])
 
 
 class _MarchBwdArgs(ctypes.Structure):
@@ -175,8 +214,22 @@ def _checked(name, t, dev, shape=None, dtype=torch.float32):
     return t.detach().contiguous()
 
 
+def _occupancy_args(occupancy, config, dev):
+    """The grid's fields of ``MarchArgs`` (a null grid: no skip): its
+    distance field, the field's largest value (on the device: K3 reads it),
+    the ints and ``cell_world``."""
+    if occupancy is None:
+        return None, None, (0, 0, 0, 1, 1), 0.0
+    nx, ny, nz = occupancy.shape
+    dist = _checked("occupancy.dist", occupancy.dist, dev, (nx * ny * nz,),
+                    torch.int32)
+    ints = (nx, ny, nz, occupancy.cell, max(1, config.occupancy_jump_every))
+    far = _checked("occupancy.far", occupancy.far, dev, (1,), torch.int32)
+    return dist, far, ints, float(np.float32(occupancy.cell_world))
+
+
 def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
-                image, steps, shaded=None):
+                image, steps, shaded=None, occupancy=None):
     """Validate the operands and fill ``MarchArgs``.  Returns the struct and
     the tensors it points into, which the caller keeps referenced until the
     launch is enqueued (the caching allocator keeps their memory for the
@@ -202,19 +255,24 @@ def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
     scale = voxel_scale(config.volume_shape)
     X, Y, Z = config.volume_shape
     lc = config.light_color
+    dist, far, occ_ints, cell_world = _occupancy_args(occupancy, config,
+                                                      dev)
     args = _MarchArgs(
         dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), t0.data_ptr(),
         dt.data_ptr(), n.data_ptr(), volume.data_ptr(), tf.data_ptr(),
         origin.data_ptr(), image.data_ptr(), steps.data_ptr(),
         shaded.data_ptr() if shaded is not None else None,
-        H, W, X, Y, Z, tf.shape[0], max_steps, int(ert),
+        dist.data_ptr() if dist is not None else None,
+        far.data_ptr() if far is not None else None,
+        H, W, X, Y, Z, tf.shape[0], max_steps, int(ert), *occ_ints,
         float(scale[0]), float(scale[1]), float(scale[2]),
         float(np.float32(config.normal_delta)),
         float(np.float32(1.0) / np.float32(sampling_rate)),
         _ert_threshold(config), config.ambient, config.diffuse,
         config.specular, config.shininess, lc[0], lc[1], lc[2],
-        config.alpha_skip)
-    return args, (volume, tf, origin, dx, dy, dz, t0, dt, n, image)
+        config.alpha_skip, cell_world)
+    return args, (volume, tf, origin, dx, dy, dz, t0, dt, n, image, dist,
+                  far)
 
 
 def _launch(entry, args, volume):
@@ -224,7 +282,7 @@ def _launch(entry, args, volume):
 
 
 def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
-                  max_steps, with_shaded):
+                  max_steps, with_shaded, occupancy=None):
     """Allocate the outputs and launch one forward march kernel."""
     H, W = config.image_shape
     dev = volume.device
@@ -233,7 +291,7 @@ def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
     shaded = (torch.empty((H, W), dtype=torch.int32, device=dev)
               if with_shaded else None)
     args, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
-                             max_steps, image, steps, shaded)
+                             max_steps, image, steps, shaded, occupancy)
     _launch(entry, args, keep[0])
     return image, steps, shaded
 
@@ -361,16 +419,18 @@ def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
 
 
 def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
-                  config: RenderConfig, sampling_rate):
+                  config: RenderConfig, sampling_rate, occupancy=None):
     """Inference march: kernel K3 on CUDA tensors (counted in
     ``march_nondiff.launches``), :func:`march_nondiff_plain` on CPU
-    tensors.  Returns ``(image, visited, composited)`` as the plain
-    version does."""
+    tensors.  With an ``occupancy`` grid each ray jumps over empty space.
+    Returns ``(image, visited, composited)`` as the plain version does."""
     if _build.uses_plain(volume):
-        return march_nondiff_plain(volume, tf, rays, config, sampling_rate)
+        return march_nondiff_plain(volume, tf, rays, config, sampling_rate,
+                                   occupancy)
+    _check_grid(occupancy, config)
     image, visited, composited = _launch_march(
         "dr_march_nondiff", volume, tf, rays, config, sampling_rate, True,
-        np.iinfo(np.int32).max, with_shaded=True)
+        np.iinfo(np.int32).max, with_shaded=True, occupancy=occupancy)
     march_nondiff.launches += 1
     return image, visited, composited
 
@@ -430,13 +490,17 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
                    occupancy=None) -> RenderOutput:
     """Inference render of one view; the default sampling rate is
     ``4 * config.sampling_rate`` and there is no jitter unless ``u`` is
-    given.  ``occupancy`` is accepted and ignored: K3 ends each ray by itself
-    and an empty-space skip does not change the image.  ``valid_steps`` is
-    all ones, as in the JAX package."""
+    given.  With ``config.occupancy_skip`` (the default) the march jumps over
+    empty space through an occupancy grid, built here (K6 and a few plain
+    torch ops on CUDA) unless a prebuilt ``occupancy`` grid of this volume
+    and TF is passed; the image does not change.  ``valid_steps`` is all
+    ones, as in the JAX package."""
     sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
     volume, tf, look_from = _inputs(volume, tf, look_from, config)
+    if occupancy is None and config.occupancy_skip:
+        occupancy = build_occupancy(volume, tf, config)
     rays = make_rays(look_from, config, sr, u=u)
-    image, _, _ = march_nondiff(volume, tf, rays, config, sr)
+    image, _, _ = march_nondiff(volume, tf, rays, config, sr, occupancy)
     ones = torch.ones(config.image_shape, dtype=torch.int32,
                       device=volume.device)
     return RenderOutput(image=image, valid_steps=ones,

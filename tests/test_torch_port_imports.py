@@ -27,8 +27,13 @@ def _port_files():
 
 def test_import_leaves_jax_out():
     code = ("import sys, differender_tpu_torch\n"
+            "import differender_tpu_torch.occupancy\n"
+            "import differender_tpu_torch.ops.bricks\n"
+            "import differender_tpu_torch.ops.distance\n"
+            "assert differender_tpu_torch._build.library.cache_info()"
+            ".currsize == 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'differender_tpu')]\n"
+            "('jax', 'jaxlib', 'differender_tpu', 'experiments')]\n"
             "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -50,8 +55,8 @@ def test_no_jax_imports_in_source(path):
         else:
             continue
         for m in mods:
-            assert m.split(".")[0] not in ("jax", "jaxlib", "differender_tpu"), \
-                (path, m)
+            assert m.split(".")[0] not in ("jax", "jaxlib", "differender_tpu",
+                                           "experiments"), (path, m)
 
 
 def test_cpu_tensors_never_launch():
@@ -66,9 +71,16 @@ def test_cpu_tensors_never_launch():
     P.render(vol, tf, lf, cfg).image.sum().backward()
     P.render_nondiff(vol, tf, lf, cfg)
     P.tf_lookup(tf, torch.rand(10)).sum().backward()
+    P.build_occupancy(vol, tf, cfg)
+    P.brick_sums(torch.rand((33, 32, 34)),
+                 torch.tensor([[0, 0, 0], [1, 0, 2]], dtype=torch.int32))
+    P.brick_rows(vol, torch.zeros(2, dtype=torch.int32))
+    P.cell_distance(*P.cell_minmax(vol, 2), tf.detach(), 0.0, 3)
     assert P.launch_counts() == {"tf_lookup_fwd": 0, "tf_lookup_bwd": 0,
                                  "march_diff_fwd": 0, "march_diff_bwd": 0,
-                                 "march_nondiff": 0}
+                                 "march_nondiff": 0, "brick_sums": 0,
+                                 "brick_rows": 0, "cell_minmax": 0,
+                                 "cell_distance": 0}
 
 
 @pytest.mark.parametrize("field", ["analytic_normals", "camera_grads"])
@@ -108,7 +120,10 @@ def test_march_args_mirror_the_c_struct():
     body = re.sub(r"//[^\n]*", "", body)
     c_fields = re.findall(r"(\w+)\s*[,;]", body)
     assert c_fields == [name for name, _ in _MarchArgs._fields_]
-    assert ctypes.sizeof(_MarchArgs) == 12 * 8 + 8 * 4 + 14 * 4
+    assert ctypes.sizeof(_MarchArgs) == 14 * 8 + 13 * 4 + 15 * 4
+    for name in ("occ", "occ_far", "nx", "ny", "nz", "cell", "jump_every",
+                 "cell_world"):
+        assert name in c_fields
 
 
 def test_march_bwd_args_mirror_the_c_struct():
@@ -129,7 +144,8 @@ def test_build_is_lazy_and_keyed_on_sources():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library.cache_info().currsize == 0
-    for name in ("march_bwd.cu", "march_common.cuh"):
+    for name in ("march_bwd.cu", "march_common.cuh", "bricks.cu",
+                 "distance.cu"):
         assert name in _build._SOURCES + _build._HEADERS
 
 
