@@ -15,13 +15,16 @@ Phases (one JSON line each):
   3. march_diff_fwd (K1) through ``Raycaster.forward`` at the bench workload
      (256^3 volume, tf1 at R = 128, 512^2 image, max_samples 512, sr 1,
      jittered), on a noise volume and on a CT phantom, against
-     ``march_diff_plain``.
+     ``march_diff_plain``; K1's zero-opacity skips and the distinct voxels
+     of its samples' stencils (``stencil_footprint``).
   3b. march_diff_bwd (K2) through ``Raycaster.forward`` and
      ``mean(img^2).backward()`` on both scenes: one K1 and one K2 launch
      per step, K2's per-ray counts equal to K1's, finite gradients; both
      gradients against autograd of ``march_diff_plain`` at 512^2 with ERT
      (summed over 16 tiles of 128^2 rays) and at a 128^2 image with ERT off
-     and on; ``grad_step_ms``.
+     and on, also at normal_delta 6e-3 (0.765 voxel), where most samples
+     take the stencil's general branch (K1 there without ERT against the
+     plain march); K2's atomics; ``grad_step_ms``.
   4. march_nondiff (K3) through ``Raycaster.raycast_nondiff`` (sr 4) on both
      scenes: one K6 and one K7 launch (the occupancy grid's build) and one
      K3 launch that jumps over empty space; K3 without the grid against
@@ -125,13 +128,23 @@ BWD_SAMPLE_OPS = (DIFF_SAMPLE_OPS + COMPOSITE_BWD_OPS + SHADE_BWD_OPS
 # others: on these scenes, samples whose two TF texels both have alpha 0,
 # such as ct_phantom's empty space and tf1's transparent bands on noise; the
 # opacity is 0 there and stays 0 as the intensity moves, so the shaded
-# colour is 0 whatever the normal) needs no gradient points, no shading and
-# no scatter: its value, TF colour, opacity and composite, the composite's
-# backward, alpha's through the opacity correction (8) and the TF lerp's
-# (d_tf).
+# colour is 0 whatever the normal) needs no scatter: its value, TF colour,
+# opacity and composite, the composite's backward, alpha's through the
+# opacity correction (8) and the TF lerp's (d_tf).  Its d_tf also needs the
+# light, so the gradient points and the shading (QUIET_LIGHT_OPS), wherever
+# its TF colour and colour cotangent are not 0 (d_alpha = d_la * light +
+# d_sh.a with d_la = T g.rgb . c.rgb; K2 counts those samples too).  The
+# phase also prints the bound that charges no quiet sample the light.
 QUIET_SAMPLE_OPS = (POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + OPACITY_OPS
                     + COMPOSITE_OPS + COMPOSITE_BWD_OPS + 8
                     + TF_LERP_BWD_OPS - 7)
+QUIET_LIGHT_OPS = GRADIENT_POINTS_OPS + STENCIL_OPS + SHADE_OPS
+# A sample of opacity exactly 0 shades to 0 whatever the normal, so K1's
+# forward needs of it only the position, the centre, the TF lerp, the
+# opacity and the composite (K1 counts them).  The phase also prints the
+# bound that charges every sample DIFF_SAMPLE_OPS.
+ZERO_OPACITY_OPS = (POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + OPACITY_OPS
+                    + COMPOSITE_OPS)
 # K2 against autograd of the plain march, per gradient tensor, times its
 # max |g|.  Both run the same f32 arithmetic per sample (the kernels round
 # the trilinear sum and the TF lerp as the plain march does); only the order
@@ -547,6 +560,36 @@ def main() -> int:
                 d_t += dt_b
         return d_v, d_t
 
+    def stencil_voxels(rays_f, steps_f, cfg_f, stride=2, chunk=4096):
+        """Distinct voxels of the 7-point stencil per sample
+        (``stencil_footprint``) over K1's samples on every stride-th ray in
+        each image direction: their mean, the largest and the samples
+        counted."""
+        prm = P.march_params(rays_f)
+        sel = (slice(None, None, stride), slice(None, None, stride))
+        dirs = rays_f.dirs[sel].reshape(-1, 3)
+        t0, dt = prm.t0[sel].reshape(-1), prm.dt[sel].reshape(-1)
+        n = (steps_f[sel] - 1).reshape(-1).long()
+        total, count, top = 0, 0, 0
+        for r0 in range(0, n.numel(), chunk):
+            nn = n[r0:r0 + chunk]
+            ray = torch.repeat_interleave(
+                torch.arange(nn.numel(), device=dev), nn)
+            if ray.numel() == 0:
+                continue
+            first = torch.cumsum(nn, 0) - nn
+            s = (torch.arange(ray.numel(), device=dev) - first[ray]).float()
+            t = t0[r0:][ray] + s * dt[r0:][ray]
+            pos = rays_f.origin + t[:, None] * dirs[r0:][ray]
+            fp = P.sampling.stencil_footprint(pos, cfg_f.volume_shape,
+                                              cfg_f.normal_delta)
+            per = torch.bincount(fp.sample, minlength=pos.shape[0])
+            total += int(per.sum())
+            count += per.numel()
+            top = max(top, int(per.max()))
+            del fp, pos, t, s, ray
+        return total / max(count, 1), top, count
+
     for scene, make in scenes.items():
         vol_user = torch.from_numpy(make()).to(dev)[None]
         vol_i = P.volume_to_internal(vol_user[0]).contiguous()
@@ -578,22 +621,49 @@ def main() -> int:
         noert_err = float((got_ne - want_ne).abs().max())
         require(noert_err <= 2e-4 and bool((steps_ne == want_steps_ne).all()),
                 f"K1 {scene} without ERT: max |diff| {noert_err}")
+        # K1's own counts on the same rays: the samples of opacity 0 that it
+        # composited without their gradient, and those of the stencil's
+        # general branch; the footprint of its samples.
+        k1_counts = torch.zeros((img, img, 2), dtype=torch.int32, device=dev)
+        image_c, _ = P.march_diff_fwd(vol_i, tf_i, rays, cfg, 1.0,
+                                      counts=k1_counts)
+        require(torch.equal(image_c, out.image.permute(1, 2, 0)),
+                f"K1 with counts differs from Raycaster.forward on {scene}")
+        n_skipped = int(k1_counts[..., 0].sum())
+        n_general = int(k1_counts[..., 1].sum())
+        vox_mean, vox_max, vox_n = stencil_voxels(rays, out.valid_steps, cfg)
+        del image_c, k1_counts
         fwd_ms = host_ms(lambda: rc.forward(vol_user, tf_user, lf, u=u), 7)
         k_ms = cuda_ms(lambda: P.march_diff(vol_i, tf_i, rays, cfg, 1.0), 10)
         p_ms = cuda_ms(lambda: P.march_diff_plain(vol_i, tf_i, rays, cfg,
                                                   1.0), 2, warm=0)
-        b_ms, b_by = bound(vol_bytes + R * 16 + ray_bytes + img * img * 20,
-                           samples * DIFF_SAMPLE_OPS)
+        k1_bytes = vol_bytes + R * 16 + ray_bytes + img * img * 20
+        b_ms_uncorrected, _ = bound(k1_bytes, samples * DIFF_SAMPLE_OPS)
+        b_ms, b_by = bound(k1_bytes,
+                           (samples - n_skipped) * DIFF_SAMPLE_OPS
+                           + n_skipped * ZERO_OPACITY_OPS)
         emit({"phase": "march_diff_fwd", "scene": scene, "image": img,
               "launches": launches, "max_abs_err": max_err,
               "pixels_over_2e-4": n_over, "frac_over_2e-4": frac_over,
               "valid_steps_max_diff": steps_diff,
               "noert_max_abs_err": noert_err, "samples": samples,
+              "samples_zero_opacity_skipped": n_skipped,
+              "skip_share": n_skipped / max(samples, 1),
+              "samples_general_branch": n_general,
+              "stencil_voxels_per_sample": vox_mean,
+              "stencil_voxels_max": vox_max,
+              "stencil_voxels_samples_counted": vox_n,
               "forward_ms": fwd_ms, "ms": k_ms, "plain_ms": p_ms,
               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+              "bound_ms_uncorrected": b_ms_uncorrected,
+              "ptxas": [ln for ln in info.ptxas.get("march.cu", [])
+                        if "Used" in ln or "spill" in ln],
               "nvidia_smi": smi})
         record("march_diff_fwd", scene, launches, max_err, k_ms, p_ms, b_ms,
                b_by)
+        if scene == "noise":
+            kernels["march_diff_fwd"]["bound_ms_uncorrected"] = \
+                b_ms_uncorrected
 
         # K2: the gradient step, forward and backward through the Raycaster.
         v_leaf = vol_user.clone().requires_grad_()
@@ -638,17 +708,20 @@ def main() -> int:
                 f"K2 by the wrapper and by autograd differ: {same_v}, "
                 f"{same_t} ({scene})")
         bwd_samples = int((steps_bwd - 1).sum())
-        scattered = torch.zeros((img, img), dtype=torch.int32, device=dev)
+        k2_counts = torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
         P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image, g_img,
-                         scattered=scattered)
-        n_scattered = int(scattered.sum())
+                         counts=k2_counts)
+        n_scattered, n_quiet_light, n_atomics, n_general_bwd = (
+            int(k2_counts[..., i].sum()) for i in range(4))
+        del k2_counts
         k2_ms = cuda_ms(lambda: P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0,
                                                  image, g_img), 10)
         step_ms = host_ms(grad_step, 7)
-        b_ms, b_by = bound(3 * vol_bytes + R * 32 + ray_bytes
-                           + img * img * 36,
-                           n_scattered * BWD_SAMPLE_OPS
-                           + (bwd_samples - n_scattered) * QUIET_SAMPLE_OPS)
+        k2_bytes = 3 * vol_bytes + R * 32 + ray_bytes + img * img * 36
+        k2_ops = (n_scattered * BWD_SAMPLE_OPS
+                  + (bwd_samples - n_scattered) * QUIET_SAMPLE_OPS)
+        b_ms_uncorrected, _ = bound(k2_bytes, k2_ops)
+        b_ms, b_by = bound(k2_bytes, k2_ops + n_quiet_light * QUIET_LIGHT_OPS)
         # K2 at the main path's own shape, ERT on, against autograd of the
         # plain march summed over 16 tiles of 128^2 rays (one 512^2 autograd
         # march would take tens of GB on ct_phantom), for a cotangent with
@@ -675,22 +748,54 @@ def main() -> int:
         rays_s = P.make_rays(lf, cfg_s, 1.0, u=u_s)
         g_s = torch.rand((128, 128, 4), generator=gen_b, device=dev) - 0.3
         small = {}
-        cases = [("tf1", tf_i, False), ("tf1", tf_i, True)]
+        # normal_delta 6e-3 is 0.765 voxel at 256^3: most samples need both
+        # extra layers of an axis and take the stencil's general branch.
+        cfg_wide = cfg_s.replace(normal_delta=6e-3)
+        cases = [("tf1", tf_i, False, cfg_s), ("tf1", tf_i, True, cfg_s),
+                 ("tf1_delta6e-3", tf_i, False, cfg_wide),
+                 ("tf1_delta6e-3", tf_i, True, cfg_wide)]
         if scene == "noise":
             # The TF-gradient rule of R > 1024 (K2's global-memory TF), and
             # a TF alpha of exactly 1 (K2's exact last sample, its restart
             # and its stop at T = 0).
             opaque = tf_i.clone()
             opaque[40:, 3] = 1.0
-            cases += [("tf1_R2048", P.get_tf("tf1", 2048, device=dev), True),
-                      ("opaque", opaque, False), ("opaque", opaque, True)]
-        for label, tf_c, ert in cases:
+            cases += [("tf1_R2048", P.get_tf("tf1", 2048, device=dev), True,
+                       cfg_s),
+                      ("opaque", opaque, False, cfg_s),
+                      ("opaque", opaque, True, cfg_s)]
+        for label, tf_c, ert, cfg_c in cases:
             errs, n_knife, img_s, g_m = k2_vs_plain(vol_i, tf_c, rays_s,
-                                                    cfg_s, g_s, ert,
+                                                    cfg_c, g_s, ert,
                                                     f"{scene} {label}")
             small[f"{label}_ert_{ert}"] = {"rel_err_d_volume": errs[0],
                                           "rel_err_d_tf": errs[1],
                                           "knife_edge_rays": n_knife}
+        # K1 and K2 in both branches of the stencil at delta 6e-3: K1
+        # without ERT against the plain march, and each kernel's count of
+        # general-branch samples.
+        c1 = torch.zeros((128, 128, 2), dtype=torch.int32, device=dev)
+        img_w, steps_w = P.march_diff_fwd(vol_i, tf_i, rays_s, cfg_wide, 1.0,
+                                          ert=False, counts=c1)
+        want_w, want_steps_w = P.march_diff_plain(vol_i, tf_i, rays_s,
+                                                  cfg_wide, 1.0, ert=False)
+        wide_err = float((img_w - want_w).abs().max())
+        require(wide_err <= 2e-4 and torch.equal(steps_w, want_steps_w),
+                f"K1 at delta 6e-3 on {scene} without ERT: max |diff| "
+                f"{wide_err}")
+        c2 = torch.zeros((128, 128, 4), dtype=torch.int32, device=dev)
+        P.march_diff_bwd(vol_i, tf_i, rays_s, cfg_wide, 1.0, img_w, g_s,
+                         ert=False, counts=c2)
+        wide_samples = int((steps_w - 1).sum())
+        wide_general = [int(c1[..., 1].sum()), int(c2[..., 3].sum())]
+        # K2 recomputes K1's samples but stops once T is exactly 0.
+        require(0 < wide_general[0] < wide_samples
+                and 0 < wide_general[1] <= wide_general[0],
+                f"delta 6e-3 on {scene}: {wide_general} of {wide_samples} "
+                f"samples in the general branch (K1, K2)")
+        wide = {"k1_noert_max_abs_err": wide_err, "samples": wide_samples,
+                "general_branch_k1_k2": wide_general}
+        del c1, c2, img_w, want_w
         img_s, _ = P.march_diff_fwd(vol_i, tf_i, rays_s, cfg_s, 1.0)
         g_m = g_s
         k2_small_ms = cuda_ms(lambda: P.march_diff_bwd(
@@ -704,6 +809,12 @@ def main() -> int:
               "launches": launches, "k1_launches": counts["march_diff_fwd"],
               "counts_equal_k1": True, "samples": bwd_samples,
               "samples_scattering": n_scattered,
+              "samples_quiet_needing_light": n_quiet_light,
+              "atomics": n_atomics,
+              "atomics_per_scattering_sample":
+                  n_atomics / max(n_scattered, 1),
+              "samples_general_branch": n_general_bwd,
+              "delta6e-3_128": wide,
               "wrapper_vs_autograd_rel": [same_v, same_t],
               "vs_plain_512_ert_True": {"rel_err_d_volume": full_errs[0],
                                         "rel_err_d_tf": full_errs[1],
@@ -713,6 +824,7 @@ def main() -> int:
               "plain_ms": plain_full_ms, "ms_128": k2_small_ms,
               "plain_ms_128": plain_small_ms,
               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+              "bound_ms_uncorrected": b_ms_uncorrected,
               "ptxas": [ln for ln in info.ptxas.get("march_bwd.cu", [])
                         if "Used" in ln or "spill" in ln],
               "nvidia_smi": smi})
@@ -724,7 +836,9 @@ def main() -> int:
             k.update(ms=k2_ms, plain_ms=plain_full_ms,
                      plain_ms_note="autograd of march_diff_plain over 16 "
                                    "tiles of 128^2, host clock",
-                     bound_ms=b_ms, bound_by=b_by, grad_step_ms=step_ms)
+                     bound_ms=b_ms, bound_by=b_by,
+                     bound_ms_uncorrected=b_ms_uncorrected,
+                     grad_step_ms=step_ms)
             grad_step_profile = profile(grad_step)
         del v_leaf, t_leaf, img_g, d_v, d_t, image, g_img
 

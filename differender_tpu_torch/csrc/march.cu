@@ -6,22 +6,27 @@
 // lookup (sampling.py::_apply_tf_dot2_p), the closed-form block composite
 // (render.py::composite_block_soa) and alive-ray compaction.  Here each
 // thread marches its ray front to back, as the reference renderer does:
-// per sample it computes the position, 7 trilinear samples (56 loads) for
-// the value and the central-difference gradient, the TF lerp
-// (tf_lerp.cuh), opacity correction, headlight shading and the composite,
-// and it stops at its own early ray termination (ERT).
+// per sample it computes the position, the value and the central-difference
+// gradient (7 trilinear points), the TF lerp (tf_lerp.cuh), opacity
+// correction, headlight shading and the composite, and it stops at its own
+// early ray termination (ERT).
 //
 // Bound on the H100: operations.  At the bench workload the volume (64 MiB)
-// is read once in the byte count, but every sample needs ~350 f32 operations
-// over its 56 loads, so the f32 rate bounds the work.  In practice the
-// dependent, data-addressed loads (latency, L1/L2 hit rate) decide the time.
-// What the design does about it: blocks cover 16x8 pixel tiles so the rays of
-// a warp walk neighbouring voxels and share cache lines; the TF sits in
-// shared memory; the transmittance is carried multiplicatively and each
-// thread exits at ERT, so no work is spent past it.  K3 samples the 6
-// gradient points only when the TF alpha passes alpha_skip, and with an
-// occupancy grid (occupancy.py) it jumps over empty space: at its head
-// sample it reads the macrocell's distance d and skips
+// is read once in the byte count, but a shaded sample needs ~350 f32
+// operations, so the f32 rate bounds the work.  In practice the
+// data-addressed loads (latency, L1/L2 hit rate, load instructions issued)
+// decide the time.  What the design does about it: blocks cover 16x8 pixel
+// tiles so the rays of a warp walk neighbouring voxels and share cache
+// lines; the TF sits in shared memory; the transmittance is carried
+// multiplicatively and each thread exits at ERT.  K1 loads each distinct
+// voxel of a sample's stencil once, 8 to 20 of them in place of 56 (the
+// compact branch in march_common.cuh), and a sample whose opacity is
+// exactly 0 loads only the centre's cell and skips the gradient and the
+// shading, which cannot change the composite (zero_skip_exact).  Held to
+// 102 registers (5 blocks per SM).  K3 keeps 7 points of 8 loads; it
+// samples the 6 gradient points only when the TF alpha passes alpha_skip,
+// and with an occupancy grid (occupancy.py) it jumps over empty space: at
+// its head sample it reads the macrocell's distance d and skips
 // floor((d - 1) * cell_world / dt) samples that provably classify at or
 // below alpha_skip (occupancy_jump in march_common.cuh).  JAX rounds each
 // jump down to a march block so that its blocked composite stays bitwise;
@@ -41,8 +46,11 @@
 
 #include "march_common.cuh"
 
+// At least 5 blocks of 128 threads per SM: at most 102 registers a thread
+// (nvcc's own choice is 113, 4 blocks, a little slower).
 template <bool kGlobalTf>
-__global__ void __launch_bounds__(128) march_diff_fwd_kernel(MarchArgs a) {
+__global__ void __launch_bounds__(128, 5)
+    march_diff_fwd_kernel(MarchArgs a) {
   extern __shared__ float4 s_tf[];
   const float4* tf =
       stage_tf<kGlobalTf>(reinterpret_cast<const float4*>(a.tf), a.R, s_tf);
@@ -56,21 +64,32 @@ __global__ void __launch_bounds__(128) march_diff_fwd_kernel(MarchArgs a) {
   const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
   const float t0 = a.t0[p], dt = a.dt[p];
   const int steps = min(a.n[p], a.max_steps);
+  const bool zero_skip = zero_skip_exact(a);
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
-  int cnt = 1;
+  int cnt = 1, skipped = 0, general = 0;
   for (int s = 0; s < steps; ++s) {
     if (a.ert && !(T > a.thr)) break;
-    const float4 sh = march_sample<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz,
-                                              dx, dy, dz).sh;
-    r += T * sh.x;
-    g += T * sh.y;
-    b += T * sh.z;
-    T *= 1.0f - sh.w;
+    const Sample q = march_sample<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz,
+                                             dx, dy, dz, zero_skip);
     ++cnt;
+    general += !q.compact;
+    // A zero sample composites r += T * 0, T *= 1: nothing changes.
+    if (q.zero) {
+      ++skipped;
+      continue;
+    }
+    r += T * q.sh.x;
+    g += T * q.sh.y;
+    b += T * q.sh.z;
+    T *= 1.0f - q.sh.w;
   }
   reinterpret_cast<float4*>(a.image)[p] = make_float4(r, g, b, 1.0f - T);
   a.steps[p] = cnt;
+  if (a.shaded) {
+    a.shaded[2 * p] = skipped;
+    a.shaded[2 * p + 1] = general;
+  }
 }
 
 template <bool kGlobalTf>
@@ -121,8 +140,8 @@ __global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
                      trilinear<false>(a, px, py - d, pz);
     const float gz = trilinear<false>(a, px, py, pz + d) -
                      trilinear<false>(a, px, py, pz - d);
-    const float4 sh = shade<false>(a, c, px, py, pz, gx, gy, gz, dx, dy, dz,
-                                   ox, oy, oz);
+    const float4 sh = shade<false>(a, c, opacity(a, c.w), px, py, pz, gx, gy,
+                                   gz, dx, dy, dz, ox, oy, oz);
     r += T * sh.x;
     g += T * sh.y;
     b += T * sh.z;

@@ -14,10 +14,10 @@
 // colour and alpha through the composite, the headlight shading (light
 // clamp included), the opacity correction, the clamped unit-normal VJP and
 // the TF lerp (tf_lerp_bwd in tf_lerp.cuh), then scatters the sample's 56
-// voxel weights (8 for the value, 48 for the six +-delta gradient points,
-// opposite signs for + and -) into d_volume with atomicAdd.  d_tf is summed
-// per block in shared memory (R <= kMaxSharedTexels) and added to the global
-// d_tf once per block.
+// voxel terms (8 for the value, 48 for the six +-delta gradient points,
+// opposite signs for + and -) into d_volume.  d_tf is summed per block in
+// shared memory (R <= kMaxSharedTexels) and added to the global d_tf once
+// per block.
 //
 // The composite's alpha cotangent.  With T_s the transmittance before
 // sample s, f_s = 1 - a_s and g the image cotangent, dL/dc_s = T_s g.rgb and
@@ -35,10 +35,20 @@
 // the thread stops (without ERT it still counts the samples K1 composited).
 //
 // Bound on the H100: operations (about 3x K1's per sample: the recompute,
-// the backward chain and 56 + up to 8 atomic adds).  In practice the
-// atomics decide the time: neighbouring rays add into the same voxels.  A
-// zero cotangent adds nothing, which skips most atomics in empty space.
-// This first version does nothing else about contention.
+// the backward chain and the scatter).  In practice the recompute's
+// data-addressed loads and the atomics decide the time: 56 scalar atomics
+// per sample went to about 11 distinct addresses, 7 of them back to back to
+// each corner of the centre's cell, and d_volume and the volume (64 MiB
+// each at 256^3) overflow the 50 MB L2, so misses are read-modify-writes in
+// HBM.  What the design does about it: the recompute loads each distinct
+// voxel of the stencil once (the compact branch in march_common.cuh), and
+// scatter_sample merges the 56 terms in registers into one total per
+// distinct voxel and adds each non-zero total with one scalar atomic
+// (float4 vector atomics on aligned z runs, and warp aggregation of equal
+// addresses, were both slower).  A zero cotangent adds nothing, which skips
+// most atomics in empty space.  A sample of opacity 0 whose d_tf needs no
+// light skips the gradient points (see march_diff_bwd_kernel).  The kernel
+// is held to 128 registers so that 4 blocks fit on an SM.
 #include <cuda_runtime.h>
 
 #include "march_common.cuh"
@@ -46,7 +56,11 @@
 // Mirrored field for field by differender_tpu_torch/render.py::_MarchBwdArgs.
 struct MarchBwdArgs {
   MarchArgs f;        // f.image: K1's image (read); f.steps: K2's counts;
-                      // f.shaded, if set: samples that add to d_volume
+                      // f.shaded, if set: 4 counts per ray, the samples
+                      // that add to d_volume, those that add nothing and
+                      // need the light (their d_tf does), the atomics added
+                      // to d_volume, and the samples of the stencil's
+                      // general branch
   const float* grad;  // (H*W, 4) image cotangent
   float* d_volume;    // (X*Y*Z), zeroed by the caller
   float* d_tf;        // (R*4), zeroed by the caller
@@ -63,11 +77,13 @@ __device__ __forceinline__ float relu_slope(float x) {
   return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
 }
 
-__device__ __forceinline__ void trilinear_scatter(const MarchArgs& a,
-                                                  float* dvol, float px,
-                                                  float py, float pz,
-                                                  float dv) {
-  if (dv == 0.0f) return;
+// The general branch's scatter of one point: 8 atomics, or none for dv = 0.
+// Returns the atomics issued.
+__device__ __forceinline__ int trilinear_scatter(const MarchArgs& a,
+                                                 float* dvol, float px,
+                                                 float py, float pz,
+                                                 float dv) {
+  if (dv == 0.0f) return 0;
   int x0, x1, y0, y1, z0, z1;
   const float fx = voxel_axis(px, a.scale_x, a.X, x0, x1);
   const float fy = voxel_axis(py, a.scale_y, a.Y, y0, y1);
@@ -85,6 +101,103 @@ __device__ __forceinline__ void trilinear_scatter(const MarchArgs& a,
   atomicAdd(dvol + r10 + z1, dv * ((fx * gy) * fz));
   atomicAdd(dvol + r01 + z1, dv * ((gx * fy) * fz));
   atomicAdd(dvol + r11 + z1, dv * ((fx * fy) * fz));
+  return 8;
+}
+
+// Adds w to d_volume at o with one atomic, unless w is 0.  Returns the
+// atomics issued.
+__device__ __forceinline__ int add_voxel(float* dvol, long long o, float w) {
+  if (w == 0.0f) return 0;
+  atomicAdd(dvol + o, w);
+  return 1;
+}
+
+// One axis's share of the +-delta points' weights, merged onto the three
+// layers it can touch in the compact branch: the centre's low and high
+// layers and the extra one.  dg * (w(+delta) - w(-delta)) on each.
+__device__ __forceinline__ void arm_weights(const StencilAxis& s, float dg,
+                                            float& a0, float& a1,
+                                            float& ae) {
+  const float gp = 1.0f - s.fp, gm = 1.0f - s.fm;
+  const float p0 = s.pl ? 0.0f : gp, p1 = s.pl ? gp : s.fp,
+              pe = s.pl ? s.fp : 0.0f;
+  const float m0 = s.m ? s.fm : gm, m1 = s.m ? 0.0f : s.fm,
+              me = s.m ? gm : 0.0f;
+  a0 = dg * (p0 - m0);
+  a1 = dg * (p1 - m1);
+  ae = dg * (pe - me);
+}
+
+// Adds one sample's volume cotangents into d_volume: dv at the centre and
+// +-dg_axis at the +-delta points of each axis.  The compact branch merges
+// the 56 terms into one total per distinct voxel (sums of the same products
+// in another order) and adds each with one atomic; the general branch
+// scatters point by point.  Returns the atomics issued.
+__device__ __forceinline__ int scatter_sample(const MarchArgs& a,
+                                              float* dvol, const Sample& q,
+                                              float dv, float dgx, float dgy,
+                                              float dgz) {
+  if (!q.compact) {
+    const float d = a.delta;
+    return trilinear_scatter(a, dvol, q.px, q.py, q.pz, dv) +
+           trilinear_scatter(a, dvol, q.px + d, q.py, q.pz, dgx) +
+           trilinear_scatter(a, dvol, q.px - d, q.py, q.pz, -dgx) +
+           trilinear_scatter(a, dvol, q.px, q.py + d, q.pz, dgy) +
+           trilinear_scatter(a, dvol, q.px, q.py - d, q.pz, -dgy) +
+           trilinear_scatter(a, dvol, q.px, q.py, q.pz + d, dgz) +
+           trilinear_scatter(a, dvol, q.px, q.py, q.pz - d, -dgz);
+  }
+  // The axes again from the position, bitwise sample_centre's: cheaper
+  // than keeping them in registers across the shading backward.
+  const StencilAxis X = stencil_axis(q.px, a.delta, a.scale_x, a.X);
+  const StencilAxis Y = stencil_axis(q.py, a.delta, a.scale_y, a.Y);
+  const StencilAxis Z = stencil_axis(q.pz, a.delta, a.scale_z, a.Z);
+  const float wx[2] = {1.0f - X.f, X.f}, wy[2] = {1.0f - Y.f, Y.f},
+              wz[2] = {1.0f - Z.f, Z.f};
+  float ax[2], ay[2], az[2], axe, aye, aze;
+  arm_weights(X, dgx, ax[0], ax[1], axe);
+  arm_weights(Y, dgy, ay[0], ay[1], aye);
+  arm_weights(Z, dgz, az[0], az[1], aze);
+  const bool xs = X.m || X.pl, ys = Y.m || Y.pl, zs = Z.m || Z.pl;
+  const int ex = extra_layer(X), ey = extra_layer(Y), ez = extra_layer(Z);
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // The centre's cell on the line (lo_x + i, lo_y + j), and the extra z
+      // layer there.
+      const long long row =
+          ((long long)(X.lo + i) * a.Y + (Y.lo + j)) * a.Z;
+      const float xv = dv * wx[i] + ax[i];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        count += add_voxel(dvol, row + Z.lo + k,
+                           xv * wy[j] * wz[k] +
+                               wx[i] * (ay[j] * wz[k] + az[k] * wy[j]));
+      }
+      if (zs) count += add_voxel(dvol, row + ez, aze * (wx[i] * wy[j]));
+    }
+  }
+  // The extra x layer at (e, lo_y + j, lo_z + k) and the extra y layer at
+  // (lo_x + i, e, lo_z + k).
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      if (xs) {
+        count += add_voxel(
+            dvol, ((long long)ex * a.Y + (Y.lo + l)) * a.Z + Z.lo + k,
+            axe * (wy[l] * wz[k]));
+      }
+      if (ys) {
+        count += add_voxel(
+            dvol, ((long long)(X.lo + l) * a.Y + ey) * a.Z + Z.lo + k,
+            aye * (wx[l] * wz[k]));
+      }
+    }
+  }
+  return count;
 }
 
 // Backward of shade<true> for the cotangent d_sh of its output: returns
@@ -167,8 +280,35 @@ __device__ __forceinline__ float4 shade_bwd(const MarchArgs& a, float4 c,
 template <bool kGlobalTf>
 constexpr int kMarchTfMask = kGlobalTf ? kTfGradEveryT : kTfGradFracPositive;
 
+// U, the whole sum behind sample s, for a sample whose f = 1 - a is below
+// kRestartBelow: the rest of the ray marched once more with a local
+// transmittance from 1, under the same ERT gate on the real transmittance
+// (which starts at Tn).  Inlined: a call's saved registers cost K2 more
+// than the code size.
 template <bool kGlobalTf>
-__global__ void __launch_bounds__(128) march_diff_bwd_kernel(MarchBwdArgs b) {
+__device__ __forceinline__ float rest_of_ray(
+    const MarchArgs& a, const float4* tf, int s, int steps, float Tn,
+    float4 g, float t0, float dt, float ox, float oy, float oz, float dx,
+    float dy, float dz, bool zero_skip) {
+  float Ur = 0.0f, Tl = 1.0f, Tr = Tn;
+  for (int s2 = s + 1; s2 < steps; ++s2) {
+    if (a.ert && !(Tr > a.thr)) break;
+    const Sample r = march_sample<kGlobalTf>(a, tf, s2, t0, dt, ox, oy, oz,
+                                             dx, dy, dz, zero_skip);
+    Ur += Tl * (g.x * r.sh.x + g.y * r.sh.y + g.z * r.sh.z);
+    Tl *= 1.0f - r.sh.w;
+    Tr *= 1.0f - r.sh.w;
+    if (Tl == 0.0f) break;
+  }
+  return Ur - g.w * Tl;
+}
+
+// At least 4 blocks of 128 threads per SM: at most 128 registers a thread.
+// Left to itself nvcc gives K2 240 registers, 2 blocks per SM, too few
+// warps to hide its data-addressed loads and atomics.
+template <bool kGlobalTf>
+__global__ void __launch_bounds__(128, 4)
+    march_diff_bwd_kernel(MarchBwdArgs b) {
   extern __shared__ float4 s_tf[];
   const MarchArgs& a = b.f;
   const float4* tf =
@@ -185,24 +325,44 @@ __global__ void __launch_bounds__(128) march_diff_bwd_kernel(MarchBwdArgs b) {
     const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
     const float t0 = a.t0[p], dt = a.dt[p];
     const int steps = min(a.n[p], a.max_steps);
-    const float d = a.delta;
     const float4 g = reinterpret_cast<const float4*>(b.grad)[p];
     const float4 img = reinterpret_cast<const float4*>(a.image)[p];
+    const bool zero_skip = zero_skip_exact(a);
+    // A zero sample (opacity 0, see march_common.cuh) shades to 0 whatever
+    // its normal, its shading backward gives dg = 0 and d_c.rgb = 0, and it
+    // uses the light (so the normal) only in d_alpha = d_la * light +
+    // d_sh.a.  So it needs the gradient points only where d_la = T g.rgb .
+    // (c.rgb lc) != 0, or where d_pow (a shininess below 1 and not 0) could
+    // make dg = d_raw * d_pow = 0 * inf a NaN, as the full chain does;
+    // elsewhere a zero gradient (ambient light) gives the same d_c and
+    // dg = 0, up to the sign of a zero.
+    const bool light_always = !(a.shininess >= 1.0f || a.shininess == 0.0f);
 
     // Segment state: base transmittance, whole sum behind the segment's
     // start, local transmittance and the prefix of that sum.
     float Tb = 1.0f, Tloc = 1.0f, P = 0.0f;
     float U = g.x * img.x + g.y * img.y + g.z * img.z - g.w * (1.0f - img.w);
     float T = 1.0f;
-    int cnt = 1, scattered = 0;
+    int cnt = 1, scattered = 0, quiet_light = 0, atomics = 0, general = 0;
     for (int s = 0; s < steps; ++s) {
       if (a.ert && !(T > a.thr)) break;
       if (T == 0.0f) {          // without ERT: nothing more to add
         cnt += steps - s;
         break;
       }
-      const Sample q = march_sample<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz,
-                                               dx, dy, dz);
+      Sample q = sample_centre<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz, dx,
+                                          dy, dz, zero_skip);
+      const float4 d_sh = make_float4(T * g.x, T * g.y, T * g.z, 0.0f);
+      const float d_la = d_sh.x * q.c.x * a.lc_r + d_sh.y * q.c.y * a.lc_g +
+                         d_sh.z * q.c.z * a.lc_b;
+      const bool light = !q.zero || d_la != 0.0f || light_always;
+      general += !q.compact;
+      if (light) {
+        sample_gradient(a, q);
+      } else {
+        q.gx = q.gy = q.gz = 0.0f;
+      }
+      shade_sample(a, q, dx, dy, dz, ox, oy, oz);
       const float f = 1.0f - q.sh.w;
       const float Tn = T * f;
       const bool last = s + 1 == steps || (a.ert && !(Tn > a.thr));
@@ -210,19 +370,9 @@ __global__ void __launch_bounds__(128) march_diff_bwd_kernel(MarchBwdArgs b) {
       if (last) {
         d_a = T * g.w;
       } else if (f < kRestartBelow) {
-        // March the rest of the ray with a local transmittance from 1,
-        // under the same ERT gate on the real transmittance.
-        float Ur = 0.0f, Tl = 1.0f, Tr = Tn;
-        for (int s2 = s + 1; s2 < steps; ++s2) {
-          if (a.ert && !(Tr > a.thr)) break;
-          const Sample r = march_sample<kGlobalTf>(a, tf, s2, t0, dt, ox, oy,
-                                                   oz, dx, dy, dz);
-          Ur += Tl * (g.x * r.sh.x + g.y * r.sh.y + g.z * r.sh.z);
-          Tl *= 1.0f - r.sh.w;
-          Tr *= 1.0f - r.sh.w;
-          if (Tl == 0.0f) break;
-        }
-        Ur -= g.w * Tl;
+        const float Ur = rest_of_ray<kGlobalTf>(a, tf, s, steps, Tn, g, t0,
+                                                dt, ox, oy, oz, dx, dy, dz,
+                                                zero_skip);
         d_a = -T * Ur;
         Tb = Tn;
         U = Ur;
@@ -236,23 +386,25 @@ __global__ void __launch_bounds__(128) march_diff_bwd_kernel(MarchBwdArgs b) {
       float dgx, dgy, dgz;
       const float4 d_c = shade_bwd(
           a, q.c, q.px, q.py, q.pz, q.gx, q.gy, q.gz, dx, dy, dz, ox, oy, oz,
-          make_float4(T * g.x, T * g.y, T * g.z, d_a), dgx, dgy, dgz);
+          make_float4(d_sh.x, d_sh.y, d_sh.z, d_a), dgx, dgy, dgz);
       const float dv = tf_lerp_bwd<kMarchTfMask<kGlobalTf>, kGlobalTf>(
           tf, a.R, q.v, d_c, acc);
-      float* dvol = b.d_volume;
-      trilinear_scatter(a, dvol, q.px, q.py, q.pz, dv);
-      trilinear_scatter(a, dvol, q.px + d, q.py, q.pz, dgx);
-      trilinear_scatter(a, dvol, q.px - d, q.py, q.pz, -dgx);
-      trilinear_scatter(a, dvol, q.px, q.py + d, q.pz, dgy);
-      trilinear_scatter(a, dvol, q.px, q.py - d, q.pz, -dgy);
-      trilinear_scatter(a, dvol, q.px, q.py, q.pz + d, dgz);
-      trilinear_scatter(a, dvol, q.px, q.py, q.pz - d, -dgz);
-      scattered += dv != 0.0f || dgx != 0.0f || dgy != 0.0f || dgz != 0.0f;
+      if (dv != 0.0f || dgx != 0.0f || dgy != 0.0f || dgz != 0.0f) {
+        ++scattered;
+        atomics += scatter_sample(a, b.d_volume, q, dv, dgx, dgy, dgz);
+      } else {
+        quiet_light += light;
+      }
       T = Tn;
       ++cnt;
     }
     a.steps[p] = cnt;
-    if (a.shaded) a.shaded[p] = scattered;
+    if (a.shaded) {
+      a.shaded[4 * p] = scattered;
+      a.shaded[4 * p + 1] = quiet_light;
+      a.shaded[4 * p + 2] = atomics;
+      a.shaded[4 * p + 3] = general;
+    }
   }
   if (!kGlobalTf) flush_tf_grad(acc, a.R, b.d_tf);
 }

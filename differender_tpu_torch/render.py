@@ -281,33 +281,53 @@ def _launch(entry, args, volume):
                     _build.stream_of(volume)), entry)
 
 
+def _counts_out(name, counts, dev, shape):
+    """Checks an optional int32 tensor of per-ray counts that a kernel
+    writes, and returns it (or None)."""
+    if counts is None:
+        return None
+    _checked(name, counts, dev, shape, torch.int32)
+    if not counts.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return counts
+
+
 def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
-                  max_steps, with_shaded, occupancy=None):
-    """Allocate the outputs and launch one forward march kernel."""
+                  max_steps, shaded=None, occupancy=None):
+    """Allocate the outputs and launch one forward march kernel; ``shaded``
+    (if given) receives its per-ray counts."""
     H, W = config.image_shape
     dev = volume.device
     image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
-    shaded = (torch.empty((H, W), dtype=torch.int32, device=dev)
-              if with_shaded else None)
     args, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
                              max_steps, image, steps, shaded, occupancy)
     _launch(entry, args, keep[0])
-    return image, steps, shaded
+    return image, steps
 
 
 def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
-                   config: RenderConfig, sampling_rate, ert: bool = True):
+                   config: RenderConfig, sampling_rate, ert: bool = True, *,
+                   counts: Optional[torch.Tensor] = None):
     """Kernel K1 on CUDA tensors (one launch, counted in
     ``march_diff_fwd.launches``), :func:`march_diff_plain` on CPU tensors.
-    Returns ``(image (H, W, 4), valid_steps (H, W))``; no autograd."""
+    Returns ``(image (H, W, 4), valid_steps (H, W))``; no autograd.
+    ``counts``, an (H, W, 2) int32 tensor beside the volume, receives two
+    counts per ray: the samples of opacity exactly 0, which K1 composites
+    without their gradient and shading, and the samples of the stencil's
+    general branch (K1 only: ``chip_smoke.py`` reads them)."""
     if _build.uses_plain(volume):
+        if counts is not None:
+            raise ValueError("counts are counted by kernel K1 only; the "
+                             "volume is on the CPU")
         with torch.no_grad():
             return march_diff_plain(volume, tf, rays, config, sampling_rate,
                                     ert)
-    image, steps, _ = _launch_march(
+    counts = _counts_out("counts", counts, volume.device,
+                         config.image_shape + (2,))
+    image, steps = _launch_march(
         "dr_march_diff_fwd", volume, tf, rays, config, sampling_rate, ert,
-        config.max_samples, with_shaded=False)
+        config.max_samples, counts)
     march_diff_fwd.launches += 1
     return image, steps
 
@@ -337,7 +357,7 @@ def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
 def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                    config: RenderConfig, sampling_rate, image: torch.Tensor,
                    grad: torch.Tensor, ert: bool = True, *,
-                   scattered: Optional[torch.Tensor] = None):
+                   counts: Optional[torch.Tensor] = None):
     """Backward of the differentiable march for the image cotangent
     ``grad`` (H, W, 4): kernel K2 on CUDA tensors (one launch, counted in
     ``march_diff_bwd.launches``), :func:`march_diff_bwd_plain` on CPU.
@@ -347,25 +367,24 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     composite to know each sample's share of what lies behind it.  Returns
     ``(d_volume (X, Y, Z), d_tf (R, 4), valid_steps (H, W))``, the last
     counted by K2 itself.  ``d_volume`` and ``d_tf`` are summed with f32
-    atomics, so their last bits vary from run to run.  ``scattered``, an
-    (H, W) int32 tensor beside the volume, receives each ray's count of
-    samples that add anything to ``d_volume`` (K2 only: the operation
-    count of its bound in ``chip_smoke.py``)."""
+    atomics, so their last bits vary from run to run.  ``counts``, an
+    (H, W, 4) int32 tensor beside the volume, receives four counts per ray:
+    the samples that add anything to ``d_volume``, the samples that add
+    nothing but whose ``d_tf`` needs the light (so the gradient points), the
+    atomics K2 added to ``d_volume``, and the samples of the stencil's
+    general branch (K2 only: ``chip_smoke.py`` reads them for K2's bound)."""
     if _build.uses_plain(volume):
-        if scattered is not None:
-            raise ValueError("scattered is counted by kernel K2 only; "
+        if counts is not None:
+            raise ValueError("counts are counted by kernel K2 only; "
                              "the volume is on the CPU")
         return march_diff_bwd_plain(volume, tf, rays, config, sampling_rate,
                                     grad, ert)
     H, W = config.image_shape
     dev = volume.device
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
-    if scattered is not None:
-        _checked("scattered", scattered, dev, (H, W), torch.int32)
-        if not scattered.is_contiguous():
-            raise ValueError("scattered must be contiguous")
+    counts = _counts_out("counts", counts, dev, (H, W, 4))
     fwd, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
-                            config.max_samples, image, steps, scattered)
+                            config.max_samples, image, steps, counts)
     grad = _checked("image cotangent", grad, dev, (H, W, 4))
     if grad.data_ptr() % 16:
         grad = grad.clone()      # float4 loads need 16-byte alignment
@@ -428,9 +447,11 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
         return march_nondiff_plain(volume, tf, rays, config, sampling_rate,
                                    occupancy)
     _check_grid(occupancy, config)
-    image, visited, composited = _launch_march(
+    composited = torch.empty(config.image_shape, dtype=torch.int32,
+                             device=volume.device)
+    image, visited = _launch_march(
         "dr_march_nondiff", volume, tf, rays, config, sampling_rate, True,
-        np.iinfo(np.int32).max, with_shaded=True, occupancy=occupancy)
+        np.iinfo(np.int32).max, composited, occupancy)
     march_nondiff.launches += 1
     return image, visited, composited
 
@@ -491,8 +512,8 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
     """Inference render of one view; the default sampling rate is
     ``4 * config.sampling_rate`` and there is no jitter unless ``u`` is
     given.  With ``config.occupancy_skip`` (the default) the march jumps over
-    empty space through an occupancy grid, built here (K6 and a few plain
-    torch ops on CUDA) unless a prebuilt ``occupancy`` grid of this volume
+    empty space through an occupancy grid, built here (kernels K6 and K7, two
+    C calls, on CUDA) unless a prebuilt ``occupancy`` grid of this volume
     and TF is passed; the image does not change.  ``valid_steps`` is all
     ones, as in the JAX package."""
     sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate

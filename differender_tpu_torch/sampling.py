@@ -9,6 +9,8 @@ int64: ``(x*Y + y)*Z + z`` overflows int32 soon after 1024^3.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -86,6 +88,57 @@ def sample_with_gradient(volume: torch.Tensor, pos: torch.Tensor,
                         vals[..., 3] - vals[..., 4],
                         vals[..., 5] - vals[..., 6]], dim=-1)
     return vals[..., 0], grad
+
+
+# Each stencil point's share of (value, gx, gy, gz): the centre gives the
+# value, the +-delta points +-1 of their axis's gradient component.
+_POINT_COEF = np.array(
+    [[1, 0, 0, 0],
+     [0, 1, 0, 0], [0, -1, 0, 0],
+     [0, 0, 1, 0], [0, 0, -1, 0],
+     [0, 0, 0, 1], [0, 0, 0, -1]], np.float32)
+
+
+class Footprint(NamedTuple):
+    """The distinct voxels of the 7-point stencils of N samples, one entry
+    per (sample, voxel) pair."""
+    sample: torch.Tensor   # (M,) int64: the sample of each entry
+    index: torch.Tensor    # (M,) int64: its flat voxel index (x*Y + y)*Z + z
+    weight: torch.Tensor   # (M, 4): its merged weight in the value and the
+                           # three gradient components
+    corner: torch.Tensor   # (N, 7, 8) int64: the entry that holds each
+                           # point's corner (points as in
+                           # :func:`sample_with_gradient`, corners as in
+                           # :func:`corner_indices_weights`)
+
+
+def stencil_footprint(pos: torch.Tensor, volume_shape,
+                      delta: float = 1e-3) -> Footprint:
+    """The plain version of the march kernels' stencil gather and merged
+    scatter: for positions ``pos`` (N, 3), the distinct voxels that the 56
+    corners of each sample's 7 points (:func:`sample_with_gradient`) fall
+    on, and each voxel's total weight in the value and the gradient.
+
+    ``volume.reshape(-1)[fp.index][fp.corner]`` are the corner values of
+    every point (one load per distinct voxel).  For cotangents ``cot``
+    (N, 4) of each sample's value and gradient,
+    ``d_volume.index_add_(0, fp.index, (fp.weight * cot[fp.sample]).sum(-1))``
+    is the VJP of :func:`sample_with_gradient` (one add per distinct voxel).
+    ``torch.bincount(fp.sample)`` counts each sample's distinct voxels."""
+    n = pos.shape[0]
+    offs = torch.as_tensor(_NORMAL_OFFSETS * np.float32(delta),
+                           device=pos.device)
+    flat, w = corner_flat_weights(pos[:, None, :] + offs, volume_shape)
+    numel = int(np.prod(volume_shape))
+    key = (torch.arange(n, device=pos.device)[:, None, None] * numel
+           + flat).reshape(-1)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    coef = torch.as_tensor(_POINT_COEF, device=pos.device)
+    terms = (w[..., None] * coef[:, None, :]).reshape(-1, 4)
+    weight = torch.zeros((uniq.numel(), 4), dtype=w.dtype,
+                         device=pos.device).index_add_(0, inv, terms)
+    return Footprint(uniq // numel, uniq % numel, weight,
+                     inv.reshape(n, 7, 8))
 
 
 def apply_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
@@ -186,5 +239,6 @@ def march_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["voxel_scale", "voxel_coords", "corner_indices_weights",
            "corner_flat_weights", "trilinear", "sample_with_gradient",
+           "Footprint", "stencil_footprint",
            "apply_tf", "apply_tf_dot", "march_tf", "tf_lerp_bwd",
            "TF_DOT_MAX_TEXELS"]

@@ -184,7 +184,8 @@ def test_render_grads_flow_on_cpu(golden):
 
 def test_march_diff_bwd_is_plain_on_cpu(golden):
     """On CPU tensors K2's wrapper is autograd of the plain march; the
-    per-ray count of scattering samples exists only in the kernel."""
+    per-ray counts (scattering samples, light-only samples, atomics, the
+    stencil's general branch) exist only in the kernel, as do K1's."""
     _, (vol, tf, lf), cfg = golden
     rays = P.make_rays(lf, cfg, 0.8)
     image, _ = P.march_diff(vol, tf, rays, cfg, 0.8)
@@ -196,5 +197,9 @@ def test_march_diff_bwd_is_plain_on_cpu(golden):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="K2 only"):
         P.march_diff_bwd(vol, tf, rays, cfg, 0.8, image, g,
-                         scattered=torch.zeros(cfg.image_shape,
-                                               dtype=torch.int32))
+                         counts=torch.zeros(cfg.image_shape + (4,),
+                                            dtype=torch.int32))
+    with pytest.raises(ValueError, match="K1 only"):
+        P.march_diff_fwd(vol, tf, rays, cfg, 0.8,
+                         counts=torch.zeros(cfg.image_shape + (2,),
+                                            dtype=torch.int32))
