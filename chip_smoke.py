@@ -30,7 +30,10 @@ Phases (one JSON line each):
      K3 launch that jumps over empty space; K3 without the grid against
      ``march_nondiff_plain`` without it, K3 with the grid bitwise equal to
      K3 without it (image and composited counts on every ray), and against
-     ``march_nondiff_plain`` with the grid; ``raycast_ms`` with the grid and
+     ``march_nondiff_plain`` with the grid; K3's per-ray counts (cell loads,
+     extra-layer loads, grid reads), its cell loads equal to the plain
+     march's count of centre-cell changes on every ray outside the ERT knife
+     edge, with and without the grid; ``raycast_ms`` with the grid and
      without it (``occupancy_skip=False``), timed alternately.
   5. profile: device time by kernel and the busy share of the forward, the
      gradient step and the inference render on the noise scene
@@ -47,13 +50,16 @@ Phases (one JSON line each):
      origins out of range giving NaN rows.
   8. occupancy: cell_minmax (K6), cell_distance (K7) and ``build_occupancy``
      at 256^3 on noise and ct_phantom, auto cell (2, max_dist 48) and cell 8
-     (max_dist 12): K6 and K7 equal to their plain versions, the card's grid
-     equal to the whole build on CPU copies of the volume and the TF.
+     (max_dist 12): K6 and K7 equal to their plain versions (K7 also at
+     R = 4096), the card's grid equal to the whole build on CPU copies of
+     the volume and the TF; K6's and K7's device time and launches per call
+     (torch.profiler: a K7 call's host work outlasts it on the device).
   9. viewer: the JAX package's inference example at full width (800^2,
      sampling rate 16, tf1, camera (0, 1, -2.3)) on its synthetic volume and
      ct_phantom at 256^3: K3 with the grid bitwise equal to K3 without it,
-     and against the plain march with the grid on the same 800^2 rays;
-     samples visited and ``raycast_ms`` with and without the grid.
+     and against the plain march with the grid on the same 800^2 rays
+     (with K3's cell loads against its count); samples visited, K3's counts
+     and ``raycast_ms`` with and without the grid.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -273,6 +279,28 @@ def main() -> int:
                 "n_kernels": len(kern),
                 "top": [[k[:60], ms] for k, ms in kern[:5]]}
 
+    def device_kernels(fn, reps=5):
+        """Per call of ``fn``, the launches and device time (ms) of each
+        kernel, memset and copy it runs (torch.profiler), by name; tried
+        three times while the profiler sees none, then {}."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        for _ in range(3):
+            fn()
+            sync()
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            got = {e.key[:60]: {"launches": e.count / reps,
+                                "ms": e.self_device_time_total / 1e3 / reps}
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+            if got:
+                return got
+        return {}
+
     # -- 1. device and build -------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -474,6 +502,34 @@ def main() -> int:
         diff = int((got - want).abs().max())
         require(diff <= 1, f"{name}: a ray differs by {diff} samples")
         return diff
+
+    def cell_load_check(name, counts, plain_loads, vis, want_vis):
+        """K3's cell loads on every ray against the plain march's count of
+        changes of the centre cell, but on the rays whose visited counts
+        differ (the ERT knife edge, at most 0.1% of them).  Returns the
+        number of such rays."""
+        same = vis == want_vis
+        n_knife = int((~same).sum())
+        require(n_knife <= 1e-3 * same.numel(),
+                f"{name}: {n_knife} rays with other visited counts")
+        bad = int(((counts[..., 0] != plain_loads) & same).sum())
+        require(bad == 0, f"{name}: {bad} rays' cell loads differ from the "
+                          f"plain march's count")
+        return n_knife
+
+    def k3_counts(counts, visited, composited, n_knife):
+        """K3's per-ray counts, summed: cell loads, the voxels composited
+        samples loaded beyond their cell, grid reads.  n_knife: the rays
+        left out of cell_load_check, or None where it was not run."""
+        loads, extra, reads = (int(counts[..., i].sum()) for i in range(3))
+        return {"cell_loads": loads,
+                "cell_loads_per_visited": loads / max(visited, 1),
+                "extra_loads": extra,
+                "extra_loads_per_composited": extra / max(composited, 1),
+                "grid_reads": reads,
+                "grid_reads_per_visited": reads / max(visited, 1),
+                "cell_loads_equal_plain": n_knife is not None,
+                "rays_other_visited_count": n_knife}
 
     def grid_jumps(grid):
         """Whether any cell lies at distance 2 or more: else K3 looks up
@@ -856,18 +912,24 @@ def main() -> int:
         sr = 4.0
         rays = P.make_rays(lf, cfg, sr)
         # Without the grid, against the plain march without it.
-        want, want_vis, want_comp = P.march_nondiff_plain(vol_i, tf_i, rays,
-                                                          cfg, sr)
+        loads_p = torch.zeros((img, img), dtype=torch.int32, device=dev)
+        want, want_vis, want_comp = P.march_nondiff_plain(
+            vol_i, tf_i, rays, cfg, sr, cell_loads=loads_p)
         max_err, frac_over, n_over = image_check(
             f"K3 {scene}", nd.permute(1, 2, 0), want)
-        img_n, vis, comp = P.march_nondiff(vol_i, tf_i, rays, cfg, sr)
+        k3_n = torch.zeros((img, img, 3), dtype=torch.int32, device=dev)
+        img_n, vis, comp = P.march_nondiff(vol_i, tf_i, rays, cfg, sr,
+                                           counts=k3_n)
         vis_diff = count_check(f"K3 {scene} visited", vis, want_vis)
         comp_diff = count_check(f"K3 {scene} composited", comp, want_comp)
+        loads_n = cell_load_check(f"K3 {scene}", k3_n, loads_p, vis,
+                                  want_vis)
         visited, composited = int(vis.sum()), int(comp.sum())
         # With the grid: bitwise K3 without it, and the plain march with it.
         grid = P.build_occupancy(vol_i, tf_i, cfg)
+        k3_g = torch.zeros((img, img, 3), dtype=torch.int32, device=dev)
         img_g, vis_g, comp_g = P.march_nondiff(vol_i, tf_i, rays, cfg, sr,
-                                               grid)
+                                               grid, counts=k3_g)
         sync()
         require(torch.equal(img_g, nd.permute(1, 2, 0)),
                 f"K3 by the wrapper differs from raycast_nondiff on {scene}")
@@ -875,12 +937,15 @@ def main() -> int:
                 f"K3 with the grid differs from K3 without it on {scene}: "
                 f"{int((img_g != img_n).any(-1).sum())} pixels, "
                 f"{int((comp_g != comp).sum())} composited counts")
-        (want_g, _, want_comp_g), p_ms = timed_once(
-            lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg, sr, grid))
+        (want_g, want_vis_g, want_comp_g), p_ms = timed_once(
+            lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg, sr, grid,
+                                          cell_loads=loads_p))
         max_err_g, _, n_over_g = image_check(f"K3 {scene} with the grid",
                                              img_g, want_g)
         comp_diff_g = count_check(f"K3 {scene} composited with the grid",
                                   comp_g, want_comp_g)
+        loads_g = cell_load_check(f"K3 {scene} with the grid", k3_g,
+                                  loads_p, vis_g, want_vis_g)
         visited_g = int(vis_g.sum())
         fwd_ms, fwd_ms_no_grid = host_ms_ab(
             lambda: rc.raycast_nondiff(vol_user, tf_user, lf),
@@ -914,7 +979,11 @@ def main() -> int:
                        "composited_max_diff_vs_plain": comp_diff_g},
               "samples_visited": visited_g,
               "samples_visited_no_grid": visited,
-              "samples_composited": composited, "raycast_ms": fwd_ms,
+              "samples_composited": composited,
+              "k3_counts": k3_counts(k3_g, visited_g, composited, loads_g),
+              "k3_counts_no_grid": k3_counts(k3_n, visited, composited,
+                                             loads_n),
+              "raycast_ms": fwd_ms,
               "raycast_ms_no_grid": fwd_ms_no_grid, "ms": k_ms, "ms_no_grid": k_ms_no_grid, "plain_ms": p_ms,
               "plain_ms_no_grid": p_ms_no_grid, "library_ms": None,
               "bound_ms": b_ms, "bound_by": b_by,
@@ -923,7 +992,9 @@ def main() -> int:
                k_ms, p_ms, b_ms, b_by)
         if scene == "noise":
             kernels["march_nondiff"]["ms_no_grid"] = k_ms_no_grid
-        del grid, img_g, img_n, want, want_g
+            kernels["march_nondiff"]["cell_loads_per_visited"] = (
+                int(k3_g[..., 0].sum()) / max(visited_g, 1))
+        del grid, img_g, img_n, want, want_g, k3_n, k3_g, loads_p
         if scene == "noise":
             emit({"phase": "profile", "scene": scene,
                   "forward": profile(
@@ -1181,6 +1252,24 @@ def main() -> int:
                     and torch.equal(grid.far, far_p),
                     f"K7 differs from its plain version on {scene} at cell "
                     f"{cell}")
+            # Device time and launches by the profiler: one call's host
+            # work (checks, allocations, ctypes) outlasts K7 on the device,
+            # so CUDA events around calls time the host.
+            k6_dev = device_kernels(lambda: P.cell_minmax(vol_i, cell))
+            k7_dev = device_kernels(lambda: P.cell_distance(*k7_args))
+            k6_dev_ms = sum(v["ms"] for v in k6_dev.values()) or None
+            k7_dev_ms = sum(v["ms"] for v in k7_dev.values()) or None
+            # K7's texel groups at R = 4096 (its sparse table over groups of
+            # 8 texels, the spans' ends from the TF).
+            tf_big = P.get_tf("tf1", 4096, device=dev)
+            big = (lo, hi, tf_big, cfg.alpha_skip, md)
+            dist_b, far_b = P.cell_distance(*big)
+            dist_bp, far_bp = P.cell_distance_reference(*big)
+            require(torch.equal(dist_b, dist_bp)
+                    and torch.equal(far_b, far_bp),
+                    f"K7 at R = 4096 differs from its plain version on "
+                    f"{scene} at cell {cell}")
+            del tf_big, big, dist_b, dist_bp
             ms = cuda_ms(lambda: P.cell_minmax(vol_i, cell), 10, per_pair=5)
             plain_ms = cuda_ms(lambda: P.cell_minmax_reference(vol_i, cell), 5)
             ms7 = cuda_ms(lambda: P.cell_distance(*k7_args), 10, per_pair=5)
@@ -1204,20 +1293,29 @@ def main() -> int:
                   "minmax_equal": True, "distance_equal": True,
                   "equal_to_cpu_build": True,
                   "empty_share": float((grid.dist >= 2).float().mean()),
-                  "cell_minmax": {"ms": ms, "plain_ms": plain_ms,
-                                  "bound_ms": b_ms, "bound_by": b_by},
-                  "cell_distance": {"ms": ms7, "plain_ms": plain7,
-                                    "bound_ms": b7_ms, "bound_by": b7_by},
+                  "cell_minmax": {"ms": ms, "device_ms": k6_dev_ms,
+                                  "plain_ms": plain_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by},
+                  "cell_distance": {"ms": k7_dev_ms, "event_ms": ms7,
+                                    "plain_ms": plain7, "bound_ms": b7_ms,
+                                    "bound_by": b7_by,
+                                    "device_kernels": k7_dev,
+                                    "equal_at_R4096": True},
                   "build_ms": build_ms, "build_device_ms": build_dev_ms,
                   "nvidia_smi": smi})
             if scene == "ct_phantom" and cell_arg is None:
                 kernels["cell_minmax"].update(
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    ms=ms, device_ms=k6_dev_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by,
                     build_ms=build_ms, library_ms=None,
                     library_note="none: no single call gives a window's "
                                  "min and max (max_pool3d gives one)")
                 kernels["cell_distance"].update(
-                    ms=ms7, plain_ms=plain7, bound_ms=b7_ms, bound_by=b7_by,
+                    ms=k7_dev_ms if k7_dev_ms is not None else ms7,
+                    ms_is="profiler device time per call" if k7_dev_ms
+                    is not None else "CUDA events, 5 calls per pair",
+                    event_ms=ms7, plain_ms=plain7, bound_ms=b7_ms,
+                    bound_by=b7_by,
                     library_ms=None,
                     library_note="none: no single call gives a distance "
                                  "transform")
@@ -1249,10 +1347,12 @@ def main() -> int:
                 f"viewer image shape/range on {scene}")
         rays = P.make_rays(lf_v, cfg_v, v_sr)
         grid = P.build_occupancy(vol_i, tf_i, cfg_v)
+        k3_g = torch.zeros((v_img, v_img, 3), dtype=torch.int32, device=dev)
+        k3_n = torch.zeros_like(k3_g)
         img_g, vis_g, comp_g = P.march_nondiff(vol_i, tf_i, rays, cfg_v,
-                                               v_sr, grid)
+                                               v_sr, grid, counts=k3_g)
         img_n, vis_n, comp_n = P.march_nondiff(vol_i, tf_i, rays, cfg_v,
-                                               v_sr)
+                                               v_sr, counts=k3_n)
         sync()
         require(torch.equal(img_g, nd.permute(1, 2, 0)),
                 f"viewer: K3 by the wrapper differs from raycast_nondiff on "
@@ -1263,14 +1363,17 @@ def main() -> int:
                 f"{int((comp_g != comp_n).sum())} composited counts")
         # K3 with the grid against the plain march with it, on the same
         # 800^2 rays.
+        loads_p = torch.zeros((v_img, v_img), dtype=torch.int32, device=dev)
         (want, want_vis, want_comp), plain_ms = timed_once(
             lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg_v, v_sr,
-                                          grid))
+                                          grid, cell_loads=loads_p))
         max_err, frac_over, n_over = image_check(f"viewer {scene}", img_g,
                                                  want)
         comp_diff = count_check(f"viewer {scene} composited", comp_g,
                                 want_comp)
         vis_diff = int((vis_g - want_vis).abs().max())
+        n_knife = cell_load_check(f"viewer {scene}", k3_g, loads_p, vis_g,
+                                  want_vis)
         raycast_ms, raycast_ms_no_grid = host_ms_ab(
             lambda: rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
                                          sampling_rate=v_sr),
@@ -1295,6 +1398,9 @@ def main() -> int:
               "samples_visited_no_grid": visited_n,
               "visited_ratio": visited_n / max(visited_g, 1),
               "samples_composited": composited,
+              "k3_counts": k3_counts(k3_g, visited_g, composited, n_knife),
+              "k3_counts_no_grid": k3_counts(k3_n, visited_n, composited,
+                                             None),
               "max_n_samples": int(rays.n_samples.max()),
               "raycast_ms": raycast_ms,
               "raycast_ms_no_grid": raycast_ms_no_grid, "ms": k_ms,
@@ -1310,7 +1416,7 @@ def main() -> int:
         kernels["march_nondiff"]["max_abs_err"] = max(
             kernels["march_nondiff"]["max_abs_err"], max_err)
         del vol_user, vol_i, grid, img_g, img_n, nd, want, want_vis
-        del want_comp
+        del want_comp, k3_g, k3_n, loads_p
         torch.cuda.empty_cache()
 
     # -- 10. kernels line and the contract line ---------------------------------

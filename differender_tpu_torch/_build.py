@@ -152,8 +152,8 @@ def library() -> ctypes.CDLL:
     lib.dr_cell_minmax.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, i32,
                                    ptr]
     lib.dr_cell_distance.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float,
-                                     i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                                     ptr, i32, ptr]
+                                     i32, i32, i32, i32, ptr, ptr, ptr, i32,
+                                     ptr]
     for fn in (lib.dr_brick_sums, lib.dr_brick_rows, lib.dr_cell_minmax,
                lib.dr_cell_distance):
         fn.restype = i32

@@ -22,17 +22,24 @@
 // voxel of a sample's stencil once, 8 to 20 of them in place of 56 (the
 // compact branch in march_common.cuh), and a sample whose opacity is
 // exactly 0 loads only the centre's cell and skips the gradient and the
-// shading, which cannot change the composite (zero_skip_exact).  Held to
-// 102 registers (5 blocks per SM).  K3 keeps 7 points of 8 loads; it
-// samples the 6 gradient points only when the TF alpha passes alpha_skip,
-// and with an occupancy grid (occupancy.py) it jumps over empty space: at
-// its head sample it reads the macrocell's distance d and skips
-// floor((d - 1) * cell_world / dt) samples that provably classify at or
-// below alpha_skip (occupancy_jump in march_common.cuh).  JAX rounds each
-// jump down to a march block so that its blocked composite stays bitwise;
-// K3 composites per thread and takes the whole jump.  Positions stay
-// t0 + s*dt from the sample index, so a jump lands on the no-skip lattice and
-// the image is bitwise K3's without the grid.  No hardware texture
+// shading, which cannot change the composite (zero_skip_exact).  K1 is held
+// to 102 registers (5 blocks per SM), K3 to 128 (4).  K3's samples are
+// dense along a ray (16 per voxel at the viewer's sampling rate), so it
+// keeps the centre's 2x2x2 cell in registers and loads its 8 voxels only
+// when the centre's low indices change (the values a fresh load would give:
+// exact); it takes the 6 gradient points only when the TF alpha passes
+// alpha_skip, through K1's distinct-voxel stencil on the cached cell (fused
+// sums).  With an
+// occupancy grid (occupancy.py) it jumps over empty space: at its head
+// sample it reads the macrocell's distance d and skips floor((d - 1) *
+// cell_world / dt) samples that provably classify at or below alpha_skip
+// (jump_from_distance in march_common.cuh), and it does not read the grid
+// again while the head stays in a macrocell whose lookup gave no jump (the
+// jump depends on d and dt alone).  JAX rounds each jump down to a march
+// block so that its blocked composite stays bitwise; K3 composites per
+// thread and takes the whole jump.  Positions stay t0 + s*dt from the
+// sample index, so a jump lands on the no-skip lattice and the image is
+// bitwise K3's without the grid.  No hardware texture
 // filtering: its 8-bit weights would break parity with the f32 weights of
 // the reference.
 //
@@ -92,8 +99,32 @@ __global__ void __launch_bounds__(128, 5)
   }
 }
 
+// The centre of a K3 sample at step s: its position and, per axis, the
+// voxel coordinate, its low and high indices and its fraction.
+struct Centre {
+  float px, py, pz, cx, cy, cz, fx, fy, fz;
+  int lx, ly, lz, hx, hy, hz;
+};
+
+__device__ __forceinline__ Centre centre_at(const MarchArgs& a, int s,
+                                            float t0, float dt, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz) {
+  Centre q;
+  const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
+  q.px = ray_coord(ox, t, dx);
+  q.py = ray_coord(oy, t, dy);
+  q.pz = ray_coord(oz, t, dz);
+  q.fx = voxel_axis(q.px, a.scale_x, a.X, q.lx, q.hx, q.cx);
+  q.fy = voxel_axis(q.py, a.scale_y, a.Y, q.ly, q.hy, q.cy);
+  q.fz = voxel_axis(q.pz, a.scale_z, a.Z, q.lz, q.hz, q.cz);
+  return q;
+}
+
+// At least 4 blocks of 128 threads per SM: at most 128 registers a thread
+// (5 blocks, 96 registers, spill; 3 blocks take 168; neither was faster).
 template <bool kGlobalTf>
-__global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
+__global__ void __launch_bounds__(128, 4) march_nondiff_kernel(MarchArgs a) {
   extern __shared__ float4 s_tf[];
   const float4* tf =
       stage_tf<kGlobalTf>(reinterpret_cast<const float4*>(a.tf), a.R, s_tf);
@@ -107,10 +138,16 @@ __global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
   const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
   const float t0 = a.t0[p], dt = a.dt[p];
   const int steps = min(a.n[p], a.max_steps);
-  const float d = a.delta;
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
-  int visited = 0, shaded = 0;
+  int visited = 0, shaded = 0, cell_loads = 0, extra_loads = 0,
+      grid_reads = 0;
+  // The centre's 2x2x2 cell (corner order i + 2j + 4k) and the low indices
+  // it was loaded at: consecutive samples mostly share it.
+  float cell[8];
+  int kx = -1, ky = -1, kz = -1;
+  // The macrocell of the last lookup that gave no jump: it gives none again.
+  int mx = -1, my = -1, mz = -1;
   // With a grid, look up the head's jump at every jump_every-th iteration,
   // except right after a composited sample: that sample's cell is occupied,
   // so the next one's cell is at distance <= 1 (no jump) unless a step
@@ -120,28 +157,56 @@ __global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
   bool look = grid;
   for (int s = 0, it = 0; s < steps; ++s, ++it) {
     if (!(T > a.thr)) break;
+    Centre q = centre_at(a, s, t0, dt, ox, oy, oz, dx, dy, dz);
     if (look && it % a.jump_every == 0) {
-      s += occupancy_jump(a, s, steps - s, t0, dt, ox, oy, oz, dx, dy, dz);
-      if (s >= steps) break;
+      const int cx = occ_cell(q.cx, q.lx, a.cell, a.nx);
+      const int cy = occ_cell(q.cy, q.ly, a.cell, a.ny);
+      const int cz = occ_cell(q.cz, q.lz, a.cell, a.nz);
+      if (cx != mx || cy != my || cz != mz) {
+        ++grid_reads;
+        const int j = jump_from_distance(
+            a, __ldg(a.occ + ((long long)cx * a.ny + cy) * a.nz + cz),
+            steps - s, dt);
+        if (j == 0) {
+          mx = cx;
+          my = cy;
+          mz = cz;
+        } else {
+          s += j;
+          if (s >= steps) break;
+          q = centre_at(a, s, t0, dt, ox, oy, oz, dx, dy, dz);
+        }
+      }
     }
     ++visited;
-    const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
-    const float px = ray_coord(ox, t, dx), py = ray_coord(oy, t, dy),
-                pz = ray_coord(oz, t, dz);
-    const float4 c =
-        tf_lerp<kGlobalTf>(tf, a.R, trilinear<false>(a, px, py, pz));
+    if (q.lx != kx || q.ly != ky || q.lz != kz) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        cell[k] = voxel(a, k & 1 ? q.hx : q.lx, k & 2 ? q.hy : q.ly,
+                        k & 4 ? q.hz : q.lz);
+      }
+      kx = q.lx;
+      ky = q.ly;
+      kz = q.lz;
+      ++cell_loads;
+    }
+    const float4 c = tf_lerp<kGlobalTf>(
+        tf, a.R,
+        point_sum<false>(cell, 1.0f - q.fx, q.fx, 1.0f - q.fy, q.fy,
+                         1.0f - q.fz, q.fz));
     look = grid;
     if (!(c.w > a.alpha_skip)) continue;
     look = false;
     ++shaded;
-    const float gx = trilinear<false>(a, px + d, py, pz) -
-                     trilinear<false>(a, px - d, py, pz);
-    const float gy = trilinear<false>(a, px, py + d, pz) -
-                     trilinear<false>(a, px, py - d, pz);
-    const float gz = trilinear<false>(a, px, py, pz + d) -
-                     trilinear<false>(a, px, py, pz - d);
-    const float4 sh = shade<false>(a, c, opacity(a, c.w), px, py, pz, gx, gy,
-                                   gz, dx, dy, dz, ox, oy, oz);
+    const StencilAxis X = stencil_axis(q.px, a.delta, a.scale_x, a.X);
+    const StencilAxis Y = stencil_axis(q.py, a.delta, a.scale_y, a.Y);
+    const StencilAxis Z = stencil_axis(q.pz, a.delta, a.scale_z, a.Z);
+    float gx, gy, gz;
+    extra_loads += stencil_gradient<false>(a, X, Y, Z, X.ok && Y.ok && Z.ok,
+                                           cell, q.px, q.py, q.pz, gx, gy,
+                                           gz);
+    const float4 sh = shade<false>(a, c, opacity(a, c.w), q.px, q.py, q.pz,
+                                   gx, gy, gz, dx, dy, dz, ox, oy, oz);
     r += T * sh.x;
     g += T * sh.y;
     b += T * sh.z;
@@ -152,6 +217,11 @@ __global__ void __launch_bounds__(128) march_nondiff_kernel(MarchArgs a) {
                   fminf(1.0f, 1.0f - T));
   a.steps[p] = visited;
   a.shaded[p] = shaded;
+  if (a.counts) {
+    a.counts[3 * p] = cell_loads;
+    a.counts[3 * p + 1] = extra_loads;
+    a.counts[3 * p + 2] = grid_reads;
+  }
 }
 
 template <template <bool> class Launch>

@@ -4,7 +4,8 @@
 // K2 recomputes K1's march through these same functions (sample_centre,
 // sample_gradient, shade_sample), so it takes bitwise the same samples,
 // opacities and early-ray-termination decisions.  Their 7-point stencil
-// loads each distinct voxel once (see "The 7-point stencil" below).
+// loads each distinct voxel once (see "The 7-point stencil" below); K3 takes
+// the same stencil (stencil_gradient) with fused sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +33,10 @@ struct MarchArgs {
                    // null for no empty-space skip; unused by K1/K2
   const int* occ_far;  // K3 with a grid: its largest distance (one int);
                        // below 2 no ray can jump, and K3 looks up nothing
+  int* counts;     // K3 (if set): 3 counts per ray, its cell loads (the
+                   // centre cell's cache misses), the voxels its composited
+                   // samples loaded beyond that cell, and its grid reads;
+                   // unused by K1/K2
   int H, W, X, Y, Z, R, max_steps, ert;
   int nx, ny, nz, cell, jump_every;  // the grid's shape, its cell edge in
                                      // voxels; look up every Nth iteration
@@ -45,9 +50,10 @@ struct MarchArgs {
 // (__fmul_rn/__fadd_rn are never contracted into an FMA), as the plain
 // version rounds them: the TF's steep alpha ramps turn a one-ulp shift of
 // the position into a visible change of the sample's opacity.
+// c: the voxel coordinate itself.
 __device__ __forceinline__ float voxel_axis(float p, float scale, int size,
-                                            int& lo, int& hi) {
-  const float c = __fmul_rn(
+                                            int& lo, int& hi, float& c) {
+  c = __fmul_rn(
       fminf(fmaxf(__fadd_rn(__fmul_rn(0.5f, p), 0.5f), 0.0f), 1.0f), scale);
   const float lo_f = floorf(c);
   lo = (int)lo_f;
@@ -55,47 +61,47 @@ __device__ __forceinline__ float voxel_axis(float p, float scale, int size,
   return c - lo_f;
 }
 
+__device__ __forceinline__ float voxel_axis(float p, float scale, int size,
+                                            int& lo, int& hi) {
+  float c;
+  return voxel_axis(p, scale, size, lo, hi, c);
+}
+
 __device__ __forceinline__ float ray_coord(float o, float t, float d) {
   return __fadd_rn(o, __fmul_rn(t, d));
 }
 
 // Macrocell index of a position on one axis, as occupancy.py::jump_steps
-// computes it: the voxel coordinate of voxel_axis, divided by the cell edge,
-// truncated and clamped to the grid (scale is f32(size - 1 - 1e-4) there
-// too).
-__device__ __forceinline__ int occ_axis(float p, float scale, int cell,
-                                        int n) {
-  const float c = __fmul_rn(
-      fminf(fmaxf(__fadd_rn(__fmul_rn(0.5f, p), 0.5f), 0.0f), 1.0f), scale);
-  return min((int)__fdiv_rn(c, (float)cell), n - 1);
+// computes it: the voxel coordinate c of voxel_axis (scale is f32(size - 1 -
+// 1e-4) there too), divided by the cell edge, truncated and clamped to the
+// grid.  K3 has c and its floor lo at hand: for a power-of-two cell edge
+// c / cell is exact in f32, and its truncation is lo >> log2(cell).
+__device__ __forceinline__ int occ_cell(float c, int lo, int cell, int n) {
+  const int q = (cell & (cell - 1)) == 0 ? lo >> (__ffs(cell) - 1)
+                                         : (int)__fdiv_rn(c, (float)cell);
+  return min(q, n - 1);
 }
 
-// Samples K3 may skip from the head sample s without evaluating them, at
-// most `left` (occupancy.py::jump_steps): the head's cell lies at L-inf
+// Samples K3 may skip from its head sample without evaluating them, at most
+// `left` (occupancy.py::jump_steps): the head's macrocell lies at L-inf
 // distance d (in macrocells) from any cell whose TF alpha can exceed
 // alpha_skip, so every point within (d - 1) * cell_world of the head
-// classifies at or below alpha_skip.
-__device__ __forceinline__ int occupancy_jump(const MarchArgs& a, int s,
-                                              int left, float t0, float dt,
-                                              float ox, float oy, float oz,
-                                              float dx, float dy, float dz) {
-  const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
-  const int cx = occ_axis(ray_coord(ox, t, dx), a.scale_x, a.cell, a.nx);
-  const int cy = occ_axis(ray_coord(oy, t, dy), a.scale_y, a.cell, a.ny);
-  const int cz = occ_axis(ray_coord(oz, t, dz), a.scale_z, a.cell, a.nz);
-  const int d = __ldg(a.occ + ((long long)cx * a.ny + cy) * a.nz + cz);
+// classifies at or below alpha_skip.  It depends on d and dt alone, so a
+// macrocell once read at d <= 1 gives no jump while the head stays in it.
+__device__ __forceinline__ int jump_from_distance(const MarchArgs& a, int d,
+                                                  int left, float dt) {
   if (d <= 1 || !(dt > 0.0f)) return 0;
   const float q =
       __fdiv_rn(__fmul_rn((float)(d - 1), a.cell_world), fmaxf(dt, 1e-30f));
   return (int)fminf(q, (float)left);
 }
 
-// s + x*w: with kExact rounded after the product and the sum; otherwise an
-// FMA, as nvcc contracts it.
+// s + x*w: with kExact rounded after the product and the sum; otherwise one
+// FMA.
 template <bool kExact>
 __device__ __forceinline__ float add_product(float s, float x, float w) {
   if (kExact) return __fadd_rn(s, __fmul_rn(x, w));
-  return s + x * w;
+  return __fmaf_rn(x, w, s);
 }
 
 // One trilinear point, 8 corner loads.  kExact: the weighted sum is rounded
@@ -103,9 +109,10 @@ __device__ __forceinline__ float add_product(float s, float x, float w) {
 // jumps at texel edges, so an ulp of intensity between the kernels and the
 // plain march can move a sample's TF gradient by a whole texel's slope.  K1
 // and K2 take it, through point_sum in the stencil's compact branch and
-// through this function, point by point, in its general branch; K3 keeps
-// the fused sum, which is faster and was held to the plain march within the
-// image limits as it is.
+// through this function, point by point, in its general branch.  K3 takes
+// the fused sum (kExact false, the same two branches), which is faster and
+// holds to the plain march within the image limits; nothing there is
+// differentiated.
 template <bool kExact>
 __device__ __forceinline__ float trilinear(const MarchArgs& a, float px,
                                            float py, float pz) {
@@ -177,8 +184,8 @@ __device__ __forceinline__ float4 shade(const MarchArgs& a, float4 c,
 }
 
 // ---------------------------------------------------------------------------
-// The 7-point stencil of K1 and K2: the centre and the +-delta points on
-// each axis (the value and the central-difference gradient).
+// The 7-point stencil of K1, K2 and K3: the centre and the +-delta points
+// on each axis (the value and the central-difference gradient).
 //
 // A +-delta point moves on one axis only, so it shares the centre's voxel
 // indices and fractions on the other two.  Where delta is below half a
@@ -237,19 +244,21 @@ __device__ __forceinline__ float voxel(const MarchArgs& a, int x, int y,
 }
 
 // One trilinear point from its 8 corner values (corner order i + 2j + 4k,
-// x fastest) and its per-axis weights (1 - f, f): trilinear<true>'s sum,
+// x fastest) and its per-axis weights (1 - f, f): trilinear<kExact>'s sum,
 // product for product and rounding for rounding.
+template <bool kExact>
 __device__ __forceinline__ float point_sum(const float (&v)[8], float gx,
                                            float fx, float gy, float fy,
                                            float gz, float fz) {
-  float s = __fmul_rn(v[0], (gx * gy) * gz);
-  s = __fadd_rn(s, __fmul_rn(v[1], (fx * gy) * gz));
-  s = __fadd_rn(s, __fmul_rn(v[2], (gx * fy) * gz));
-  s = __fadd_rn(s, __fmul_rn(v[3], (fx * fy) * gz));
-  s = __fadd_rn(s, __fmul_rn(v[4], (gx * gy) * fz));
-  s = __fadd_rn(s, __fmul_rn(v[5], (fx * gy) * fz));
-  s = __fadd_rn(s, __fmul_rn(v[6], (gx * fy) * fz));
-  s = __fadd_rn(s, __fmul_rn(v[7], (fx * fy) * fz));
+  const float w0 = (gx * gy) * gz;
+  float s = kExact ? __fmul_rn(v[0], w0) : v[0] * w0;
+  s = add_product<kExact>(s, v[1], (fx * gy) * gz);
+  s = add_product<kExact>(s, v[2], (gx * fy) * gz);
+  s = add_product<kExact>(s, v[3], (fx * fy) * gz);
+  s = add_product<kExact>(s, v[4], (gx * gy) * fz);
+  s = add_product<kExact>(s, v[5], (fx * gy) * fz);
+  s = add_product<kExact>(s, v[6], (gx * fy) * fz);
+  s = add_product<kExact>(s, v[7], (fx * fy) * fz);
   return s;
 }
 
@@ -305,8 +314,8 @@ __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
       q.cell[c] = voxel(a, q.ax.lo + (c & 1), q.ay.lo + ((c >> 1) & 1),
                         q.az.lo + (c >> 2));
     }
-    q.v = point_sum(q.cell, 1.0f - q.ax.f, q.ax.f, 1.0f - q.ay.f, q.ay.f,
-                    1.0f - q.az.f, q.az.f);
+    q.v = point_sum<true>(q.cell, 1.0f - q.ax.f, q.ax.f, 1.0f - q.ay.f,
+                          q.ay.f, 1.0f - q.az.f, q.az.f);
   } else {
     q.v = trilinear<true>(a, q.px, q.py, q.pz);
   }
@@ -317,47 +326,54 @@ __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
   return q;
 }
 
-// The six +-delta points of a sample and its unnormalised gradient
-// (v(+x) - v(-x), ...).  Compact: the extra layers' voxels, 4 per axis that
-// has one, then the six sums from registers.
-__device__ __forceinline__ void sample_gradient(const MarchArgs& a,
-                                                Sample& q) {
+// The six +-delta points of a sample at (px, py, pz) with stencil axes X, Y,
+// Z and its unnormalised gradient (v(+x) - v(-x), ...).  Compact: the extra
+// layers' voxels, 4 per axis that has one, then the six sums from registers
+// and the centre's cell c; else the general branch, 6 points of 8 loads.
+// Returns the voxels it loaded.
+template <bool kExact>
+__device__ __forceinline__ int stencil_gradient(
+    const MarchArgs& a, const StencilAxis& X, const StencilAxis& Y,
+    const StencilAxis& Z, bool compact, const float (&c)[8], float px,
+    float py, float pz, float& grad_x, float& grad_y, float& grad_z) {
   const float d = a.delta;
-  if (!q.compact) {
-    q.gx = trilinear<true>(a, q.px + d, q.py, q.pz) -
-           trilinear<true>(a, q.px - d, q.py, q.pz);
-    q.gy = trilinear<true>(a, q.px, q.py + d, q.pz) -
-           trilinear<true>(a, q.px, q.py - d, q.pz);
-    q.gz = trilinear<true>(a, q.px, q.py, q.pz + d) -
-           trilinear<true>(a, q.px, q.py, q.pz - d);
-    return;
+  if (!compact) {
+    grad_x = trilinear<kExact>(a, px + d, py, pz) -
+             trilinear<kExact>(a, px - d, py, pz);
+    grad_y = trilinear<kExact>(a, px, py + d, pz) -
+             trilinear<kExact>(a, px, py - d, pz);
+    grad_z = trilinear<kExact>(a, px, py, pz + d) -
+             trilinear<kExact>(a, px, py, pz - d);
+    return 48;
   }
-  const StencilAxis &X = q.ax, &Y = q.ay, &Z = q.az;
   // The extra x layer at (e, lo_y + j, lo_z + k) as j + 2k, the extra y
   // layer at (lo_x + i, e, lo_z + k) as i + 2k, the extra z layer at
   // (lo_x + i, lo_y + j, e) as i + 2j.
   float xe[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ye[4] = {0.0f, 0.0f, 0.0f, 0.0f},
         ze[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int loads = 0;
   if (X.m || X.pl) {
     const int e = extra_layer(X);
 #pragma unroll
     for (int o = 0; o < 4; ++o)
       xe[o] = voxel(a, e, Y.lo + (o & 1), Z.lo + (o >> 1));
+    loads += 4;
   }
   if (Y.m || Y.pl) {
     const int e = extra_layer(Y);
 #pragma unroll
     for (int o = 0; o < 4; ++o)
       ye[o] = voxel(a, X.lo + (o & 1), e, Z.lo + (o >> 1));
+    loads += 4;
   }
   if (Z.m || Z.pl) {
     const int e = extra_layer(Z);
 #pragma unroll
     for (int o = 0; o < 4; ++o)
       ze[o] = voxel(a, X.lo + (o & 1), Y.lo + (o >> 1), e);
+    loads += 4;
   }
   const float gx = 1.0f - X.f, gy = 1.0f - Y.f, gz = 1.0f - Z.f;
-  const float(&c)[8] = q.cell;
   float vp[8], vm[8];
   // +-x: the corners (low, high) on x at each (j, k).
 #pragma unroll
@@ -368,8 +384,8 @@ __device__ __forceinline__ void sample_gradient(const MarchArgs& a,
     vm[o] = X.m ? xe[jk] : c[o];
     vm[o + 1] = X.m ? c[o] : c[o + 1];
   }
-  q.gx = point_sum(vp, 1.0f - X.fp, X.fp, gy, Y.f, gz, Z.f) -
-         point_sum(vm, 1.0f - X.fm, X.fm, gy, Y.f, gz, Z.f);
+  grad_x = point_sum<kExact>(vp, 1.0f - X.fp, X.fp, gy, Y.f, gz, Z.f) -
+           point_sum<kExact>(vm, 1.0f - X.fm, X.fm, gy, Y.f, gz, Z.f);
 #pragma unroll
   for (int ik = 0; ik < 4; ++ik) {
     const int o = (ik & 1) + 4 * (ik >> 1);   // corner (i, 0, k)
@@ -378,8 +394,8 @@ __device__ __forceinline__ void sample_gradient(const MarchArgs& a,
     vm[o] = Y.m ? ye[ik] : c[o];
     vm[o + 2] = Y.m ? c[o] : c[o + 2];
   }
-  q.gy = point_sum(vp, gx, X.f, 1.0f - Y.fp, Y.fp, gz, Z.f) -
-         point_sum(vm, gx, X.f, 1.0f - Y.fm, Y.fm, gz, Z.f);
+  grad_y = point_sum<kExact>(vp, gx, X.f, 1.0f - Y.fp, Y.fp, gz, Z.f) -
+           point_sum<kExact>(vm, gx, X.f, 1.0f - Y.fm, Y.fm, gz, Z.f);
 #pragma unroll
   for (int o = 0; o < 4; ++o) {   // corner (i, j, 0)
     vp[o] = Z.pl ? c[o + 4] : c[o];
@@ -387,8 +403,16 @@ __device__ __forceinline__ void sample_gradient(const MarchArgs& a,
     vm[o] = Z.m ? ze[o] : c[o];
     vm[o + 4] = Z.m ? c[o] : c[o + 4];
   }
-  q.gz = point_sum(vp, gx, X.f, gy, Y.f, 1.0f - Z.fp, Z.fp) -
-         point_sum(vm, gx, X.f, gy, Y.f, 1.0f - Z.fm, Z.fm);
+  grad_z = point_sum<kExact>(vp, gx, X.f, gy, Y.f, 1.0f - Z.fp, Z.fp) -
+           point_sum<kExact>(vm, gx, X.f, gy, Y.f, 1.0f - Z.fm, Z.fm);
+  return loads;
+}
+
+// K1/K2: the gradient of a sample from sample_centre.
+__device__ __forceinline__ void sample_gradient(const MarchArgs& a,
+                                                Sample& q) {
+  stencil_gradient<true>(a, q.ax, q.ay, q.az, q.compact, q.cell, q.px, q.py,
+                         q.pz, q.gx, q.gy, q.gz);
 }
 
 // The sample's premultiplied colour: 0 for a zero sample (K1 composites it

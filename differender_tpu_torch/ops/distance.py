@@ -7,10 +7,12 @@ texels ``[floor(lo * (R-1)), ceil(hi * (R-1))]`` exceeds ``alpha_skip``,
 and every cell gets its L-inf (chessboard) distance, in cells, to the
 nearest occupied one, saturated at ``max_dist``.  The JAX package's
 ``build_occupancy`` takes the distance from ``max_dist - 1`` rounds of a
-3^3 max-pool dilation (XLA code, not Pallas).  The kernel builds the table,
-classifies and takes three separable 1-D passes in one call; its plain
-version below runs the dilation rounds as JAX does.  Both give the same
-integers.
+3^3 max-pool dilation (XLA code, not Pallas).  The kernel takes three
+separable 1-D passes in one call: the first builds a sparse table of the
+TF's alpha in shared memory, classifies each z-row and takes its distance
+along z, the other two walk along y and x on tiles in shared memory.  Its
+plain version below runs the dilation rounds as JAX does.  Both give the
+same integers.
 """
 from __future__ import annotations
 
@@ -85,8 +87,8 @@ def cell_distance(lo: torch.Tensor, hi: torch.Tensor, tf: torch.Tensor,
     above ``alpha_skip``, saturated at ``max_dist``.  Returns ``(dist,
     far)``: ``(nx, ny, nz)`` int32 and its largest value as a (1,) int32 on
     the same device.  Kernel K7 on CUDA tensors (counted in
-    ``cell_distance.launches``, once per call of its table, classification
-    and three passes), :func:`cell_distance_reference` on CPU tensors."""
+    ``cell_distance.launches``, once per call of its three passes),
+    :func:`cell_distance_reference` on CPU tensors."""
     if _build.uses_plain(lo):
         return cell_distance_reference(lo, hi, tf, alpha_skip, max_dist)
     dev = lo.device
@@ -96,18 +98,15 @@ def cell_distance(lo: torch.Tensor, hi: torch.Tensor, tf: torch.Tensor,
     if hi.shape != lo.shape or tf.shape[1] != 4 or tf.shape[0] < 1:
         raise ValueError(f"lo {tuple(lo.shape)} and hi {tuple(hi.shape)} "
                          f"must match, tf {tuple(tf.shape)} be (R, 4)")
-    R = tf.shape[0]
     out = torch.empty(lo.shape, dtype=torch.int32, device=dev)
     tmp = torch.empty_like(out)
-    occ = torch.empty(lo.shape, dtype=torch.uint8, device=dev)
-    table = torch.empty((R, R), dtype=torch.float32, device=dev)
     far = torch.empty(1, dtype=torch.int32, device=dev)
     nx, ny, nz = lo.shape
     _build.check(_build.library().dr_cell_distance(
-        lo.data_ptr(), hi.data_ptr(), tf.data_ptr(), R,
+        lo.data_ptr(), hi.data_ptr(), tf.data_ptr(), tf.shape[0],
         float(np.float32(alpha_skip)), nx, ny, nz, max(int(max_dist), 0),
-        table.data_ptr(), occ.data_ptr(), tmp.data_ptr(), out.data_ptr(),
-        far.data_ptr(), dev.index, _build.stream_of(lo)), "cell_distance")
+        tmp.data_ptr(), out.data_ptr(), far.data_ptr(), dev.index,
+        _build.stream_of(lo)), "cell_distance")
     cell_distance.launches += 1
     return out, far
 

@@ -28,8 +28,8 @@ from .config import RenderConfig
 from .geometry import RayBundle, make_rays, march_params
 from .occupancy import build_occupancy, jump_steps
 from .ops.bricks import grid_shape
-from .sampling import (TF_DOT_MAX_TEXELS, apply_tf, march_tf,
-                       sample_with_gradient, trilinear, voxel_scale)
+from .sampling import (apply_tf, march_tf, sample_with_gradient, trilinear,
+                       voxel_coords, voxel_scale)
 from .shading import shade
 
 
@@ -81,7 +81,10 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
     every ``occupancy_jump_every``-th iteration, unless its last sample
     composited.  Out of place, so autograd differentiates it when the volume
     or the TF requires grad (the differentiable path's TF is
-    :func:`march_tf`)."""
+    :func:`march_tf`).  For the inference march it also counts, per ray, the
+    visited samples whose centre cell's low voxel indices differ from the
+    previous visited sample's, the first included: kernel K3's cell loads
+    (else that count is None)."""
     origin = rays.origin.to(torch.float32)
     dirs, t0, dt, _ = _ray_soa(rays)
     N = dirs.shape[0]
@@ -95,6 +98,9 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
     composited = torch.zeros(N, dtype=torch.int32, device=dev)
     s = torch.zeros(N, dtype=torch.int32, device=dev)
     look = torch.full((N,), occupancy is not None, device=dev)
+    if nondiff:
+        cell_loads = torch.zeros(N, dtype=torch.int32, device=dev)
+        cell_key = torch.full((N, 3), -1, dtype=torch.int64, device=dev)
     idx = torch.arange(N, device=dev)
     it = 0
     while True:
@@ -116,6 +122,9 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
         t = t0[idx] + s[idx].to(torch.float32) * dt[idx]
         pos = origin + t[:, None] * dirs[idx]
         if nondiff:
+            low = torch.floor(voxel_coords(pos, config.volume_shape)).long()
+            cell_loads[idx] += (low != cell_key[idx]).any(-1).to(torch.int32)
+            cell_key[idx] = low
             rgba = apply_tf(tf, trilinear(volume, pos))
             keep = rgba[:, 3] > skip
             if occupancy is not None:
@@ -135,7 +144,7 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
         composited[on] += 1
         s[idx] += 1
         it += 1
-    return rgb, T, visited, composited
+    return rgb, T, visited, composited, cell_loads if nondiff else None
 
 
 def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
@@ -150,8 +159,9 @@ def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
     hand-derived backward."""
     H, W = config.image_shape
     limit = torch.clamp(rays.n_samples.reshape(-1), max=config.max_samples)
-    rgb, T, _, comp = _plain_march(volume, tf, rays, config, sampling_rate,
-                                   limit, ert, nondiff=False)
+    rgb, T, _, comp, _ = _plain_march(volume, tf, rays, config,
+                                      sampling_rate, limit, ert,
+                                      nondiff=False)
     image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1).reshape(H, W, 4)
     return image, (comp + 1).reshape(H, W)
 
@@ -159,7 +169,8 @@ def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
 @torch.no_grad()
 def march_nondiff_plain(volume: torch.Tensor, tf: torch.Tensor,
                         rays: RayBundle, config: RenderConfig,
-                        sampling_rate, occupancy=None):
+                        sampling_rate, occupancy=None, *,
+                        cell_loads: Optional[torch.Tensor] = None):
     """Plain torch inference march.  No ``max_samples`` cap; a sample
     composites only if its TF alpha is ``> alpha_skip``; no light clamp;
     the image ends with ``min(1, .)``.  With an ``occupancy`` grid
@@ -167,13 +178,19 @@ def march_nondiff_plain(volume: torch.Tensor, tf: torch.Tensor,
     and TF) each ray jumps over samples that provably classify at or below
     ``alpha_skip``, as K3 does; the image does not change.  Returns
     ``(image (H, W, 4), visited (H, W), composited (H, W))``: the samples
-    each ray evaluated and the samples it composited."""
+    each ray evaluated and the samples it composited.  ``cell_loads``, an
+    (H, W) int32 tensor beside the volume, receives per ray the visited
+    samples whose centre cell differs from the previous visited sample's
+    (the first included): the cell loads K3 counts."""
     H, W = config.image_shape
     _check_grid(occupancy, config)
     limit = rays.n_samples.reshape(-1)
-    rgb, T, vis, comp = _plain_march(volume, tf, rays, config, sampling_rate,
-                                     limit, ert=True, nondiff=True,
-                                     occupancy=occupancy)
+    rgb, T, vis, comp, loads = _plain_march(
+        volume, tf, rays, config, sampling_rate, limit, ert=True,
+        nondiff=True, occupancy=occupancy)
+    if cell_loads is not None:
+        _counts_out("cell_loads", cell_loads, volume.device,
+                    config.image_shape).copy_(loads.reshape(H, W))
     image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1)
     image = torch.clamp(image, max=1.0).reshape(H, W, 4)
     return image, vis.reshape(H, W), comp.reshape(H, W)
@@ -187,7 +204,7 @@ class _MarchArgs(ctypes.Structure):
     """Mirror of ``struct MarchArgs`` in ``csrc/march_common.cuh``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "dx", "dy", "dz", "t0", "dt", "n", "volume", "tf", "origin",
-        "image", "steps", "shaded", "occ", "occ_far")]
+        "image", "steps", "shaded", "occ", "occ_far", "counts")]
         + [(f, ctypes.c_int) for f in (
             "H", "W", "X", "Y", "Z", "R", "max_steps", "ert",
             "nx", "ny", "nz", "cell", "jump_every")]
@@ -229,7 +246,7 @@ def _occupancy_args(occupancy, config, dev):
 
 
 def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
-                image, steps, shaded=None, occupancy=None):
+                image, steps, shaded=None, occupancy=None, counts=None):
     """Validate the operands and fill ``MarchArgs``.  Returns the struct and
     the tensors it points into, which the caller keeps referenced until the
     launch is enqueued (the caching allocator keeps their memory for the
@@ -264,6 +281,7 @@ def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
         shaded.data_ptr() if shaded is not None else None,
         dist.data_ptr() if dist is not None else None,
         far.data_ptr() if far is not None else None,
+        counts.data_ptr() if counts is not None else None,
         H, W, X, Y, Z, tf.shape[0], max_steps, int(ert), *occ_ints,
         float(scale[0]), float(scale[1]), float(scale[2]),
         float(np.float32(config.normal_delta)),
@@ -293,15 +311,16 @@ def _counts_out(name, counts, dev, shape):
 
 
 def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
-                  max_steps, shaded=None, occupancy=None):
+                  max_steps, shaded=None, occupancy=None, counts=None):
     """Allocate the outputs and launch one forward march kernel; ``shaded``
-    (if given) receives its per-ray counts."""
+    and ``counts`` (if given) receive its per-ray counts."""
     H, W = config.image_shape
     dev = volume.device
     image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
     args, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
-                             max_steps, image, steps, shaded, occupancy)
+                             max_steps, image, steps, shaded, occupancy,
+                             counts)
     _launch(entry, args, keep[0])
     return image, steps
 
@@ -438,20 +457,32 @@ def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
 
 
 def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
-                  config: RenderConfig, sampling_rate, occupancy=None):
+                  config: RenderConfig, sampling_rate, occupancy=None, *,
+                  counts: Optional[torch.Tensor] = None):
     """Inference march: kernel K3 on CUDA tensors (counted in
     ``march_nondiff.launches``), :func:`march_nondiff_plain` on CPU
     tensors.  With an ``occupancy`` grid each ray jumps over empty space.
-    Returns ``(image, visited, composited)`` as the plain version does."""
+    Returns ``(image, visited, composited)`` as the plain version does.
+    ``counts``, an (H, W, 3) int32 tensor beside the volume, receives three
+    counts per ray: K3's loads of the centre's 2x2x2 cell (it keeps the
+    cell across samples and loads it when the centre's low voxel indices
+    change), the voxels its composited samples loaded beyond that cell for
+    their gradient, and its reads of the occupancy grid (K3 only:
+    ``chip_smoke.py`` reads them)."""
     if _build.uses_plain(volume):
+        if counts is not None:
+            raise ValueError("counts are counted by kernel K3 only; the "
+                             "volume is on the CPU")
         return march_nondiff_plain(volume, tf, rays, config, sampling_rate,
                                    occupancy)
     _check_grid(occupancy, config)
+    counts = _counts_out("counts", counts, volume.device,
+                         config.image_shape + (3,))
     composited = torch.empty(config.image_shape, dtype=torch.int32,
                              device=volume.device)
     image, visited = _launch_march(
         "dr_march_nondiff", volume, tf, rays, config, sampling_rate, True,
-        np.iinfo(np.int32).max, composited, occupancy)
+        np.iinfo(np.int32).max, composited, occupancy, counts)
     march_nondiff.launches += 1
     return image, visited, composited
 

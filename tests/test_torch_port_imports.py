@@ -120,9 +120,9 @@ def test_march_args_mirror_the_c_struct():
     body = re.sub(r"//[^\n]*", "", body)
     c_fields = re.findall(r"(\w+)\s*[,;]", body)
     assert c_fields == [name for name, _ in _MarchArgs._fields_]
-    assert ctypes.sizeof(_MarchArgs) == 14 * 8 + 13 * 4 + 15 * 4
-    for name in ("occ", "occ_far", "nx", "ny", "nz", "cell", "jump_every",
-                 "cell_world"):
+    assert ctypes.sizeof(_MarchArgs) == 15 * 8 + 13 * 4 + 15 * 4
+    for name in ("occ", "occ_far", "counts", "nx", "ny", "nz", "cell",
+                 "jump_every", "cell_world"):
         assert name in c_fields
 
 
