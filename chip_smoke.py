@@ -6,12 +6,14 @@ an NVIDIA H100 (sm_90a), the CUDA toolkit and PyTorch built for CUDA.
 
 Phases (one JSON line each):
   1. device: card name and power limit, build time and the ``-Xptxas -v``
-     report of each kernel (the kernels are built here from ``csrc/``).
+     report of each kernel (the kernels are built here from ``csrc/``);
+     resources: the registers, spills and shared memory of K6 and K0b.
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
   2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
-     at the same sizes, against ``tf_lookup_bwd_reference``, timed beside
-     the gradient of ``grid_sample``.
+     at the same sizes and at R = 16384 (above the shared-memory limit:
+     global atomics), against ``tf_lookup_bwd_reference``, timed beside the
+     gradient of ``grid_sample``.
   3. march_diff_fwd (K1) through ``Raycaster.forward`` at the bench workload
      (256^3 volume, tf1 at R = 128, 512^2 image, max_samples 512, sr 1,
      jittered), on a noise volume and on a CT phantom, against
@@ -36,8 +38,8 @@ Phases (one JSON line each):
      edge, with and without the grid; ``raycast_ms`` with the grid and
      without it (``occupancy_skip=False``), timed alternately.
   5. profile: device time by kernel and the busy share of the forward, the
-     gradient step and the inference render on the noise scene
-     (torch.profiler).
+     gradient step and the inference render on the noise scene, the last
+     with the occupancy grid and without it (torch.profiler).
   5b. train: 5 steps of the volume-fitting loop of
      ``examples/optimize_volume.py`` at 256^3 and 512^2, 2 views.
   6. golden: the card's renders of the sphere fixtures of
@@ -53,7 +55,12 @@ Phases (one JSON line each):
      (max_dist 12): K6 and K7 equal to their plain versions (K7 also at
      R = 4096), the card's grid equal to the whole build on CPU copies of
      the volume and the TF; K6's and K7's device time and launches per call
-     (torch.profiler: a K7 call's host work outlasts it on the device).
+     (CUDA events around back-to-back calls of their C entries: a wrapper
+     call's host work outlasts K7 on the device), K6
+     beside its library form (two ``max_pool3d`` calls); K6 also on a
+     250x256x243 volume at cells 2, 3, 8 and 48 (sides the cell does not
+     divide; at 48 a tile's voxels are taken in bands) equal to its plain
+     version and to the CPU build.
   9. viewer: the JAX package's inference example at full width (800^2,
      sampling rate 16, tf1, camera (0, 1, -2.3)) on its synthetic volume and
      ct_phantom at 256^3: K3 with the grid bitwise equal to K3 without it,
@@ -158,6 +165,8 @@ ZERO_OPACITY_OPS = (POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + OPACITY_OPS
 K2_GRAD_TOL = 1e-4
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE_MS_IS = ("CUDA events around 20 back-to-back calls of the C entry, "
+                "median of 10")
 
 
 def emit(obj) -> None:
@@ -274,10 +283,22 @@ def main() -> int:
                        and e.self_device_time_total > 0),
                       key=lambda kv: -kv[1])
         dev_ms = sum(ms for _, ms in kern)
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0) / reps
         return {"wall_ms": wall, "device_ms": dev_ms if kern else None,
                 "busy_share": dev_ms / wall if kern else None,
-                "n_kernels": len(kern),
+                "host_gap_share": 1.0 - dev_ms / wall if kern else None,
+                "n_kernels": len(kern), "launches": launches,
                 "top": [[k[:60], ms] for k, ms in kern[:5]]}
+
+    def launch_ms(call, reps=10, per_pair=20):
+        """Device time of one call of a C entry (``call`` returns its
+        ``cudaError_t``) by CUDA events around ``per_pair`` back-to-back
+        calls: a ctypes call takes less host time than the kernels it
+        launches, so the device queue stays ahead."""
+        return cuda_ms(lambda: _build.check(call(), "launch_ms"), reps,
+                       per_pair=per_pair)
 
     def device_kernels(fn, reps=5):
         """Per call of ``fn``, the launches and device time (ms) of each
@@ -301,6 +322,18 @@ def main() -> int:
                 return got
         return {}
 
+    def minmax_pools(vol, cell):
+        """K6's function in library calls: the volume padded by
+        replication to whole windows, then F.max_pool3d of it (the max) and
+        of its negation (the min)."""
+        shape = [-(-s // cell) for s in vol.shape]
+        pad = []
+        for size, n_cells in zip(reversed(vol.shape), reversed(shape)):
+            pad += [1, n_cells * cell - size + 1]
+        v = F.pad(vol[None, None], pad, mode="replicate")
+        return (-F.max_pool3d(-v, cell + 2, cell)[0, 0],
+                F.max_pool3d(v, cell + 2, cell)[0, 0])
+
     # -- 1. device and build -------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -316,6 +349,24 @@ def main() -> int:
           "build_s": info.seconds, "build_cached": info.cached,
           "library": os.path.relpath(info.path, ROOT),
           "ptxas": info.ptxas})
+
+    def ptxas_of(src, names):
+        """The ptxas report of each kernel of ``src`` whose mangled name
+        holds one of ``names``."""
+        out, cur = {}, None
+        for ln in info.ptxas.get(src, []):
+            if "Compiling entry function" in ln:
+                cur = next((n for n in names if n in ln), None)
+                key = ln.split("'")[1] if cur else None
+            elif cur and ("Used" in ln or "spill" in ln):
+                out.setdefault(key, []).append(ln)
+        return out
+
+    emit({"phase": "resources",
+          "cell_minmax": ptxas_of("bricks.cu", ["cell_minmax_kernel"]),
+          "tf_lookup_bwd": ptxas_of("tf_lookup.cu", ["tf_lookup_bwd_kernel",
+                                                     "tf_grad_sum_kernel"]),
+          "nvidia_smi": smi})
 
     kernels = {}
     gen = torch.Generator(device=dev)
@@ -381,8 +432,9 @@ def main() -> int:
 
     # -- 2b. K0b tf_lookup_bwd ------------------------------------------------
     cot = torch.rand((n, 4), generator=gen_b, device=dev) - 0.5
-    k0b_launches, k0b_err, k0b_err_tf, k0b = 0, 0.0, 0.0, None
-    for R in (128, 4096):
+    k0b_launches, k0b_err, k0b_err_tf, k0b, k0b_ms = 0, 0.0, 0.0, None, {}
+    # R = 16384 lies above K0b's shared-memory limit (14336): global atomics.
+    for R in (128, 4096, 16384):
         tf = torch.rand((R, 4), generator=gen_b, device=dev)
         tf_leaf = tf.clone().requires_grad_()
         x_leaf = inten.clone().requires_grad_()
@@ -431,6 +483,8 @@ def main() -> int:
         k0b_launches += launches
         k0b_err = max(k0b_err, err_x)
         k0b_err_tf = max(k0b_err_tf, err_tf / scale)
+        k0b_ms[f"R{R}"] = {"ms": ms, "profiler_ms": profiler_ms,
+                           "library_ms": library_ms, "bound_ms": b_ms}
         if R == 128:
             k0b = dict(ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
@@ -439,7 +493,7 @@ def main() -> int:
         route="cuda", source="differender_tpu_torch/csrc/tf_lookup.cu",
         replaces="differender_tpu/ops/tf_lookup.py:72",
         launches=k0b_launches, max_abs_err=k0b_err,
-        max_rel_err_d_tf=k0b_err_tf, **k0b)
+        max_rel_err_d_tf=k0b_err_tf, by_R=k0b_ms, **k0b)
     del cot, inten
 
     # -- 3./4. K1 and K3 through the Raycaster ---------------------------------
@@ -1002,6 +1056,8 @@ def main() -> int:
                   "grad_step": grad_step_profile,
                   "raycast_nondiff": profile(
                       lambda: rc.raycast_nondiff(vol_user, tf_user, lf)),
+                  "raycast_nondiff_no_grid": profile(
+                      lambda: rc_off.raycast_nondiff(vol_user, tf_user, lf)),
                   "nvidia_smi": smi})
         del vol_user, vol_i
 
@@ -1220,6 +1276,13 @@ def main() -> int:
 
     # -- 8. occupancy: K6, K7 and the grid's build ---------------------------
     tf_cpu = tf_i.cpu()
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev_index = torch.cuda.current_device()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
     for scene, make in scenes.items():
         vol_i = P.volume_to_internal(torch.from_numpy(make()).to(dev))
         vol_i = vol_i.contiguous()
@@ -1252,13 +1315,27 @@ def main() -> int:
                     and torch.equal(grid.far, far_p),
                     f"K7 differs from its plain version on {scene} at cell "
                     f"{cell}")
-            # Device time and launches by the profiler: one call's host
-            # work (checks, allocations, ctypes) outlasts K7 on the device,
-            # so CUDA events around calls time the host.
-            k6_dev = device_kernels(lambda: P.cell_minmax(vol_i, cell))
-            k7_dev = device_kernels(lambda: P.cell_distance(*k7_args))
-            k6_dev_ms = sum(v["ms"] for v in k6_dev.values()) or None
-            k7_dev_ms = sum(v["ms"] for v in k7_dev.values()) or None
+            # Device time by CUDA events around back-to-back calls of the C
+            # entries: one call of a wrapper spends longer on the host than
+            # K7 on the device, so events around wrapper calls time the
+            # host, and the profiler does not always record these ctypes
+            # launches.
+            lo_t, hi_t = torch.empty_like(lo), torch.empty_like(hi)
+            plan6 = P.ops.bricks.k6_plan(vol_i.shape, cell, sms)
+            k6_dev_ms = launch_ms(lambda: lib.dr_cell_minmax(
+                vol_i.data_ptr(), *vol_i.shape, cell, *plan6,
+                lo_t.data_ptr(), hi_t.data_ptr(), dev_index, stream()))
+            out7, tmp7 = torch.empty_like(dist), torch.empty_like(dist)
+            far7 = torch.empty_like(far)
+            k7_dev_ms = launch_ms(lambda: lib.dr_cell_distance(
+                lo.data_ptr(), hi.data_ptr(), tf_i.data_ptr(), R,
+                float(np.float32(cfg.alpha_skip)), *lo.shape, md,
+                tmp7.data_ptr(), out7.data_ptr(), far7.data_ptr(), dev_index,
+                stream()))
+            require(torch.equal(lo_t, lo) and torch.equal(hi_t, hi)
+                    and torch.equal(out7, dist) and torch.equal(far7, far),
+                    f"K6/K7 by their C entries differ on {scene} at cell "
+                    f"{cell}")
             # K7's texel groups at R = 4096 (its sparse table over groups of
             # 8 texels, the spans' ends from the TF).
             tf_big = P.get_tf("tf1", 4096, device=dev)
@@ -1272,6 +1349,14 @@ def main() -> int:
             del tf_big, big, dist_b, dist_bp
             ms = cuda_ms(lambda: P.cell_minmax(vol_i, cell), 10, per_pair=5)
             plain_ms = cuda_ms(lambda: P.cell_minmax_reference(vol_i, cell), 5)
+            lib_lo, lib_hi = minmax_pools(vol_i, cell)
+            require(torch.equal(lib_lo, lo) and torch.equal(lib_hi, hi),
+                    f"the max_pool3d pair differs from K6 on {scene} at cell "
+                    f"{cell}")
+            library_ms = cuda_ms(lambda: minmax_pools(vol_i, cell), 10,
+                                 per_pair=5)
+            lib_dev = device_kernels(lambda: minmax_pools(vol_i, cell))
+            lib_dev_ms = sum(v["ms"] for v in lib_dev.values()) or None
             ms7 = cuda_ms(lambda: P.cell_distance(*k7_args), 10, per_pair=5)
             plain7 = cuda_ms(lambda: P.cell_distance_reference(*k7_args), 3)
             build_ms = host_ms(lambda: P.build_occupancy(
@@ -1294,33 +1379,62 @@ def main() -> int:
                   "equal_to_cpu_build": True,
                   "empty_share": float((grid.dist >= 2).float().mean()),
                   "cell_minmax": {"ms": ms, "device_ms": k6_dev_ms,
-                                  "plain_ms": plain_ms, "bound_ms": b_ms,
-                                  "bound_by": b_by},
+                                  "plain_ms": plain_ms,
+                                  "library_ms": library_ms,
+                                  "library_device_ms": lib_dev_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by},
                   "cell_distance": {"ms": k7_dev_ms, "event_ms": ms7,
                                     "plain_ms": plain7, "bound_ms": b7_ms,
                                     "bound_by": b7_by,
-                                    "device_kernels": k7_dev,
                                     "equal_at_R4096": True},
                   "build_ms": build_ms, "build_device_ms": build_dev_ms,
                   "nvidia_smi": smi})
             if scene == "ct_phantom" and cell_arg is None:
                 kernels["cell_minmax"].update(
-                    ms=ms, device_ms=k6_dev_ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by,
-                    build_ms=build_ms, library_ms=None,
-                    library_note="none: no single call gives a window's "
-                                 "min and max (max_pool3d gives one)")
+                    ms=k6_dev_ms, ms_is=DEVICE_MS_IS, wrapper_event_ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    build_ms=build_ms, library_ms=library_ms,
+                    library_device_ms=lib_dev_ms,
+                    library_note="two calls: F.max_pool3d of the "
+                                 "replicate-padded volume and of its "
+                                 "negation (the max and the min)")
                 kernels["cell_distance"].update(
-                    ms=k7_dev_ms if k7_dev_ms is not None else ms7,
-                    ms_is="profiler device time per call" if k7_dev_ms
-                    is not None else "CUDA events, 5 calls per pair",
-                    event_ms=ms7, plain_ms=plain7, bound_ms=b7_ms,
+                    ms=k7_dev_ms, ms_is=DEVICE_MS_IS, wrapper_event_ms=ms7,
+                    plain_ms=plain7, bound_ms=b7_ms,
                     bound_by=b7_by,
                     library_ms=None,
                     library_note="none: no single call gives a distance "
                                  "transform")
+            if scene == "ct_phantom" and cell_arg is not None:
+                kernels["cell_minmax"].update(
+                    ms_cell8=k6_dev_ms, bound_ms_cell8=b_ms,
+                    library_ms_cell8=library_ms)
             del grid, cpu, lo, hi, lo_p, hi_p, k7_args, dist, dist_p
         del vol_i, vol_cpu
+
+    # K6 where the cell divides no side (the far faces clamp) and, at cell
+    # 48, a tile's voxels are taken in bands: bitwise its plain version on
+    # the card and the CPU build.
+    odd = torch.rand((250, 256, 243), generator=gen_b, device=dev)
+    odd_cpu = odd.cpu()
+    P.reset_launch_counts()
+    odd_cells = {}
+    for cell in (2, 3, 8, 48):
+        lo, hi = P.cell_minmax(odd, cell)
+        lo_p, hi_p = P.cell_minmax_reference(odd, cell)
+        lo_c, hi_c = P.cell_minmax(odd_cpu, cell)
+        require(torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+                and torch.equal(lo.cpu(), lo_c)
+                and torch.equal(hi.cpu(), hi_c),
+                f"K6 on 250x256x243 at cell {cell} differs from its plain "
+                f"version or the CPU build")
+        odd_cells[cell] = {"grid": list(lo.shape), "equal": True,
+                           "plan": list(P.ops.bricks.k6_plan(odd.shape, cell,
+                                                             sms))}
+    require(P.launch_counts()["cell_minmax"] == 4, "K6 launches on 250x256x243")
+    emit({"phase": "occupancy_odd", "volume": [250, 256, 243],
+          "cells": odd_cells, "nvidia_smi": smi})
+    del odd, odd_cpu, lo, hi, lo_p, hi_p, lo_c, hi_c
 
     # -- 9. viewer: the inference example at full width ---------------------
     v_img, v_sr = 800, 16.0

@@ -137,8 +137,12 @@ def library() -> ctypes.CDLL:
     i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.dr_tf_lookup_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
     lib.dr_tf_lookup_fwd.restype = i32
-    lib.dr_tf_lookup_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
-                                     ptr]
+    lib.dr_tf_lookup_bwd_plan.argtypes = [i64, i32, i32,
+                                          ctypes.POINTER(i32),
+                                          ctypes.POINTER(i64)]
+    lib.dr_tf_lookup_bwd_plan.restype = i32
+    lib.dr_tf_lookup_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
+                                     i32, i32, ptr]
     lib.dr_tf_lookup_bwd.restype = i32
     for name in ("dr_march_diff_fwd", "dr_march_diff_bwd",
                  "dr_march_nondiff"):
@@ -149,8 +153,8 @@ def library() -> ctypes.CDLL:
                                   ptr]
     lib.dr_brick_rows.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i32,
                                   ptr]
-    lib.dr_cell_minmax.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, i32,
-                                   ptr]
+    lib.dr_cell_minmax.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32,
+                                   i32, ptr, ptr, i32, ptr]
     lib.dr_cell_distance.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float,
                                      i32, i32, i32, i32, ptr, ptr, ptr, i32,
                                      ptr]

@@ -1,6 +1,7 @@
 // Shared 1D RGBA transfer-function lerp, used by tf_lookup_fwd (K0),
 // march_diff_fwd (K1) and march_nondiff (K3), and its backward, used by
-// tf_lookup_bwd (K0b) and march_diff_bwd (K2).
+// march_diff_bwd (K2).  tf_lookup_bwd (K0b) has its own backward, with the
+// Pallas kernel's mask, in tf_lookup.cu.
 //
 // Semantics of tf_lookup_reference in differender_tpu/ops/tf_lookup.py:
 //   t = max(i*(R-1), 0); low = min(floor t, R-1); high = min(low+1, R-1);
@@ -65,7 +66,7 @@ __device__ __forceinline__ const float4* stage_tf(const float4* tf, int R,
 }
 
 // Which d_intensity the backward keeps: ((tf[high] - tf[low]) . g) * (R-1)
-// is the slope of the lerp, and the three functions being replaced differ
+// is the slope of the lerp, and the JAX march's two TF functions differ
 // only in where they keep it.
 enum TfGradMask {
   // frac > 0: the JAX march's TF for R <= 1024
@@ -74,9 +75,6 @@ enum TfGradMask {
   // Autograd of the gather-lerp, the JAX march's TF for R > 1024
   // (sampling.py::apply_tf_soa): every t, half at i == 0 (the tie of max).
   kTfGradEveryT = 1,
-  // 0 < i*(R-1) < R-1 on the raw t: the Pallas kernel
-  // (ops/tf_lookup.py::_bwd_kernel).
-  kTfGradPallas = 2,
 };
 
 // Backward of tf_lerp for the output cotangent g: adds the two texels'
@@ -111,10 +109,8 @@ __device__ __forceinline__ float tf_lerp_bwd(const float4* tf, int R,
   float keep;
   if (kMask == kTfGradFracPositive) {
     keep = frac > 0.0f ? 1.0f : 0.0f;
-  } else if (kMask == kTfGradEveryT) {
-    keep = t_raw > 0.0f ? 1.0f : (t_raw == 0.0f ? 0.5f : 0.0f);
   } else {
-    keep = (t_raw > 0.0f && t_raw < (float)(R - 1)) ? 1.0f : 0.0f;
+    keep = t_raw > 0.0f ? 1.0f : (t_raw == 0.0f ? 0.5f : 0.0f);
   }
   if (keep == 0.0f) return 0.0f;
   // Rounded step by step, unfused, in the plain version's order

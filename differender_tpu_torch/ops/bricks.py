@@ -6,8 +6,11 @@ K4 and K5 are the ports of the two Pallas kernels of the TPU DMA probe
 ``run_brick_sums``, ``brick_row_kernel`` launched by ``run_brick_rows``),
 with their signatures and outputs: ``(n, 128)`` f32, every lane of row ``i``
 holding the sum of brick ``i``.  K6 is the occupancy grid's per-macrocell
-``(min, max)`` (``differender_tpu/occupancy.py::_cell_minmax``), the same
-window reduction with min and max in place of the sum.
+``(min, max)`` (``differender_tpu/occupancy.py::_cell_minmax``): a block
+of K6 streams the x-planes of a tile of macrocells, folds each voxel along x
+into the windows of its cells in registers, and reduces a window along z
+and y in shared memory when it closes (:func:`k6_plan` chooses the tiling),
+so each voxel is read from device memory about once.
 
 On CUDA tensors each wrapper launches its kernel (counted in its
 ``launches``); on CPU tensors it takes the plain torch version beside it.
@@ -20,6 +23,9 @@ are exact.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +33,43 @@ from .. import _build
 
 LANES = 128
 B = 32       # brick edge of K4, as in the probe (exp_pallas_dma.py:36)
+
+# K6's tiling: a tile spans at most K6_COLS voxels along z and as many rows
+# as keep its voxels (its cells' windows) within K6_SLOTS, the voxels a
+# block's 256 threads hold, 8 each; the tile along z shrinks until one cell
+# row fits (a tile of one cell from cell 44 on, whose voxels the kernel
+# takes in bands).  Chunks along x give every SM K6_BLOCKS_PER_SM blocks.
+K6_COLS = 64
+K6_SLOTS = 2048
+K6_BLOCKS_PER_SM = 3
+
+
+class K6Plan(NamedTuple):
+    ty: int        # cells of a tile along y
+    tz: int        # cells of a tile along z
+    cx: int        # cells of a chunk along x
+    slots: int     # voxels of a band
+
+
+def k6_plan(volume_shape, cell: int, sms: int) -> K6Plan:
+    """K6's tiling of a volume ``(X, Y, Z)`` at ``cell`` on a card of ``sms``
+    SMs: ``tz`` cells along z and ``ty`` along y per tile, ``cx`` along x
+    per chunk (as many chunks as fill ``K6_BLOCKS_PER_SM`` blocks on every
+    SM without a second wave), K6_SLOTS voxels per band."""
+    nx, ny, nz = grid_shape(volume_shape, cell)
+    tz = max(1, min(nz, K6_COLS // cell))
+    while tz > 1 and (tz * cell + 2) * (cell + 2) > K6_SLOTS:
+        tz -= 1
+    cols = min(tz * cell + 2, volume_shape[2])
+    ty = max(1, min(ny, (K6_SLOTS // cols - 2) // cell))
+    tiles = -(-ny // ty) * -(-nz // tz)
+    chunks = max(1, min(nx, K6_BLOCKS_PER_SM * sms // tiles))
+    return K6Plan(ty, tz, -(-nx // chunks), K6_SLOTS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lanes(sums: torch.Tensor) -> torch.Tensor:
@@ -163,9 +206,11 @@ def cell_minmax(volume: torch.Tensor, cell: int):
     lo = torch.empty(shape, dtype=torch.float32, device=volume.device)
     hi = torch.empty_like(lo)
     X, Y, Z = volume.shape
+    plan = k6_plan(volume.shape, cell, _sms(volume.device.index))
     _build.check(_build.library().dr_cell_minmax(
-        volume.data_ptr(), X, Y, Z, cell, lo.data_ptr(), hi.data_ptr(),
-        volume.device.index, _build.stream_of(volume)), "cell_minmax")
+        volume.data_ptr(), X, Y, Z, cell, *plan, lo.data_ptr(),
+        hi.data_ptr(), volume.device.index, _build.stream_of(volume)),
+        "cell_minmax")
     cell_minmax.launches += 1
     return lo, hi
 
@@ -174,4 +219,5 @@ cell_minmax.launches = 0
 
 
 __all__ = ["brick_sums", "brick_rows", "cell_minmax", "brick_sums_reference",
-           "brick_rows_reference", "cell_minmax_reference", "grid_shape"]
+           "brick_rows_reference", "cell_minmax_reference", "grid_shape",
+           "k6_plan"]

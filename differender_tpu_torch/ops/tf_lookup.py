@@ -9,9 +9,22 @@ tensors they take the plain versions :func:`tf_lookup_reference` and
 (``_bwd_kernel``): ``d_intensity`` is kept only where ``0 < i*(R-1) < R-1``
 on the raw t, which keeps the slope at interior integer t, unlike the march's
 ``frac > 0`` rule (``sampling.tf_lerp_bwd``).  The march kernels K1, K2 and
-K3 use the same lerp and lerp backward (``csrc/tf_lerp.cuh``) per sample.
+K3 use the same lerp (``csrc/tf_lerp.cuh``) per sample; K2 has the lerp's
+backward there too.
+
+K0b sums ``d_tf`` without global atomics up to R = 14336: every block of a
+grid sized to the card scatters its lookups' terms into a copy of ``d_tf``
+in shared memory (up to R = 256 one column per lane of a warp beside the
+TF, so the lanes of a warp never meet on an address; above that one copy
+per block, the TF read through the cache), writes it as a partial to
+scratch, and a second launch sums the partials in a fixed order.  Above
+R = 14336 (more than the 227 KB a block may hold) every term is a global
+atomic.  Bound: bytes, 24 B per lookup and 32R B; 0.060 ms at 2^23 lookups
+on an H100 (3.35 TB/s).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -68,9 +81,12 @@ tf_lookup_fwd.launches = 0
 def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
                   g: torch.Tensor):
     """The backward: K0b on CUDA tensors (counted in
-    ``tf_lookup_bwd.launches``), :func:`tf_lookup_bwd_reference` on CPU.
-    Returns ``(d_tf (R, 4), d_intensity)``; ``d_tf`` is summed with f32
-    atomics, so its last bits vary from run to run."""
+    ``tf_lookup_bwd.launches``, once per call of its two launches),
+    :func:`tf_lookup_bwd_reference` on CPU.
+    Returns ``(d_tf (R, 4), d_intensity)``.  ``d_tf``'s sum across blocks
+    runs in a fixed order, but each block sums its lookups with f32
+    shared-memory atomics (global ones above R = 14336), so its last bits
+    vary from run to run."""
     if _build.uses_plain(intensity):
         return tf_lookup_bwd_reference(tf, intensity, g)
     tf, flat = _check(tf, intensity)
@@ -82,11 +98,22 @@ def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
     g = g.detach().contiguous()
     if g.data_ptr() % 16:
         g = g.clone()            # float4 loads need 16-byte alignment
+    n, R, dev = flat.numel(), tf.shape[0], flat.device
+    lib = _build.library()
+    blocks, partials = ctypes.c_int(0), ctypes.c_longlong(0)
+    _build.check(lib.dr_tf_lookup_bwd_plan(n, R, dev.index,
+                                           ctypes.byref(blocks),
+                                           ctypes.byref(partials)),
+                 "tf_lookup_bwd")
     d_int = torch.empty_like(flat)
-    d_tf = torch.zeros_like(tf)
-    _build.check(_build.library().dr_tf_lookup_bwd(
+    # The partials' sum writes every entry of d_tf; the global atomics
+    # above R = 14336 (partials == 0) add into zeros.
+    d_tf = (torch.empty_like(tf) if partials.value
+            else torch.zeros_like(tf))
+    scratch = torch.empty(partials.value, dtype=torch.float32, device=dev)
+    _build.check(lib.dr_tf_lookup_bwd(
         flat.data_ptr(), tf.data_ptr(), g.data_ptr(), d_int.data_ptr(),
-        d_tf.data_ptr(), flat.numel(), tf.shape[0], flat.device.index,
+        d_tf.data_ptr(), scratch.data_ptr(), blocks.value, n, R, dev.index,
         _build.stream_of(flat)), "tf_lookup_bwd")
     tf_lookup_bwd.launches += 1
     return d_tf, d_int.reshape(intensity.shape)
