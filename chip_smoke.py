@@ -7,7 +7,8 @@ an NVIDIA H100 (sm_90a), the CUDA toolkit and PyTorch built for CUDA.
 Phases (one JSON line each):
   1. device: card name and power limit, build time and the ``-Xptxas -v``
      report of each kernel (the kernels are built here from ``csrc/``);
-     resources: the registers, spills and shared memory of K6 and K0b.
+     resources: the registers, spills and shared memory of K4, K5, K6 and
+     K0b.
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
   2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
@@ -49,7 +50,13 @@ Phases (one JSON line each):
      TPU DMA probe ``experiments/exp_pallas_dma.py`` at its sizes and seeds
      (256^3 volume, 32^3 bricks, 2048 origins aligned and unaligned, a
      4096-brick table), against their plain versions at ``rtol=1e-5``, and
-     origins out of range giving NaN rows.
+     origins out of range giving NaN rows; each kernel bitwise equal across
+     calls and to its C entry; K4 also at 16 and 16384 unaligned origins,
+     on a 250x256x243 volume (4-byte copies) and on a base that is not
+     16-byte aligned, its time at 16384 under 16x its time at 2048; K5 also
+     with every index equal and with duplicates among indices out of range.
+     Times by CUDA events around back-to-back calls of the C entries, with
+     the wrapper call's beside them; the bytes each kernel reads by design.
   8. occupancy: cell_minmax (K6), cell_distance (K7) and ``build_occupancy``
      at 256^3 on noise and ct_phantom, auto cell (2, max_dist 48) and cell 8
      (max_dist 12): K6 and K7 equal to their plain versions (K7 also at
@@ -363,6 +370,11 @@ def main() -> int:
         return out
 
     emit({"phase": "resources",
+          "brick_sums": ptxas_of("bricks.cu", [
+              "brick_bin_kernel", "tile_scan_kernel", "brick_tile_kernel",
+              "brick_final_kernel"]),
+          "brick_rows": ptxas_of("bricks.cu", [
+              "row_owner_kernel", "row_chunk_kernel", "row_final_kernel"]),
           "cell_minmax": ptxas_of("bricks.cu", ["cell_minmax_kernel"]),
           "tf_lookup_bwd": ptxas_of("tf_lookup.cu", ["tf_lookup_bwd_kernel",
                                                      "tf_grad_sum_kernel"]),
@@ -1172,19 +1184,37 @@ def main() -> int:
     counts = P.launch_counts()
     require(counts["brick_sums"] == 2 and counts["brick_rows"] == 1,
             f"the probe's variants launched {counts}")
+    lib = _build.library()
+    dev_index = torch.cuda.current_device()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def same_bits(a, b):
+        """Bitwise equality, NaN rows included."""
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
 
     def sums_check(label, got, want):
-        """Every row within rtol 1e-5 of the plain version, lanes equal."""
-        require(got.shape == want.shape and bool((got == got[:, :1]).all()),
+        """Every row within rtol 1e-5 of the plain version, lanes equal, NaN
+        exactly where the plain version has NaN."""
+        same = (got == got[:, :1]) | (got.isnan() & got[:, :1].isnan())
+        require(got.shape == want.shape and bool(same.all()),
                 f"{label}: shape {tuple(got.shape)} or lanes differ")
-        err = (got - want).abs()
-        rel = float((err / want.abs()).max())
+        nan = torch.isnan(want[:, 0])
+        require(torch.equal(torch.isnan(got[:, 0]), nan),
+                f"{label}: NaN rows differ from the plain version's")
+        if bool(nan.all()):
+            return 0.0, 0.0
+        err = (got - want)[~nan].abs()
+        rel = float((err / want[~nan].abs()).max())
         require(rel <= 1e-5, f"{label}: max relative error {rel} > 1e-5")
         return float(err.max()), rel
 
-    def union_voxels(o, b):
+    def union_voxels(shape, o, b):
         """Voxels inside at least one b^3 brick at the origins o."""
-        diff = torch.zeros((V + 1,) * 3, dtype=torch.int32, device=dev)
+        diff = torch.zeros([s + 1 for s in shape], dtype=torch.int32,
+                           device=dev)
         o = o.long()
         for cx in (0, 1):
             for cy in (0, 1):
@@ -1194,15 +1224,97 @@ def main() -> int:
                         torch.full((o.shape[0],), (-1) ** (cx + cy + cz),
                                    dtype=torch.int32, device=dev),
                         accumulate=True)
-        cover = diff.cumsum(0).cumsum(1).cumsum(2)[:V, :V, :V]
+        cover = diff.cumsum(0).cumsum(1).cumsum(2)[:shape[0], :shape[1],
+                                                   :shape[2]]
         return int((cover > 0).sum())
+
+    def k4_copied(vol, o):
+        """What K4 reads by design: per tile the bounding box of its
+        bricks' intersections (along z widened to multiples of 4 on the
+        16-byte route), in voxels, and the (brick, tile) pairs."""
+        plan = P.ops.bricks.k4_plan(vol.shape, o.shape[0])
+        vec = vol.shape[2] % 4 == 0 and vol.data_ptr() % 16 == 0
+        t = torch.tensor(P.ops.bricks.K4_TILE, device=dev)
+        shape = torch.tensor(vol.shape, device=dev)
+        o = o.long()
+        o = o[((o >= 0) & (o <= shape - B)).all(1)]
+        d = torch.stack(torch.meshgrid(*[torch.arange(s, device=dev)
+                                         for s in plan.slots],
+                                       indexing="ij"), -1).reshape(-1, 3)
+        ti = (o // t)[:, None] + d[None]
+        ok = (ti <= ((o + B - 1) // t)[:, None]).all(-1)
+        ti, oo = ti[ok], o[:, None].expand(-1, d.shape[0], -1)[ok]
+        org = ti * t
+        lo = (oo - org).clamp(min=0)
+        hi = torch.minimum(oo + B - org, torch.minimum(t, shape - org))
+        tid = (ti[:, 0] * plan.tiles[1] + ti[:, 1]) * plan.tiles[2] + ti[:, 2]
+        n_tiles = plan.tiles[0] * plan.tiles[1] * plan.tiles[2]
+        at = tid[:, None].expand(-1, 3)
+        b0 = torch.full((n_tiles, 3), 1 << 30, dtype=torch.long,
+                        device=dev).scatter_reduce(0, at, lo, "amin")
+        b1 = torch.zeros((n_tiles, 3), dtype=torch.long,
+                         device=dev).scatter_reduce(0, at, hi, "amax")
+        if vec:
+            b0[:, 2] = b0[:, 2] // 4 * 4
+            b1[:, 2] = (b1[:, 2] + 3) // 4 * 4
+        used = torch.bincount(tid, minlength=n_tiles) > 0
+        return int((b1 - b0)[used].prod(1).sum()), int(ok.sum())
+
+    def k4_entry(vol, o):
+        """K4's C entry on scratch and output allocated beforehand."""
+        n = o.shape[0]
+        plan = P.ops.bricks.k4_plan(vol.shape, n)
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                              device=dev)
+        out = torch.empty((n, 128), device=dev)
+        return out, lambda: lib.dr_brick_sums(
+            vol.data_ptr(), *vol.shape, o.data_ptr(), n,
+            scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
+            dev_index, stream())
+
+    def k5_entry(tab, ix):
+        """K5's C entry on scratch and output allocated beforehand."""
+        n = ix.shape[0]
+        plan = P.ops.bricks.k5_plan(tab.shape, n)
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                              device=dev)
+        out = torch.empty((n, 128), device=dev)
+        return out, lambda: lib.dr_brick_rows(
+            tab.data_ptr(), tab.shape[0], tab.shape[1] * tab.shape[2],
+            ix.data_ptr(), n, scratch.data_ptr(), plan.scratch_words,
+            out.data_ptr(), dev_index, stream())
+
+    def k4_case(label, vol, o, got=None, plain=True):
+        """K4 against its plain version (rtol 1e-5, NaN rows), bitwise equal
+        across wrapper calls and its C entry; the C entry's device time
+        (CUDA events around 20 back-to-back calls) beside the wrapper's."""
+        if got is None:
+            got = P.brick_sums(vol, o)
+        err, rel = sums_check(label, got, P.brick_sums_reference(vol, o))
+        require(same_bits(P.brick_sums(vol, o), got),
+                f"{label}: K4 differs between two calls")
+        out, call = k4_entry(vol, o)
+        ms = launch_ms(call)
+        require(same_bits(out, got),
+                f"{label}: K4's C entry differs from the wrapper's call")
+        copied, pairs = k4_copied(vol, o)
+        result = dict(n=o.shape[0], volume=list(vol.shape), max_abs_err=err,
+                   max_rel_err=rel, ms=ms, ms_is=DEVICE_MS_IS,
+                   wrapper_event_ms=cuda_ms(lambda: P.brick_sums(vol, o), 10,
+                                            per_pair=10),
+                   pairs=pairs, copied_bytes=copied * 4,
+                   route="16-byte" if vol.shape[2] % 4 == 0
+                   and vol.data_ptr() % 16 == 0 else "4-byte")
+        if plain:
+            result["plain_ms"] = cuda_ms(lambda: P.brick_sums_reference(vol, o),
+                                      5)
+        return result
 
     brick_bytes = B ** 3 * 4
     out_bytes = n_b * 128 * 4
     bricks_out = {}
     for label, o in origins.items():
-        want = P.brick_sums_reference(vol_b, o)
-        err, rel = sums_check(label, outs[label], want)
+        result = k4_case(label, vol_b, o, outs[label])
         # A brick partly or wholly outside the volume gives a NaN row.
         bad = torch.cat([o[:2], torch.tensor(
             [[V - B + 1, 0, 0], [0, -1, 0], [0, 0, V]], dtype=torch.int32,
@@ -1213,26 +1325,82 @@ def main() -> int:
                 and bool(torch.isnan(P.brick_sums_reference(vol_b, bad)[2:])
                          .all()),
                 f"{label}: out-of-range origins do not give NaN rows")
-        ms = cuda_ms(lambda: P.brick_sums(vol_b, o), 10, per_pair=10)
-        plain_ms = cuda_ms(lambda: P.brick_sums_reference(vol_b, o), 5)
-        union = union_voxels(o, B)
+        union = union_voxels(vol_b.shape, o, B)
         b_ms, b_by = bound(union * 4 + n_b * 12 + out_bytes, n_b * B ** 3)
         bricks_out[label] = dict(
-            launches=1, max_abs_err=err, max_rel_err=rel, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            launches=1, **result, bound_ms=b_ms, bound_by=b_by,
             union_voxels=union,
             bound_ms_each_brick_from_hbm=bound(n_b * brick_bytes + out_bytes,
                                                0)[0],
             library_ms=None)
+    # K4 at other sizes: 16 and 16384 unaligned origins (the plain version
+    # at 16384 gathers 2 GiB), the 4-byte route on a 250x256x243 volume
+    # (Z % 4 != 0) and on a base that is not 16-byte aligned, origins out
+    # of range among the others.
+    g_k4 = np.random.default_rng(7)
+    k4_more = {}
+    for n in (16, 16384):
+        o = torch.from_numpy(g_k4.integers(0, V - B + 1, size=(n, 3))
+                             .astype(np.int32)).to(dev)
+        k4_more[f"n{n}"] = k4_case(f"K4 n={n}", vol_b, o)
+    gen_k4 = torch.Generator(device=dev)
+    gen_k4.manual_seed(3)
+    odd = torch.rand((250, 256, 243), generator=gen_k4, device=dev)
+    o = torch.from_numpy(np.concatenate([
+        g_k4.integers(0, np.array(odd.shape) - B + 1, size=(2048, 3)),
+        [[218, 224, 211], [219, 0, 0], [0, 0, 212], [-1, 5, 5]]])
+        .astype(np.int32)).to(dev)
+    k4_more["odd_250x256x243"] = k4_case("K4 on 250x256x243", odd, o)
+    shifted = torch.empty(V ** 3 + 1, device=dev)[1:].view(V, V, V)
+    shifted.copy_(vol_b)
+    k4_more["unaligned_base"] = k4_case(
+        "K4 on a base 4 bytes past 16-byte alignment", shifted,
+        origins["A2_unaligned"], plain=False)
+    require(torch.equal(P.brick_sums(shifted, origins["A2_unaligned"]),
+                        outs["A2_unaligned"]),
+            "K4's 4-byte route differs from its 16-byte route on one volume")
+    del odd, shifted
+    a2 = bricks_out["A2_unaligned"]
+    ratio = k4_more["n16384"]["ms"] / a2["ms"]
+    require(ratio < 16.0, f"K4 at n = 16384 takes {ratio:.2f}x its time at "
+                          f"n = 2048: the binning is not linear")
+
     want = P.brick_rows_reference(table, idx)
     err, rel = sums_check("A3_bricked_rows", outs["A3_bricked_rows"], want)
+    require(torch.equal(P.brick_rows(table, idx), outs["A3_bricked_rows"]),
+            "A3: K5 differs between two calls")
     bad = torch.tensor([int(idx[0]), NB, -1], dtype=torch.int32, device=dev)
     got_bad = P.brick_rows(table, bad)
     require(torch.equal(got_bad[0], outs["A3_bricked_rows"][0])
             and bool(torch.isnan(got_bad[1:]).all()),
             "A3: indices out of range do not give NaN rows")
-    ms = cuda_ms(lambda: P.brick_rows(table, idx), 10, per_pair=10)
+    out5, call5 = k5_entry(table, idx)
+    ms = launch_ms(call5)
+    require(torch.equal(out5, outs["A3_bricked_rows"]),
+            "A3: K5's C entry differs from the wrapper's call")
+    wrapper_ms = cuda_ms(lambda: P.brick_rows(table, idx), 10, per_pair=10)
     plain_ms = cuda_ms(lambda: P.brick_rows_reference(table, idx), 5)
+    # K5 with every index equal, and duplicates among indices out of range.
+    k5_more = {}
+    g_k5 = np.random.default_rng(8)
+    same = torch.full((n_b,), 17, dtype=torch.int32, device=dev)
+    mixed = g_k5.integers(0, 64, size=n_b)
+    mixed[::3] = NB + g_k5.integers(0, 5, size=mixed[::3].shape)
+    mixed[1::7] = -1 - g_k5.integers(0, 5, size=mixed[1::7].shape)
+    mixed = torch.from_numpy(mixed.astype(np.int32)).to(dev)
+    for label, ix in (("all_equal", same), ("mixed_out_of_range", mixed)):
+        got = P.brick_rows(table, ix)
+        e5, r5 = sums_check(f"K5 {label}", got,
+                            P.brick_rows_reference(table, ix))
+        require(same_bits(P.brick_rows(table, ix), got),
+                f"K5 {label}: differs between two calls")
+        o5, c5 = k5_entry(table, ix)
+        m5 = launch_ms(c5)
+        require(same_bits(o5, got), f"K5 {label}: C entry differs")
+        valid = ix[(ix >= 0) & (ix < NB)]
+        k5_more[label] = dict(max_abs_err=e5, max_rel_err=r5, ms=m5,
+                              distinct_bricks=int(torch.unique(valid).numel()),
+                              nan_rows=int(torch.isnan(got[:, 0]).sum()))
 
     def lib_rows():
         return table.index_select(0, idx).sum((1, 2))
@@ -1244,8 +1412,9 @@ def main() -> int:
                        n_b * B ** 3)
     bricks_out["A3_bricked_rows"] = dict(
         launches=1, max_abs_err=err, max_rel_err=rel, ms=ms,
+        ms_is=DEVICE_MS_IS, wrapper_event_ms=wrapper_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        distinct_bricks=distinct,
+        distinct_bricks=distinct, read_bytes=distinct * brick_bytes,
         bound_ms_each_brick_from_hbm=bound(n_b * brick_bytes + out_bytes,
                                            0)[0],
         library_ms=library_ms,
@@ -1253,35 +1422,43 @@ def main() -> int:
         library_max_abs_diff=lib_err)
     emit({"phase": "bricks", "V": V, "B": B, "n": n_b, "NB": NB,
           "tolerance_rtol": 1e-5, "variants": bricks_out,
+          "k4_more": k4_more, "k4_ms_ratio_16384_to_2048": ratio,
+          "k5_more": k5_more, "bitwise_across_calls": True,
           "nvidia_smi": smi})
-    a2 = bricks_out["A2_unaligned"]
     kernels["brick_sums"].update(
         launches=counts["brick_sums"],
-        max_abs_err=max(bricks_out[k]["max_abs_err"]
-                        for k in origins),
-        max_rel_err=max(bricks_out[k]["max_rel_err"] for k in origins),
-        ms=a2["ms"], ms_A1_aligned=bricks_out["A1_aligned"]["ms"],
+        max_abs_err=max(r["max_abs_err"] for r in
+                        [bricks_out[k] for k in origins]
+                        + list(k4_more.values())),
+        max_rel_err=max(r["max_rel_err"] for r in
+                        [bricks_out[k] for k in origins]
+                        + list(k4_more.values())),
+        ms=a2["ms"], ms_is=DEVICE_MS_IS,
+        wrapper_event_ms=a2["wrapper_event_ms"],
+        ms_A1_aligned=bricks_out["A1_aligned"]["ms"],
+        ms_n16=k4_more["n16"]["ms"], ms_n16384=k4_more["n16384"]["ms"],
         plain_ms=a2["plain_ms"], bound_ms=a2["bound_ms"],
         bound_by=a2["bound_by"], library_ms=None,
         library_note="none: no single call gathers bricks at arbitrary "
                      "origins")
     a3 = bricks_out["A3_bricked_rows"]
     kernels["brick_rows"].update(
-        launches=counts["brick_rows"], max_abs_err=a3["max_abs_err"],
-        max_rel_err=a3["max_rel_err"], ms=a3["ms"],
-        plain_ms=a3["plain_ms"], bound_ms=a3["bound_ms"],
-        bound_by=a3["bound_by"], library_ms=a3["library_ms"])
-    del vol_b, table, idx, origins, outs, want, got_bad
+        launches=counts["brick_rows"],
+        max_abs_err=max([a3["max_abs_err"]]
+                        + [r["max_abs_err"] for r in k5_more.values()]),
+        max_rel_err=max([a3["max_rel_err"]]
+                        + [r["max_rel_err"] for r in k5_more.values()]),
+        ms=a3["ms"], ms_is=DEVICE_MS_IS,
+        wrapper_event_ms=a3["wrapper_event_ms"],
+        plain_ms=a3["plain_ms"],
+        bound_ms=a3["bound_ms"], bound_by=a3["bound_by"],
+        library_ms=a3["library_ms"])
+    del vol_b, table, idx, origins, outs, want, got_bad, out5, same, mixed
     torch.cuda.empty_cache()
 
     # -- 8. occupancy: K6, K7 and the grid's build ---------------------------
     tf_cpu = tf_i.cpu()
-    lib = _build.library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    dev_index = torch.cuda.current_device()
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
 
     for scene, make in scenes.items():
         vol_i = P.volume_to_internal(torch.from_numpy(make()).to(dev))

@@ -149,10 +149,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, i32, ptr]
         fn.restype = i32
-    lib.dr_brick_sums.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i32,
-                                  ptr]
-    lib.dr_brick_rows.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i32,
-                                  ptr]
+    lib.dr_brick_sums.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i64,
+                                  ptr, i32, ptr]
+    lib.dr_brick_rows.argtypes = [ptr, i32, i64, ptr, i32, ptr, i64, ptr,
+                                  i32, ptr]
     lib.dr_cell_minmax.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32,
                                    i32, ptr, ptr, i32, ptr]
     lib.dr_cell_distance.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float,

@@ -1,27 +1,62 @@
-// K4 brick_sums and K5 brick_rows: sums of boxes of voxels, through one
-// row-reduce device function (reduce_rows); K6 cell_minmax: the occupancy
-// grid's per-macrocell (min, max), a kernel of its own.
+// K4 brick_sums and K5 brick_rows: sums of 32^3 boxes of voxels; K6
+// cell_minmax: the occupancy grid's per-macrocell (min, max).
 //
 // K4 replaces experiments/exp_pallas_dma.py::brick_sum_kernel (launched by
 // run_brick_sums): the sum of the B^3 brick of a volume at each origin,
 // written to all 128 lanes of the origin's output row.  K5 replaces
-// brick_row_kernel (run_brick_rows): the sum of a pre-bricked row block
+// brick_row_kernel (run_brick_rows): the sum of a pre-bricked table entry
 // chosen by index, written the same way.  On the TPU each grid step DMAs one
 // brick from HBM into VMEM by a scalar-prefetched origin and sums it there.
-// Here one CTA takes one brick, loads its own origin, and its threads stride
-// over the brick's rows (runs of contiguous floats); per-thread sums, a warp
-// shuffle, a shared-memory sum across warps, one write of the 128 lanes.
-// K5 is K4 on the table viewed as a (NB, rows, cols) volume with the origin
-// (idx, 0, 0), so both are one kernel template.  Bound on the H100: bytes.
-// K4 and K5 read each brick once (128 KiB at B = 32) and do one add per
-// float.  Rows are read with 16-byte loads once their address is 16-byte
-// aligned; a row that starts unaligned (K4 at an origin with z0 % 4 != 0)
-// takes scalar loads up to the first aligned float.
 //
 // Out-of-range origins: the Pallas DMA has no defined result for a brick
 // that leaves the volume.  K4 and K5 check every origin and write NaN to the
-// row of a brick that does not lie wholly inside the volume (or table); they
-// never clamp it, which would quietly sum another brick.
+// row of a brick that does not lie wholly inside the volume (or an index
+// outside the table); they never clamp it, which would quietly sum another
+// brick.  Neither uses float atomics: every partial sum has a fixed slot and
+// the slots are added in a fixed order, so a call gives the same bits every
+// time.
+//
+// K4.  Bound on the H100: bytes, the union of the bricks read once (0.017 ms
+// for the probe's 2048 bricks on a 256^3 volume).  Bricks at arbitrary
+// origins overlap (2048 x 128 KiB is four times the 64 MiB volume), and a
+// block per brick reads the overlap from L2 or, since the volume is larger
+// than L2, mostly from HBM again.  So K4 tiles the volume, not the bricks:
+//   * The volume is cut into aligned tiles (kTile*: 8 x 8 x 256 voxels,
+//     64 KiB, three blocks an SM; a brick meets at most 5 x 5 x 2 of them,
+//     its slots).  A binning pass lists each tile's bricks in time linear in
+//     n + tiles: a count per tile (brick_bin_kernel<false>), an exclusive
+//     scan (tile_scan_kernel), a fill (brick_bin_kernel<true>).  A list's
+//     order does not matter.
+//   * A block per tile copies into shared memory, with cp.async, only the
+//     bounding box of its bricks' intersections with the tile: 16-byte
+//     copies where rows are 16-byte aligned (Z % 4 == 0 and an aligned
+//     base), 4-byte copies otherwise.  Each voxel that some brick covers is
+//     read from HBM once; the four-fold re-reading happens in shared memory.
+//   * A warp sums one (brick, tile) intersection at a time: a row of the
+//     box per step with lanes along z (a row is at most 32 floats, one
+//     conflict-free shared load; the 8 rows of an x loaded together, at
+//     offsets known to the compiler), then a shuffle tree, into the
+//     brick's slot for that tile's position relative to the brick's first
+//     tile.
+//   * brick_final_kernel adds a brick's slots in a fixed order and writes
+//     the sum, or NaN, to its 128 lanes.
+// At the probe's 2048 bricks the copies and the sums take about as long,
+// one after the other in each block; at more bricks the sums set K4's
+// pace: a row costs a shared load and an add a lane, and the row loop is
+// kept to those and little else.  Its times beside the bound: PERF.md,
+// from chip_smoke.py.
+//
+// K5.  Bound on the H100: bytes of the distinct bricks (0.063 ms for the
+// probe's 1607 distinct bricks of 128 KiB).  A table brick is one contiguous
+// run of floats, so:
+//   * row_owner_kernel: owner[b] = the least i with idx[i] == b (atomicMin;
+//     indices outside [0, NB) are skipped before it).
+//   * row_chunk_kernel: only the owner of a brick reads it, in chunks of
+//     kChunk floats (four to a 128 KiB brick), thread t
+//     reading float4 t, t + 256, ... with eight loads in flight; a partial
+//     per (owner, chunk).
+//   * row_final_kernel adds the owner's partials in chunk order and writes
+//     the sum, or NaN, to all 128 lanes of every row, duplicates included.
 //
 // K6 replaces the reduce_window pair of differender_tpu/occupancy.py::
 // _cell_minmax (an XLA program, not Pallas): per macrocell c the (min, max)
@@ -63,99 +98,393 @@ namespace {
 
 constexpr int kLanes = 128;        // output lanes per brick (the TPU's row)
 constexpr int kBrick = 32;         // K4's brick edge (exp_pallas_dma.py:36)
-constexpr int kBrickThreads = 256;
+constexpr int kThreads = 256;      // K4's and K5's blocks
+constexpr int kWarps = kThreads / 32;
+constexpr int kScanThreads = 1024;
+// K4's tiles (ops/bricks.py::K4_TILE): 64 KiB of shared memory, three
+// blocks an SM; a brick meets at most kSlots of them.
+constexpr int kTileX = 8;
+constexpr int kTileY = 8;
+constexpr int kTileZ = 256;
+constexpr int kTileFloats = kTileX * kTileY * kTileZ;
+constexpr int kSlotsX = (kBrick - 2) / kTileX + 2;
+constexpr int kSlotsY = (kBrick - 2) / kTileY + 2;
+constexpr int kSlotsZ = (kBrick - 2) / kTileZ + 2;
+constexpr int kSlots = kSlotsX * kSlotsY * kSlotsZ;
+// K5's chunk of a brick (ops/bricks.py::K5_CHUNK): 32 KiB, four to a 32^3
+// brick.
+constexpr int kChunk = 8192;
+constexpr int kChunkLoads = 8;     // K5: float4 loads in flight a thread
 constexpr int kCellThreads = 256;
 constexpr int kCellSlots = 8;       // K6: voxels of a band per thread
 constexpr int kCellBand = kCellThreads * kCellSlots;
 
-struct SumAcc {
-  float s = 0.0f;
-  __device__ __forceinline__ void operator()(float v) { s += v; }
-};
-
-// Feeds the floats p[0 .. len) to acc: scalar loads up to the first 16-byte
-// aligned address, then float4 loads, then the scalar tail.
-template <class Acc>
-__device__ __forceinline__ void reduce_row(const float* p, int len, Acc& acc) {
-  int k = 0;
-  while (k < len && (reinterpret_cast<uintptr_t>(p + k) & 15)) {
-    acc(__ldg(p + k));
-    ++k;
-  }
-  for (; k + 4 <= len; k += 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p + k));
-    acc(v.x);
-    acc(v.y);
-    acc(v.z);
-    acc(v.w);
-  }
-  for (; k < len; ++k) acc(__ldg(p + k));
+__device__ __forceinline__ float warp_sum(float s) {
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+  return s;
 }
 
-// The rows r = first, first + step, ... < wx*wy of the box
-// [x0, x0+wx) x [y0, y0+wy) x [z0, z0+wz) of a (., Y, Z) volume; row r is
-// (x0 + r / wy, y0 + r % wy, z0 .. z0+wz).  K4/K5 split a brick's rows over
-// a CTA (step = blockDim.x).
-template <class Acc>
-__device__ __forceinline__ void reduce_rows(const float* vol, int Y, int Z,
-                                            int x0, int y0, int z0, int wx,
-                                            int wy, int wz, int first,
-                                            int step, Acc& acc) {
-  for (int r = first; r < wx * wy; r += step) {
-    const long long x = x0 + r / wy, y = y0 + r % wy;
-    reduce_row(vol + (x * Y + y) * Z + z0, wz, acc);
-  }
+// Row i of the output: s in all 128 lanes, a float4 per lane of the warp.
+__device__ __forceinline__ void write_lanes(float* out, long long i, float s,
+                                            int lane) {
+  reinterpret_cast<float4*>(out + i * kLanes)[lane] = make_float4(s, s, s, s);
 }
 
-struct OriginXYZ {             // K4: origins (n, 3) int32
-  const int* o;
-  __device__ void operator()(int i, int& x, int& y, int& z) const {
-    x = o[3 * i];
-    y = o[3 * i + 1];
-    z = o[3 * i + 2];
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K4's volume and its tiles per axis.
+struct Tiling {
+  int X, Y, Z;
+  int ntx, nty, ntz;
 };
 
-struct OriginIdx {             // K5: idx (n,) int32, brick idx at (idx, 0, 0)
-  const int* idx;
-  __device__ void operator()(int i, int& x, int& y, int& z) const {
-    x = idx[i];
-    y = 0;
-    z = 0;
-  }
-};
+__device__ __forceinline__ bool brick_inside(const Tiling& g, int3 o) {
+  return o.x >= 0 && o.y >= 0 && o.z >= 0 && o.x <= g.X - kBrick &&
+         o.y <= g.Y - kBrick && o.z <= g.Z - kBrick;
+}
 
-template <class Origin>
-__global__ void __launch_bounds__(kBrickThreads)
-    brick_sum_kernel(const float* vol, int X, int Y, int Z, Origin origin,
-                     int bx, int by, int bz, float* out) {
-  __shared__ float s_warp[kBrickThreads / 32];
-  const int i = blockIdx.x;
-  int x0, y0, z0;
-  origin(i, x0, y0, z0);
-  float* row = out + (long long)i * kLanes;
-  const bool inside = x0 >= 0 && y0 >= 0 && z0 >= 0 && x0 <= X - bx &&
-                      y0 <= Y - by && z0 <= Z - bz;
-  if (!inside) {
-    for (int l = threadIdx.x; l < kLanes; l += blockDim.x) row[l] = NAN;
+__device__ __forceinline__ int3 load_origin(const int* __restrict__ origins,
+                                            int i) {
+  return make_int3(__ldg(origins + 3 * i), __ldg(origins + 3 * i + 1),
+                   __ldg(origins + 3 * i + 2));
+}
+
+// The tiles a brick at o meets along each axis.
+__device__ __forceinline__ int3 tiles_met(int3 o) {
+  return make_int3((o.x + kBrick - 1) / kTileX - o.x / kTileX + 1,
+                   (o.y + kBrick - 1) / kTileY - o.y / kTileY + 1,
+                   (o.z + kBrick - 1) / kTileZ - o.z / kTileZ + 1);
+}
+
+// K4's binning: thread (i, s) takes slot s = (dx * kSlotsY + dy) * kSlotsZ
+// + dz of brick i, the tile at (dx, dy, dz) from the brick's first tile, if
+// the brick is inside and meets it; kFill = false counts the tile's
+// bricks, true lists brick i at the tile's cursor (the scan's start, moved
+// on by each entry).
+template <bool kFill>
+__global__ void __launch_bounds__(kThreads)
+    brick_bin_kernel(const int* __restrict__ origins, int n, Tiling g,
+                     int* counts, int* cursor, int* list) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n * kSlots) return;
+  const int i = k / kSlots, s = k % kSlots;
+  const int3 o = load_origin(origins, i);
+  const int dx = s / (kSlotsY * kSlotsZ), dy = s / kSlotsZ % kSlotsY,
+            dz = s % kSlotsZ;
+  const int3 met = tiles_met(o);
+  if (!brick_inside(g, o) || dx >= met.x || dy >= met.y || dz >= met.z) {
     return;
   }
-  SumAcc acc;
-  reduce_rows(vol, Y, Z, x0, y0, z0, bx, by, bz, threadIdx.x, blockDim.x,
-              acc);
-  float s = acc.s;
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) s_warp[warp] = s;
+  const int t = ((o.x / kTileX + dx) * g.nty + o.y / kTileY + dy) * g.ntz +
+                o.z / kTileZ + dz;
+  if (kFill) {
+    list[atomicAdd(cursor + t, 1)] = i;
+  } else {
+    atomicAdd(counts + t, 1);
+  }
+}
+
+// Exclusive scan of the tiles' counts into cursor, one block: thread t sums
+// a run of consecutive tiles, the runs are scanned across the block.
+__global__ void __launch_bounds__(kScanThreads)
+    tile_scan_kernel(const int* __restrict__ counts, int tiles, int* cursor) {
+  __shared__ int s_warp[kScanThreads / 32];
+  const int per = (tiles + kScanThreads - 1) / kScanThreads;
+  const int a = min((int)threadIdx.x * per, tiles);
+  const int b = min(a + per, tiles);
+  int run = 0;
+  for (int t = a; t < b; ++t) run += counts[t];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int v = run;   // inclusive scan within the warp
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  if (lane == 31) s_warp[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    s = lane < (int)(blockDim.x >> 5) ? s_warp[lane] : 0.0f;
-    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
-    if (lane == 0) s_warp[0] = s;
+    int w = s_warp[lane];
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += u;
+    }
+    s_warp[lane] = w;
   }
   __syncthreads();
-  s = s_warp[0];
-  for (int l = threadIdx.x; l < kLanes; l += blockDim.x) row[l] = s;
+  int start = v - run + (warp > 0 ? s_warp[warp - 1] : 0);
+  for (int t = a; t < b; ++t) {
+    cursor[t] = start;
+    start += counts[t];
+  }
+}
+
+// The intersection of brick o with the tile at org of extent ext, in tile
+// coordinates, half-open: [lo, hi).
+__device__ __forceinline__ void intersect(int3 o, int3 org, int3 ext,
+                                          int3& lo, int3& hi) {
+  lo = make_int3(max(o.x - org.x, 0), max(o.y - org.y, 0),
+                 max(o.z - org.z, 0));
+  hi = make_int3(min(o.x + kBrick - org.x, ext.x),
+                 min(o.y + kBrick - org.y, ext.y),
+                 min(o.z + kBrick - org.z, ext.z));
+}
+
+// K4: block t takes tile t of the binning.  Entries of its list are staged
+// in shared memory kThreads at a time (brick and origin); the bounding box
+// of the list's intersections with the tile is copied in once; then each
+// warp sums whole intersections into their slots.  Shared memory: the
+// tile, row (x, y) at (x * kTileY + y) * kTileZ.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    brick_tile_kernel(const float* __restrict__ vol,
+                      const int* __restrict__ origins, Tiling g,
+                      const int* __restrict__ counts,
+                      const int* __restrict__ cursor,
+                      const int* __restrict__ list,
+                      float* __restrict__ partial) {
+  extern __shared__ float4 s_dyn[];
+  float* tile = reinterpret_cast<float*>(s_dyn);
+  __shared__ int4 s_entry[kThreads];   // (brick, x0, y0, z0)
+  __shared__ int s_box[6];
+  const int t = blockIdx.x;
+  const int cnt = counts[t];
+  if (cnt == 0) return;
+  const int first = cursor[t] - cnt;
+  const int3 it = make_int3(t / (g.nty * g.ntz), t / g.ntz % g.nty,
+                            t % g.ntz);
+  const int3 org = make_int3(it.x * kTileX, it.y * kTileY, it.z * kTileZ);
+  const int3 ext = make_int3(min(kTileX, g.X - org.x),
+                             min(kTileY, g.Y - org.y),
+                             min(kTileZ, g.Z - org.z));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < 6) s_box[threadIdx.x] = threadIdx.x < 3 ? INT_MAX : 0;
+  __syncthreads();
+
+  // The bounding box of all the list's intersections; the first kThreads
+  // entries staged.
+  int3 blo = make_int3(INT_MAX, INT_MAX, INT_MAX), bhi = make_int3(0, 0, 0);
+  for (int j = threadIdx.x; j < cnt; j += kThreads) {
+    const int i = list[first + j];
+    const int3 o = load_origin(origins, i);
+    if (j < kThreads) s_entry[j] = make_int4(i, o.x, o.y, o.z);
+    int3 lo, hi;
+    intersect(o, org, ext, lo, hi);
+    blo = make_int3(min(blo.x, lo.x), min(blo.y, lo.y), min(blo.z, lo.z));
+    bhi = make_int3(max(bhi.x, hi.x), max(bhi.y, hi.y), max(bhi.z, hi.z));
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    blo.x = min(blo.x, __shfl_xor_sync(0xffffffffu, blo.x, d));
+    blo.y = min(blo.y, __shfl_xor_sync(0xffffffffu, blo.y, d));
+    blo.z = min(blo.z, __shfl_xor_sync(0xffffffffu, blo.z, d));
+    bhi.x = max(bhi.x, __shfl_xor_sync(0xffffffffu, bhi.x, d));
+    bhi.y = max(bhi.y, __shfl_xor_sync(0xffffffffu, bhi.y, d));
+    bhi.z = max(bhi.z, __shfl_xor_sync(0xffffffffu, bhi.z, d));
+  }
+  if (lane == 0) {
+    atomicMin(s_box + 0, blo.x);
+    atomicMin(s_box + 1, blo.y);
+    atomicMin(s_box + 2, blo.z);
+    atomicMax(s_box + 3, bhi.x);
+    atomicMax(s_box + 4, bhi.y);
+    atomicMax(s_box + 5, bhi.z);
+  }
+  __syncthreads();
+
+  // Copy the box in: a warp per row, lanes along z.  The 16-byte route
+  // widens the box's z range to multiples of 4 (within the tile: Z and so
+  // ext.z are multiples of 4 there).
+  const int bx0 = s_box[0], by0 = s_box[1], wy = s_box[4] - by0;
+  const int bz0 = kVec ? s_box[2] & ~3 : s_box[2];
+  const int bz1 = kVec ? (s_box[5] + 3) & ~3 : s_box[5];
+  const int rows = (s_box[3] - bx0) * wy;
+  for (int r = warp; r < rows; r += kWarps) {
+    const int lx = bx0 + r / wy, ly = by0 + r % wy;
+    const float* src =
+        vol + ((long long)(org.x + lx) * g.Y + org.y + ly) * g.Z + org.z;
+    float* dst = tile + (lx * kTileY + ly) * kTileZ;
+    if (kVec) {
+      for (int z = bz0 + 4 * lane; z < bz1; z += 128) {
+        cp_async16(dst + z, src + z);
+      }
+    } else {
+      for (int z = bz0 + lane; z < bz1; z += 32) {
+        cp_async4(dst + z, src + z);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int j0 = 0; j0 < cnt; j0 += kThreads) {
+    if (j0 > 0) {
+      __syncthreads();
+      const int j = j0 + threadIdx.x;
+      if (j < cnt) {
+        const int i = list[first + j];
+        const int3 o = load_origin(origins, i);
+        s_entry[threadIdx.x] = make_int4(i, o.x, o.y, o.z);
+      }
+      __syncthreads();
+    }
+    const int m = min(kThreads, cnt - j0);
+    for (int jj = warp; jj < m; jj += kWarps) {
+      const int4 e = s_entry[jj];
+      const int3 o = make_int3(e.y, e.z, e.w);
+      int3 lo, hi;
+      intersect(o, org, ext, lo, hi);
+      // Lane l sums column lo.z + l of the box's rows in (x, y) order, the
+      // kTileY rows of an x loaded ahead of their adds; a row is at most 32
+      // floats.
+      float acc = 0.0f;
+      if (lane < hi.z - lo.z) {
+        const float* p = tile + lo.x * (kTileY * kTileZ) + lo.z + lane;
+        for (int lx = lo.x; lx < hi.x; ++lx, p += kTileY * kTileZ) {
+          float v[kTileY];
+#pragma unroll
+          for (int u = 0; u < kTileY; ++u) {
+            v[u] = u >= lo.y && u < hi.y ? p[u * kTileZ] : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < kTileY; ++u) acc += v[u];
+        }
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        const int slot = ((it.x - o.x / kTileX) * kSlotsY +
+                          it.y - o.y / kTileY) * kSlotsZ +
+                         it.z - o.z / kTileZ;
+        partial[(long long)e.x * kSlots + slot] = acc;
+      }
+    }
+  }
+}
+
+// K4's last pass: a warp per brick adds the slots it meets in slot order,
+// which is (dx, dy, dz) order; every lane loads them (broadcasts).
+__global__ void __launch_bounds__(kThreads)
+    brick_final_kernel(const int* __restrict__ origins, int n, Tiling g,
+                       const float* __restrict__ partial,
+                       float* __restrict__ out) {
+  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (i >= n) return;
+  const int3 o = load_origin(origins, (int)i);
+  float s = NAN;
+  if (brick_inside(g, o)) {
+    const int3 met = tiles_met(o);
+    const float* p = partial + i * kSlots;
+    float v[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const bool on = k / (kSlotsY * kSlotsZ) < met.x &&
+                      k / kSlotsZ % kSlotsY < met.y && k % kSlotsZ < met.z;
+      v[k] = on ? p[k] : 0.0f;
+    }
+    s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) s += v[k];
+  }
+  write_lanes(out, i, s, threadIdx.x & 31);
+}
+
+// K5: owner[b] = min i with idx[i] == b, owner filled with INT_MAX-like
+// bytes (0x7f7f7f7f) beforehand.
+__global__ void __launch_bounds__(kThreads)
+    row_owner_kernel(const int* __restrict__ idx, int n, int nb, int* owner) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int b = __ldg(idx + i);
+  if (b >= 0 && b < nb) atomicMin(owner + b, i);
+}
+
+// K5: block (i, c) sums chunk c of brick idx[i] if i owns it, into
+// partial[i * chunks + c]; per-thread sums in load order, a shuffle tree,
+// the warps' sums in order.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    row_chunk_kernel(const float* __restrict__ bricks, long long len, int nb,
+                     int chunks, const int* __restrict__ idx,
+                     const int* __restrict__ owner,
+                     float* __restrict__ partial) {
+  __shared__ float s_warp[kWarps];
+  const int i = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  const int b = __ldg(idx + i);
+  if (b < 0 || b >= nb || __ldg(owner + b) != i) return;
+  const long long a = (long long)c * kChunk;
+  const int m = (int)min((long long)kChunk, len - a);
+  const float* p = bricks + b * len + a;
+  float s = 0.0f;
+  if (kVec) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const int m4 = m / 4;
+    for (int k0 = threadIdx.x; k0 < m4; k0 += kChunkLoads * kThreads) {
+      float4 v[kChunkLoads];
+#pragma unroll
+      for (int u = 0; u < kChunkLoads; ++u) {
+        const int k = k0 + u * kThreads;
+        v[u] = k < m4 ? __ldg(q + k) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kChunkLoads; ++u) {
+        s += v[u].x;
+        s += v[u].y;
+        s += v[u].z;
+        s += v[u].w;
+      }
+    }
+  } else {
+    for (int k0 = threadIdx.x; k0 < m; k0 += kChunkLoads * kThreads) {
+      float v[kChunkLoads];
+#pragma unroll
+      for (int u = 0; u < kChunkLoads; ++u) {
+        const int k = k0 + u * kThreads;
+        v[u] = k < m ? __ldg(p + k) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kChunkLoads; ++u) s += v[u];
+    }
+  }
+  s = warp_sum(s);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp[warp] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float w = 0.0f;
+    for (int k = 0; k < kWarps; ++k) w += s_warp[k];
+    partial[(long long)i * chunks + c] = w;
+  }
+}
+
+// K5's last pass: a warp per row j adds the partials of idx[j]'s owner in
+// chunk order.
+__global__ void __launch_bounds__(kThreads)
+    row_final_kernel(const int* __restrict__ idx, int n, int nb,
+                     const int* __restrict__ owner,
+                     const float* __restrict__ partial, int chunks,
+                     float* __restrict__ out) {
+  const long long j = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (j >= n) return;
+  const int b = __ldg(idx + j);
+  float s = NAN;
+  if (b >= 0 && b < nb) {
+    const float* p = partial + (long long)__ldg(owner + b) * chunks;
+    s = 0.0f;
+    for (int c = 0; c < chunks; ++c) s += p[c];
+  }
+  write_lanes(out, j, s, threadIdx.x & 31);
 }
 
 // K6: block b takes the tile (ty0, tz0) of ty x tz cells in (y, z) and the
@@ -322,38 +651,100 @@ __global__ void __launch_bounds__(kCellThreads, kThree ? 2 : 3)
   }
 }
 
-template <class Origin>
-int launch_bricks(const float* vol, int X, int Y, int Z, Origin origin, int n,
-                  int bx, int by, int bz, float* out, int device,
-                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return 0;
-  brick_sum_kernel<Origin><<<n, kBrickThreads, 0, (cudaStream_t)stream>>>(
-      vol, X, Y, Z, origin, bx, by, bz, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
+// Returns from a C entry on a refused launch.
+#define DR_LAUNCHED()                          \
+  do {                                         \
+    const cudaError_t e_ = cudaGetLastError(); \
+    if (e_ != cudaSuccess) return (int)e_;     \
+  } while (0)
+
+// K4.  scratch holds `words` 4-byte words: the tiles' counts and cursors,
+// then n * kSlots list entries and n * kSlots partial sums
+// (ops/bricks.py::k4_plan).
 extern "C" int dr_brick_sums(const float* vol, int X, int Y, int Z,
-                             const int* origins, int n, float* out, int device,
+                             const int* origins, int n, int* scratch,
+                             long long words, float* out, int device,
                              void* stream) {
-  return launch_bricks(vol, X, Y, Z, OriginXYZ{origins}, n, kBrick, kBrick,
-                       kBrick, out, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (X < 1 || Y < 1 || Z < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  const Tiling g{X, Y, Z, (X + kTileX - 1) / kTileX,
+                 (Y + kTileY - 1) / kTileY, (Z + kTileZ - 1) / kTileZ};
+  const long long tiles = (long long)g.ntx * g.nty * g.ntz;
+  const long long pairs = (long long)n * kSlots;
+  if (tiles > INT_MAX || pairs > INT_MAX || words < 2 * tiles + 2 * pairs) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  int* counts = scratch;
+  int* cursor = counts + tiles;
+  int* list = cursor + tiles;
+  float* partial = reinterpret_cast<float*>(list + pairs);
+  cudaStream_t s = (cudaStream_t)stream;
+  err = cudaMemsetAsync(counts, 0, tiles * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned bin_blocks = (unsigned)((pairs + kThreads - 1) / kThreads);
+  brick_bin_kernel<false><<<bin_blocks, kThreads, 0, s>>>(
+      origins, n, g, counts, cursor, list);
+  DR_LAUNCHED();
+  tile_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, (int)tiles, cursor);
+  DR_LAUNCHED();
+  brick_bin_kernel<true><<<bin_blocks, kThreads, 0, s>>>(
+      origins, n, g, counts, cursor, list);
+  DR_LAUNCHED();
+  const bool vec = Z % 4 == 0 && (reinterpret_cast<uintptr_t>(vol) & 15) == 0;
+  auto tile_kernel = vec ? brick_tile_kernel<true> : brick_tile_kernel<false>;
+  constexpr int smem = kTileFloats * sizeof(float);
+  err = cudaFuncSetAttribute(
+      tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  tile_kernel<<<(unsigned)tiles, kThreads, smem, s>>>(
+      vol, origins, g, counts, cursor, list, partial);
+  DR_LAUNCHED();
+  brick_final_kernel<<<(unsigned)((n + kWarps - 1) / kWarps), kThreads, 0,
+                       s>>>(origins, n, g, partial, out);
+  DR_LAUNCHED();
+  return 0;
 }
 
-// A brick of the table is rows*cols contiguous floats: it is reduced as runs
-// of 32 (or the largest power of two below that divides it), so a CTA's
-// threads share its rows as they share K4's.
-extern "C" int dr_brick_rows(const float* bricks, int nb, int rows, int cols,
-                             const int* idx, int n, float* out, int device,
+// K5 on a table of nb bricks of len floats each, in chunks of kChunk
+// floats.  scratch holds `words` 4-byte words: the owners (nb), then
+// n * chunks partial sums (ops/bricks.py::k5_plan).
+extern "C" int dr_brick_rows(const float* bricks, int nb, long long len,
+                             const int* idx, int n, int* scratch,
+                             long long words, float* out, int device,
                              void* stream) {
-  const int len = rows * cols;
-  int run = 32;
-  while (len % run) run >>= 1;
-  return launch_bricks(bricks, nb, len / run, run, OriginIdx{idx}, n, 1,
-                       len / run, run, out, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nb < 0 || len < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  const long long chunks = (len + kChunk - 1) / kChunk;
+  if (chunks * n > INT_MAX || n >= 0x7f7f7f7f ||
+      words < nb + chunks * n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  int* owner = scratch;
+  float* partial = reinterpret_cast<float*>(owner + nb);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nb > 0) {   // 0x7f7f7f7f: above every row index
+    err = cudaMemsetAsync(owner, 0x7f, (size_t)nb * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  row_owner_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      idx, n, nb, owner);
+  DR_LAUNCHED();
+  const bool vec = len % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(bricks) & 15) == 0;
+  auto chunk_kernel = vec ? row_chunk_kernel<true> : row_chunk_kernel<false>;
+  chunk_kernel<<<(unsigned)(chunks * n), kThreads, 0, s>>>(
+      bricks, len, nb, (int)chunks, idx, owner, partial);
+  DR_LAUNCHED();
+  row_final_kernel<<<(unsigned)((n + kWarps - 1) / kWarps), kThreads, 0,
+                     s>>>(idx, n, nb, owner, partial, (int)chunks, out);
+  DR_LAUNCHED();
+  return 0;
 }
 
 // K6 with the tiling (ty, tz, cx) and band size (slots) of ops/bricks.py::

@@ -5,21 +5,29 @@ K4 and K5 are the ports of the two Pallas kernels of the TPU DMA probe
 ``experiments/exp_pallas_dma.py`` (``brick_sum_kernel`` launched by
 ``run_brick_sums``, ``brick_row_kernel`` launched by ``run_brick_rows``),
 with their signatures and outputs: ``(n, 128)`` f32, every lane of row ``i``
-holding the sum of brick ``i``.  K6 is the occupancy grid's per-macrocell
-``(min, max)`` (``differender_tpu/occupancy.py::_cell_minmax``): a block
-of K6 streams the x-planes of a tile of macrocells, folds each voxel along x
-into the windows of its cells in registers, and reduces a window along z
-and y in shared memory when it closes (:func:`k6_plan` chooses the tiling),
-so each voxel is read from device memory about once.
+holding the sum of brick ``i``.  K4 tiles the volume (:func:`k4_plan`),
+lists each tile's bricks by a count, a scan and a fill, copies the bounding
+box of a tile's intersections into shared memory once and sums each
+intersection there into a slot of its brick; a last launch adds a brick's
+slots in a fixed order.  K5 reads each distinct table brick once: the least
+row index of each brick owns it, its owner sums it in chunks
+(:func:`k5_plan`), and every row of the brick takes the owner's sum.  K6 is
+the occupancy grid's per-macrocell ``(min, max)``
+(``differender_tpu/occupancy.py::_cell_minmax``): a block of K6 streams the
+x-planes of a tile of macrocells, folds each voxel along x into the windows
+of its cells in registers, and reduces a window along z and y in shared
+memory when it closes (:func:`k6_plan` chooses the tiling), so each voxel
+is read from device memory about once.
 
 On CUDA tensors each wrapper launches its kernel (counted in its
-``launches``); on CPU tensors it takes the plain torch version beside it.
-A brick that does not lie wholly inside the volume (or an index outside the
-table) gives a row of NaN in the kernels and the plain versions alike: the
-Pallas DMA has no defined result there, and clamping the origin would sum
-another brick.  The sums are taken in another order than XLA's, so they
-agree to f32 rounding (the probe holds them at ``rtol=1e-5``); min and max
-are exact.
+``launches``, once per call); on CPU tensors it takes the plain torch
+version beside it.  A brick that does not lie wholly inside the volume (or
+an index outside the table) gives a row of NaN in the kernels and the plain
+versions alike: the Pallas DMA has no defined result there, and clamping
+the origin would sum another brick.  The sums are taken in another order
+than XLA's, so they agree to f32 rounding (the probe holds them at
+``rtol=1e-5``); K4 and K5 use no float atomics and give the same bits on
+every call.  Min and max are exact.
 """
 from __future__ import annotations
 
@@ -33,6 +41,49 @@ from .. import _build
 
 LANES = 128
 B = 32       # brick edge of K4, as in the probe (exp_pallas_dma.py:36)
+
+# K4's tiles, bricks.cu's kTileX, kTileY and kTileZ: 8 x 8 x 256 voxels, 64
+# KiB of shared memory (three blocks an SM).  A row of a brick's
+# intersection with a tile then lies in one tile row (tiles split a brick
+# along z only at multiples of 256), and a brick meets at most 5 x 5 x 2
+# tiles.
+K4_TILE = (8, 8, 256)
+# K5's chunk, bricks.cu's kChunk: 8192 floats (32 KiB), four to a 32^3
+# brick.
+K5_CHUNK = 8192
+
+
+class K4Plan(NamedTuple):
+    tiles: tuple         # tiles per axis
+    slots: tuple         # slots per axis: the tiles a brick can meet
+    scratch_words: int   # counts, cursors, list entries, partial sums
+
+
+def k4_plan(volume_shape, n: int) -> K4Plan:
+    """K4's tiling of a volume ``(X, Y, Z)`` for ``n`` bricks: the tiles of
+    ``K4_TILE`` per axis, the most tiles a brick of edge ``B`` meets on each
+    axis (``(B - 2) // t + 2``), and the scratch in 4-byte words (a count
+    and a cursor per tile, then a list entry and a partial sum per brick
+    and slot)."""
+    tiles = tuple(-(-s // t) for s, t in zip(volume_shape, K4_TILE))
+    slots = tuple((B - 2) // t + 2 for t in K4_TILE)
+    n_slots = slots[0] * slots[1] * slots[2]
+    words = 2 * tiles[0] * tiles[1] * tiles[2] + 2 * n * n_slots
+    return K4Plan(tiles, slots, words)
+
+
+class K5Plan(NamedTuple):
+    chunks: int          # chunks of K5_CHUNK floats in a brick
+    scratch_words: int   # an owner per table brick, a partial per chunk
+
+
+def k5_plan(table_shape, n: int) -> K5Plan:
+    """K5's chunks of a table ``(NB, rows, cols)`` for ``n`` indices and the
+    scratch in 4-byte words (an owner per table brick, then a partial sum
+    per index and chunk)."""
+    nb, rows, cols = table_shape
+    chunks = -(-(rows * cols) // K5_CHUNK)
+    return K5Plan(chunks, nb + n * chunks)
 
 # K6's tiling: a tile spans at most K6_COLS voxels along z and as many rows
 # as keep its voxels (its cells' windows) within K6_SLOTS, the voxels a
@@ -158,11 +209,13 @@ def brick_sums(volume: torch.Tensor, origins: torch.Tensor) -> torch.Tensor:
     origins = _index("origins", origins, volume.device, (None, 3))
     n = origins.shape[0]
     out = torch.empty((n, LANES), dtype=torch.float32, device=volume.device)
-    X, Y, Z = volume.shape
+    plan = k4_plan(volume.shape, n)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                          device=volume.device)
     _build.check(_build.library().dr_brick_sums(
-        volume.data_ptr(), X, Y, Z, origins.data_ptr(), n, out.data_ptr(),
-        volume.device.index,
-        _build.stream_of(volume)), "brick_sums")
+        volume.data_ptr(), *volume.shape, origins.data_ptr(), n,
+        scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
+        volume.device.index, _build.stream_of(volume)), "brick_sums")
     brick_sums.launches += 1
     return out
 
@@ -182,8 +235,12 @@ def brick_rows(bricks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = idx.shape[0]
     out = torch.empty((n, LANES), dtype=torch.float32, device=bricks.device)
     nb, rows, cols = bricks.shape
+    plan = k5_plan(bricks.shape, n)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                          device=bricks.device)
     _build.check(_build.library().dr_brick_rows(
-        bricks.data_ptr(), nb, rows, cols, idx.data_ptr(), n, out.data_ptr(),
+        bricks.data_ptr(), nb, rows * cols, idx.data_ptr(), n,
+        scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
         bricks.device.index, _build.stream_of(bricks)), "brick_rows")
     brick_rows.launches += 1
     return out
@@ -220,4 +277,4 @@ cell_minmax.launches = 0
 
 __all__ = ["brick_sums", "brick_rows", "cell_minmax", "brick_sums_reference",
            "brick_rows_reference", "cell_minmax_reference", "grid_shape",
-           "k6_plan"]
+           "k4_plan", "k5_plan", "k6_plan"]
