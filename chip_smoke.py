@@ -8,7 +8,8 @@ Phases (one JSON line each):
   1. device: card name and power limit, build time and the ``-Xptxas -v``
      report of each kernel (the kernels are built here from ``csrc/``);
      resources: the registers, spills and shared memory of K4, K5, K6 and
-     K0b.
+     K0b, and of each instantiation of K1, K2 and K3 (parity and analytic,
+     K2's camera one).
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
   2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
@@ -74,6 +75,29 @@ Phases (one JSON line each):
      and against the plain march with the grid on the same 800^2 rays
      (with K3's cell loads against its count); samples visited, K3's counts
      and ``raycast_ms`` with and without the grid.
+  9b. analytic: ``analytic_normals=True`` at the bench workload on noise
+     and ct_phantom, through a Raycaster of that config: K1 against the
+     plain march (ERT on and off), no sample in the stencil's general
+     branch; a gradient step (one K1, one K2, no camera launch) and K2
+     against autograd of the plain march summed over 16 tiles of 128^2;
+     ``raycast_nondiff`` (one K6, K7, K3), K3 with the grid bitwise K3
+     without it and against the plain march, no voxel loaded beyond the
+     cached cell; K1, K2 and K3 timed beside the parity instantiations;
+     K3 at the viewer workload (800^2, sampling rate 16) against the plain
+     march on every ray and timed, with the grid bitwise equal to K3
+     without it.
+  9c. camera: at 128^2 on noise (ERT on and off) and on the golden sphere,
+     parity and analytic: K2's camera instantiation's 12 per-ray sums
+     against ``march_diff_cotangents_plain`` per ray, the cotangents of
+     ``march_diff``'s ray tensors against autograd of the plain march in
+     them (per ray, and per tile in the origin), its d_volume and d_tf
+     against K2's default ones, and ``d_look_from`` of ``render`` against
+     the plain cotangents pulled through the ray setup; a default gradient
+     step launches no camera instantiation; at 512^2, ``grad_step_ms`` with
+     and without the camera gradient, called in turn, the same checks at
+     the step's rays and cotangent over 16 tiles of 128^2, the step's
+     ``d_look_from`` against the plain one, and K2's camera instantiation
+     timed beside the default one.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -165,6 +189,38 @@ QUIET_LIGHT_OPS = GRADIENT_POINTS_OPS + STENCIL_OPS + SHADE_OPS
 # bound that charges every sample DIFF_SAMPLE_OPS.
 ZERO_OPACITY_OPS = (POSITION_OPS + CENTRE_OPS + TF_LERP_OPS + OPACITY_OPS
                     + COMPOSITE_OPS)
+# Analytic mode (analytic_normals): the gradient comes from the centre's 8
+# corners already loaded; per axis 8 products and 7 sums (the pair products
+# of two more axis pairs, 8) and the scale (3).  K2's scatter: 8 corners, 4
+# products and 4 sums each for the value and the three gradient terms, and
+# the 3 scaled gradient cotangents.
+ANALYTIC_GRADIENT_OPS = 2 * PAIR_OPS + 3 * 15 + 3
+DIFF_SAMPLE_OPS_A = (POSITION_OPS + CENTRE_OPS + ANALYTIC_GRADIENT_OPS
+                     + TF_LERP_OPS + OPACITY_OPS + SHADE_OPS + COMPOSITE_OPS)
+NONDIFF_SHADE_OPS_A = (ANALYTIC_GRADIENT_OPS + OPACITY_OPS + SHADE_OPS - 1
+                       + COMPOSITE_OPS - 1)
+BWD_SAMPLE_OPS_A = (DIFF_SAMPLE_OPS_A + COMPOSITE_BWD_OPS + SHADE_BWD_OPS
+                    + TF_LERP_BWD_OPS - 7 + 8 * 8 + 3)
+QUIET_LIGHT_OPS_A = ANALYTIC_GRADIENT_OPS + SHADE_OPS
+# K2's camera instantiation against the plain per-sample cotangents summed
+# per ray (march_diff_cotangents_plain), per group P, S, L, V: max |diff| /
+# max |plain|.  Both sum signed terms per sample in other orders, and S
+# weighs the late samples of long rays most.  The ray tensors' cotangents of
+# march_diff against autograd of the plain march in them, per tensor, max
+# |diff| / max |plain|.  d_look_from against the plain cotangents pulled
+# through the ray setup, relative to |d_look_from|.
+# K2's camera instantiation, per scattering sample in parity mode: the
+# position gradient of the trilinear interpolant at the 7 stencil points
+# (3 axes, the 12 pair products, 3 signed sums of 8, 3 slopes, 6 to weigh
+# and add it) and the 6 offsets; per sample: the light and view
+# directions' cotangents (d(n.l) n + dr, its projection through the
+# normalisation, -d_q r: 24) and the 12 sums (15).
+POINT_GRADIENT_OPS = 3 * AXIS_OPS + 3 * PAIR_OPS + 3 * 15 + 3 + 6
+CAMERA_POSITION_OPS = 7 * POINT_GRADIENT_OPS + 6
+CAMERA_SUM_OPS = 24 + 15
+CAMERA_SUM_TOL = 1e-3
+CAMERA_RAY_TOL = 1e-3
+CAMERA_TOL = 1e-4
 # K2 against autograd of the plain march, per gradient tensor, times its
 # max |g|.  Both run the same f32 arithmetic per sample (the kernels round
 # the trilinear sum and the TF lerp as the plain march does); only the order
@@ -202,6 +258,8 @@ def main() -> int:
 
     import differender_tpu_torch as P
     from differender_tpu_torch import _build
+    from differender_tpu_torch.render import (march_diff_cotangents_plain,
+                                              ray_sums)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -230,6 +288,28 @@ def main() -> int:
         sync()
         return statistics.median(a.elapsed_time(b) / per_pair
                                  for a, b in pairs)
+
+    def cuda_ms_ab(fa, fb, reps, warm=10):
+        """Device times of one call of ``fa`` and of ``fb`` by CUDA events,
+        the two called in turn (``warm`` times each first): the medians over
+        ``reps`` event pairs each, so that the card's clock drifts hit
+        both."""
+        for _ in range(warm):
+            fa()
+            fb()
+        sync()
+        pairs = ([], [])
+        for _ in range(reps):
+            for fn, out in zip((fa, fb), pairs):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                out.append((a, b))
+        sync()
+        return tuple(statistics.median(a.elapsed_time(b) for a, b in out)
+                     for out in pairs)
 
     def host_ms(fn, reps, warm=1):
         """Median host time of ``fn`` ending in a synchronize."""
@@ -378,6 +458,12 @@ def main() -> int:
           "cell_minmax": ptxas_of("bricks.cu", ["cell_minmax_kernel"]),
           "tf_lookup_bwd": ptxas_of("tf_lookup.cu", ["tf_lookup_bwd_kernel",
                                                      "tf_grad_sum_kernel"]),
+          "march_diff_fwd": ptxas_of("march.cu", ["march_diff_fwd_kernel"]),
+          "march_nondiff": ptxas_of("march.cu", ["march_nondiff_kernel"]),
+          "march_diff_bwd": ptxas_of("march_bwd.cu",
+                                     ["march_diff_bwd_kernel"]),
+          "ptxas_names": "template arguments <kGlobalTf, kAnalytic[, "
+                         "kCamera]> as Lb0/Lb1",
           "nvidia_smi": smi})
 
     kernels = {}
@@ -1709,6 +1795,519 @@ def main() -> int:
         del vol_user, vol_i, grid, img_g, img_n, nd, want, want_vis
         del want_comp, k3_g, k3_n, loads_p
         torch.cuda.empty_cache()
+
+    # -- 9b. analytic: the analytic normals at the bench workload ----------
+    gen_a = torch.Generator(device=dev)
+    gen_a.manual_seed(4)
+    rc_a = P.Raycaster((res, res, res), (img, img), R, sampling_rate=1.0,
+                       jitter=True, max_samples=512, seed=0,
+                       analytic_normals=True)
+    cfg_a = rc_a.config
+    for scene, make in scenes.items():
+        vol_user = torch.from_numpy(make()).to(dev)[None]
+        vol_i = P.volume_to_internal(vol_user[0]).contiguous()
+        u = torch.rand((img, img), generator=gen_a, device=dev)
+        # K1 through the entry point, against the plain march.
+        P.reset_launch_counts()
+        out = rc_a.forward_with_aux(vol_user, tf_user, lf, u=u)
+        sync()
+        k1_launches = P.launch_counts()["march_diff_fwd"]
+        require(k1_launches == 1,
+                f"analytic Raycaster.forward launched K1 {k1_launches}x")
+        rays = P.make_rays(lf, cfg_a, 1.0, u=u)
+        (want, want_steps), k1_plain_ms = timed_once(
+            lambda: P.march_diff_plain(vol_i, tf_i, rays, cfg_a, 1.0))
+        k1_err, k1_frac, k1_over = image_check(
+            f"analytic K1 {scene}", out.image.permute(1, 2, 0), want)
+        count_check(f"analytic K1 {scene} valid_steps", out.valid_steps,
+                    want_steps)
+        got_ne, steps_ne = P.march_diff(vol_i, tf_i, rays, cfg_a, 1.0,
+                                        ert=False)
+        want_ne, want_steps_ne = P.march_diff_plain(vol_i, tf_i, rays,
+                                                    cfg_a, 1.0, ert=False)
+        k1_noert = float((got_ne - want_ne).abs().max())
+        require(k1_noert <= 2e-4 and torch.equal(steps_ne, want_steps_ne),
+                f"analytic K1 {scene} without ERT: max |diff| {k1_noert}")
+        del got_ne, want_ne
+        c1 = torch.zeros((img, img, 2), dtype=torch.int32, device=dev)
+        image_a, steps_a = P.march_diff_fwd(vol_i, tf_i, rays, cfg_a, 1.0,
+                                            counts=c1)
+        require(torch.equal(image_a, out.image.permute(1, 2, 0))
+                and int(c1[..., 1].sum()) == 0,
+                f"analytic K1 on {scene}: counts call differs or "
+                f"{int(c1[..., 1].sum())} general-branch samples")
+        samples = int((steps_a - 1).sum())
+        n_skipped = int(c1[..., 0].sum())
+        del c1
+        # A gradient step: one K1, one K2, no camera instantiation.
+        v_leaf = vol_user.clone().requires_grad_()
+        t_leaf = tf_user.clone().requires_grad_()
+
+        def grad_step_a():
+            v_leaf.grad = t_leaf.grad = None
+            img_ = rc_a.forward(v_leaf, t_leaf, lf, u=u)
+            img_.square().mean().backward()
+
+        P.reset_launch_counts()
+        grad_step_a()
+        sync()
+        counts = P.launch_counts()
+        require(counts["march_diff_fwd"] == 1
+                and counts["march_diff_bwd"] == 1
+                and P.march_diff_bwd.camera_launches == 0,
+                f"analytic gradient step launched {counts}, camera "
+                f"{P.march_diff_bwd.camera_launches}")
+        k2_launches = counts["march_diff_bwd"]
+        require(bool(torch.isfinite(v_leaf.grad).all()
+                     & torch.isfinite(t_leaf.grad).all()),
+                f"analytic K2 gradients finite on {scene}")
+        k2c = torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
+        g_img = 2.0 * image_a / image_a.numel()
+        _, _, steps_b = P.march_diff_bwd(vol_i, tf_i, rays, cfg_a, 1.0,
+                                         image_a, g_img, counts=k2c)
+        require(torch.equal(steps_b, steps_a)
+                and int(k2c[..., 3].sum()) == 0,
+                f"analytic K2's counts differ from K1's on {scene}")
+        n_scattered, n_quiet_light, n_atomics = (int(k2c[..., i].sum())
+                                                 for i in range(3))
+        del k2c
+        agree, n_knife = knife_mask(steps_a, want_steps,
+                                    f"analytic {scene} (512, 512)")
+        g_full = (torch.rand((img, img, 4), generator=gen_a, device=dev)
+                  - 0.3) * agree[..., None]
+        got_full = P.march_diff_bwd(vol_i, tf_i, rays, cfg_a, 1.0, image_a,
+                                    g_full)[:2]
+        sync()
+        t_plain = time.perf_counter()
+        want_full = plain_bwd_tiled(vol_i, tf_i, rays, cfg_a, g_full, 128)
+        sync()
+        k2_plain_ms = (time.perf_counter() - t_plain) * 1e3
+        k2_errs = k2_grad_errs(got_full, want_full,
+                               f"analytic {scene} (512, 512), ert=True")
+        del got_full, want_full, g_full
+        # Times beside the parity instantiations, on the same rays, the two
+        # called in turn after the plain march's long host work.
+        k1_ms_a, k1_ms_p = cuda_ms_ab(
+            lambda: P.march_diff(vol_i, tf_i, rays, cfg_a, 1.0),
+            lambda: P.march_diff(vol_i, tf_i, rays, cfg, 1.0), 10, warm=25)
+        image_p, _ = P.march_diff_fwd(vol_i, tf_i, rays, cfg, 1.0)
+        g_p = 2.0 * image_p / image_p.numel()
+        k2_ms_a, k2_ms_p = cuda_ms_ab(
+            lambda: P.march_diff_bwd(vol_i, tf_i, rays, cfg_a, 1.0, image_a,
+                                     g_img),
+            lambda: P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image_p,
+                                     g_p), 10)
+        step_ms_a = host_ms(grad_step_a, 5)
+        del v_leaf, t_leaf
+        k1_bytes = vol_bytes + R * 16 + ray_bytes + img * img * 20
+        b1_ms, b1_by = bound(k1_bytes,
+                             (samples - n_skipped) * DIFF_SAMPLE_OPS_A
+                             + n_skipped * ZERO_OPACITY_OPS)
+        k2_bytes = 3 * vol_bytes + R * 32 + ray_bytes + img * img * 36
+        b2_ms, b2_by = bound(k2_bytes, n_scattered * BWD_SAMPLE_OPS_A
+                             + (samples - n_scattered) * QUIET_SAMPLE_OPS
+                             + n_quiet_light * QUIET_LIGHT_OPS_A)
+        # K3 through raycast_nondiff: the grid's build and one K3.
+        P.reset_launch_counts()
+        nd = rc_a.raycast_nondiff(vol_user, tf_user, lf)
+        sync()
+        counts = P.launch_counts()
+        require(counts["march_nondiff"] == 1,
+                f"analytic raycast_nondiff launched K3 "
+                f"{counts['march_nondiff']}x")
+        count_build(counts, "analytic raycast_nondiff")
+        k3_launches = counts["march_nondiff"]
+        sr = 4.0
+        rays4 = P.make_rays(lf, cfg_a, sr)
+        grid = P.build_occupancy(vol_i, tf_i, cfg_a)
+        k3_g = torch.zeros((img, img, 3), dtype=torch.int32, device=dev)
+        k3_n = torch.zeros_like(k3_g)
+        img_g, vis_g, comp_g = P.march_nondiff(vol_i, tf_i, rays4, cfg_a, sr,
+                                               grid, counts=k3_g)
+        img_n, vis_n, comp_n = P.march_nondiff(vol_i, tf_i, rays4, cfg_a, sr,
+                                               counts=k3_n)
+        sync()
+        require(torch.equal(img_g, nd.permute(1, 2, 0))
+                and torch.equal(img_g, img_n) and torch.equal(comp_g, comp_n),
+                f"analytic K3 with the grid differs from K3 without it on "
+                f"{scene}: {int((img_g != img_n).any(-1).sum())} pixels")
+        extra = int(k3_g[..., 1].sum()) + int(k3_n[..., 1].sum())
+        require(extra == 0, f"analytic K3 loaded {extra} voxels beyond its "
+                            f"cell on {scene}")
+        loads_p = torch.zeros((img, img), dtype=torch.int32, device=dev)
+        (want3, want_vis, want_comp), k3_plain_ms = timed_once(
+            lambda: P.march_nondiff_plain(vol_i, tf_i, rays4, cfg_a, sr,
+                                          grid, cell_loads=loads_p))
+        k3_err, _, k3_over = image_check(f"analytic K3 {scene}", img_g,
+                                         want3)
+        count_check(f"analytic K3 {scene} composited", comp_g, want_comp)
+        k3_knife = cell_load_check(f"analytic K3 {scene}", k3_g, loads_p,
+                                   vis_g, want_vis)
+        k3_ms_a, k3_ms_p = cuda_ms_ab(
+            lambda: P.march_nondiff(vol_i, tf_i, rays4, cfg_a, sr, grid),
+            lambda: P.march_nondiff(vol_i, tf_i, rays4, cfg, sr, grid), 10)
+        visited, composited = int(vis_g.sum()), int(comp_g.sum())
+        b3_ms, b3_by = bound(vol_bytes + grid_read_bytes(grid) + R * 16
+                             + ray_bytes + img * img * 24,
+                             visited * NONDIFF_VISIT_OPS
+                             + composited * NONDIFF_SHADE_OPS_A
+                             + lookups(grid, visited, composited) * JUMP_OPS)
+        emit({"phase": "analytic", "scene": scene, "image": img,
+              "march_diff_fwd": {
+                  "launches": k1_launches, "max_abs_err": k1_err,
+                  "pixels_over_2e-4": k1_over, "noert_max_abs_err": k1_noert,
+                  "samples": samples, "samples_zero_opacity_skipped":
+                      n_skipped, "samples_general_branch": 0,
+                  "ms": k1_ms_a, "ms_parity": k1_ms_p,
+                  "plain_ms": k1_plain_ms, "bound_ms": b1_ms,
+                  "bound_by": b1_by},
+              "march_diff_bwd": {
+                  "launches": k2_launches, "camera_launches": 0,
+                  "counts_equal_k1": True,
+                  "vs_plain_512_ert_True": {"rel_err_d_volume": k2_errs[0],
+                                            "rel_err_d_tf": k2_errs[1],
+                                            "knife_edge_rays": n_knife},
+                  "samples_scattering": n_scattered,
+                  "samples_quiet_needing_light": n_quiet_light,
+                  "atomics": n_atomics,
+                  "atomics_per_scattering_sample":
+                      n_atomics / max(n_scattered, 1),
+                  "ms": k2_ms_a, "ms_parity": k2_ms_p,
+                  "plain_ms": k2_plain_ms, "grad_step_ms": step_ms_a,
+                  "bound_ms": b2_ms, "bound_by": b2_by},
+              "march_nondiff": {
+                  "launches": k3_launches, "sampling_rate": sr,
+                  "grid_equal_to_no_grid": True,
+                  "max_abs_err_vs_plain": k3_err,
+                  "pixels_over_2e-4": k3_over, "extra_loads": extra,
+                  "k3_counts": k3_counts(k3_g, visited, composited,
+                                         k3_knife),
+                  "ms": k3_ms_a, "ms_parity": k3_ms_p,
+                  "plain_ms": k3_plain_ms, "bound_ms": b3_ms,
+                  "bound_by": b3_by},
+              "nvidia_smi": smi})
+        for name, launches, err in (
+                ("march_diff_fwd", k1_launches, k1_err),
+                ("march_diff_bwd", k2_launches, max(k2_errs)),
+                ("march_nondiff", k3_launches, k3_err)):
+            kernels[name]["launches"] += launches
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               err)
+        if scene == "noise":
+            kernels["march_diff_fwd"].update(ms_analytic=k1_ms_a,
+                                             bound_ms_analytic=b1_ms)
+            kernels["march_diff_bwd"].update(ms_analytic=k2_ms_a,
+                                             bound_ms_analytic=b2_ms)
+            kernels["march_nondiff"].update(ms_analytic=k3_ms_a,
+                                            bound_ms_analytic=b3_ms)
+        del vol_user, vol_i, grid, img_g, img_n, want3, k3_g, k3_n, loads_p
+        del image_a, image_p, g_img, g_p, want, nd
+        torch.cuda.empty_cache()
+    # K3 at the viewer workload in analytic mode: against the plain march on
+    # all 800^2 rays, and timed beside parity.
+    cfg_va = cfg_v.replace(analytic_normals=True)
+    for scene, make in (("synthetic", lambda: P.synthetic_volume(res)),
+                        ("ct_phantom", lambda: P.ct_phantom(res))):
+        vol_i = P.volume_to_internal(torch.from_numpy(make()).to(dev))
+        vol_i = vol_i.contiguous()
+        rays = P.make_rays(lf_v, cfg_va, v_sr)
+        grid = P.build_occupancy(vol_i, tf_i, cfg_va)
+        k3_g = torch.zeros((v_img, v_img, 3), dtype=torch.int32, device=dev)
+        img_g, vis_g, comp_g = P.march_nondiff(vol_i, tf_i, rays, cfg_va,
+                                               v_sr, grid, counts=k3_g)
+        img_n, _, comp_n = P.march_nondiff(vol_i, tf_i, rays, cfg_va, v_sr)
+        sync()
+        require(torch.equal(img_g, img_n) and torch.equal(comp_g, comp_n)
+                and int(k3_g[..., 1].sum()) == 0,
+                f"analytic K3 at the viewer on {scene}: the grid changes the "
+                f"image or K3 loaded beyond its cell")
+        loads_p = torch.zeros((v_img, v_img), dtype=torch.int32, device=dev)
+        (want, want_vis, want_comp), plain_ms = timed_once(
+            lambda: P.march_nondiff_plain(vol_i, tf_i, rays, cfg_va, v_sr,
+                                          grid, cell_loads=loads_p))
+        max_err, frac_over, n_over = image_check(
+            f"analytic viewer {scene}", img_g, want)
+        comp_diff = count_check(f"analytic viewer {scene} composited",
+                                comp_g, want_comp)
+        n_knife = cell_load_check(f"analytic viewer {scene}", k3_g, loads_p,
+                                  vis_g, want_vis)
+        del want, want_vis, want_comp, loads_p
+        ms_a, ms_p = cuda_ms_ab(
+            lambda: P.march_nondiff(vol_i, tf_i, rays, cfg_va, v_sr, grid),
+            lambda: P.march_nondiff(vol_i, tf_i, rays, cfg_v, v_sr, grid), 5)
+        visited, composited = int(vis_g.sum()), int(comp_g.sum())
+        b_ms, b_by = bound(vol_bytes + grid_read_bytes(grid) + R * 16
+                           + v_img * v_img * 48,
+                           visited * NONDIFF_VISIT_OPS
+                           + composited * NONDIFF_SHADE_OPS_A
+                           + lookups(grid, visited, composited) * JUMP_OPS)
+        emit({"phase": "analytic_viewer", "scene": scene, "image": v_img,
+              "sampling_rate": v_sr, "grid_equal_to_no_grid": True,
+              "extra_loads": 0, "samples_visited": visited,
+              "samples_composited": composited,
+              "k3_counts": k3_counts(k3_g, visited, composited, n_knife),
+              "vs_plain": {"max_abs_err": max_err,
+                           "pixels_over_2e-4": n_over,
+                           "frac_over_2e-4": frac_over,
+                           "composited_max_diff": comp_diff,
+                           "plain_ms": plain_ms},
+              "ms": ms_a, "ms_parity": ms_p, "bound_ms": b_ms,
+              "bound_by": b_by, "nvidia_smi": smi})
+        kernels["march_nondiff"]["max_abs_err"] = max(
+            kernels["march_nondiff"]["max_abs_err"], max_err)
+        if scene == "ct_phantom":
+            kernels["march_nondiff"]["ms_analytic_viewer"] = ms_a
+        del vol_i, grid, img_g, img_n, k3_g
+        torch.cuda.empty_cache()
+
+    # -- 9c. camera: K2's camera instantiation and d_look_from -------------
+    def leaves_of(rays_l):
+        """Leaves for a ray bundle's origin, directions, entry and exit."""
+        return [x.detach().clone().requires_grad_()
+                for x in (rays_l.origin, rays_l.dirs, rays_l.entry,
+                          rays_l.exit)]
+
+    def with_leaves(rays_l, lv):
+        return rays_l._replace(origin=lv[0], dirs=lv[1], entry=lv[2],
+                               exit=lv[3])
+
+    def camera_case(vol_i, tf_c, cfg_c, u_c, lf_c, g_c, sr, ert, label,
+                    tile=128):
+        """K2's camera instantiation against the plain march for the image
+        cotangent g_c, in tiles of tile x tile rays (rays are independent):
+        its 12 sums per ray against the plain per-sample cotangents summed
+        per ray (P, S, L, V); the cotangents of the ray tensors of
+        march_diff (K1, K2 and the wrapper's map) against autograd of the
+        plain march in the same tensors, per ray (dirs, entry, exit) and
+        per tile (origin); d_look_from of render against those plain
+        cotangents pulled through the ray setup; its d_volume and d_tf
+        against K2's default ones.  Rays on the ERT knife edge get no
+        cotangent.  Returns the case's record and the plain d_look_from."""
+        H, W = cfg_c.image_shape
+        lf_p = lf_c.clone().requires_grad_()
+        rays_p = P.make_rays(lf_p, cfg_c, sr, u=u_c)
+        rays_c = type(rays_p)(*(x.detach() for x in rays_p))
+        img_k, steps_k = P.march_diff_fwd(vol_i, tf_c, rays_c, cfg_c, sr,
+                                          ert=ert)
+        with torch.no_grad():
+            _, steps_p = P.march_diff_plain(vol_i, tf_c, rays_c, cfg_c, sr,
+                                            ert=ert)
+        agree, n_knife = knife_mask(steps_k, steps_p, label)
+        g_m = g_c * agree[..., None]
+        sums = torch.zeros((H, W, 12), device=dev)
+        P.reset_launch_counts()
+        d_v, d_t, _ = P.march_diff_bwd(vol_i, tf_c, rays_c, cfg_c, sr, img_k,
+                                       g_m, ert=ert, sums=sums)
+        cam_launches = P.march_diff_bwd.camera_launches
+        d_v0, d_t0, _ = P.march_diff_bwd(vol_i, tf_c, rays_c, cfg_c, sr,
+                                         img_k, g_m, ert=ert)
+        require(cam_launches == 1 and P.march_diff_bwd.camera_launches == 1,
+                f"camera {label}: {P.march_diff_bwd.camera_launches} camera "
+                f"launches")
+        same = max(float((d_v - d_v0).abs().max() / d_v0.abs().max()),
+                   float((d_t - d_t0).abs().max() / d_t0.abs().max()))
+        require(same <= K2_GRAD_TOL, f"camera {label}: K2's camera "
+                                     f"instantiation's gradients {same}")
+        require(bool(torch.isfinite(sums).all()),
+                f"camera {label}: K2's sums not finite")
+        del d_v, d_v0, img_k
+        lv = leaves_of(rays_c)
+        img_l, _ = P.march_diff(vol_i, tf_c, with_leaves(rays_c, lv), cfg_c,
+                                sr, ert=ert)
+        got = torch.autograd.grad(img_l, lv, g_m)
+        want = [torch.zeros_like(x) for x in got]
+        sum_err, sum_max = [0.0] * 4, [0.0] * 4
+        o_err = o_max = 0.0
+        for r in range(0, H, tile):
+            for c in range(0, W, tile):
+                blk = (slice(r, r + tile), slice(c, c + tile))
+                rays_b = rays_c._replace(
+                    dirs=rays_c.dirs[blk], entry=rays_c.entry[blk],
+                    exit=rays_c.exit[blk], n_samples=rays_c.n_samples[blk])
+                cfg_b = cfg_c.replace(image_shape=tuple(
+                    rays_b.n_samples.shape))
+                ref = ray_sums(march_diff_cotangents_plain(
+                    vol_i, tf_c, rays_b, cfg_b, sr, g_m[blk], ert=ert),
+                    cfg_b.image_shape)
+                s_b = sums[blk]
+                for k in range(4):
+                    cols = slice(3 * k, 3 * k + 3)
+                    sum_err[k] = max(sum_err[k], float(
+                        (s_b[..., cols] - ref[..., cols]).abs().max()))
+                    sum_max[k] = max(sum_max[k],
+                                     float(ref[..., cols].abs().max()))
+                lb = leaves_of(rays_b)
+                img_b, _ = P.march_diff_plain(vol_i, tf_c,
+                                              with_leaves(rays_b, lb), cfg_b,
+                                              sr, ert=ert)
+                gb = torch.autograd.grad(img_b, lb, g_m[blk])
+                want[0] += gb[0]
+                for k in (1, 2, 3):
+                    want[k][blk] = gb[k]
+                # The tile's origin cotangent from K2's sums: sum (P - L).
+                o_k = (s_b[..., 0:3] - s_b[..., 6:9]).sum((0, 1))
+                o_err = max(o_err, float((o_k - gb[0]).abs().max()))
+                o_max = max(o_max, float(gb[0].abs().max()))
+                del ref, img_b, gb
+        errs = []
+        for k, what in enumerate("PSLV"):
+            require(sum_max[k] > 0 and sum_err[k] <= CAMERA_SUM_TOL
+                    * sum_max[k],
+                    f"camera {label}: K2's {what} per ray, max |diff| "
+                    f"{sum_err[k]} > {CAMERA_SUM_TOL} * {sum_max[k]}")
+            errs.append(sum_err[k] / sum_max[k])
+        ray_errs = {}
+        for what, g_k, w_k in zip(("origin", "dirs", "entry", "exit"), got,
+                                  want):
+            e, m = float((g_k - w_k).abs().max()), float(w_k.abs().max())
+            require(bool(torch.isfinite(g_k).all()) and m > 0
+                    and e <= CAMERA_RAY_TOL * m,
+                    f"camera {label}: the {what} cotangent, max |diff| {e} > "
+                    f"{CAMERA_RAY_TOL} * {m}")
+            ray_errs[what] = e / m
+        require(o_max > 0 and o_err <= CAMERA_RAY_TOL * o_max,
+                f"camera {label}: a tile's origin cotangent, max |diff| "
+                f"{o_err} > {CAMERA_RAY_TOL} * {o_max}")
+        ray_errs["origin_per_tile"] = o_err / o_max
+        lf_k = lf_c.clone().requires_grad_()
+        out_k = P.render(vol_i, tf_c, lf_k, cfg_c, sr, u=u_c, ert=ert).image
+        torch.sum(out_k * g_m).backward()
+        lf_plain = torch.autograd.grad(
+            (rays_p.origin, rays_p.dirs, rays_p.entry, rays_p.exit), lf_p,
+            want)[0]
+        norm = float(lf_plain.norm())
+        lf_err = float((lf_k.grad - lf_plain).abs().max()) / norm
+        require(bool(torch.isfinite(lf_k.grad).all()) and norm > 0
+                and lf_err <= CAMERA_TOL,
+                f"camera {label}: d_look_from {lf_k.grad.tolist()} against "
+                f"{lf_plain.tolist()}")
+        return ({"rel_err_P_S_L_V": errs, "rel_err_ray_tensors": ray_errs,
+                 "k2_camera_vs_default_rel": same,
+                 "d_look_from": lf_k.grad.tolist(),
+                 "d_look_from_plain": lf_plain.tolist(),
+                 "d_look_from_rel_err": lf_err, "knife_edge_rays": n_knife,
+                 "tiles": len(range(0, H, tile)) * len(range(0, W, tile))},
+                lf_plain)
+
+    vol_i = P.volume_to_internal(
+        torch.from_numpy(P.noise_volume(res, seed=0)).to(dev)).contiguous()
+    u_c = torch.rand((128, 128), generator=gen_a, device=dev)
+    g_c = torch.rand((128, 128, 4), generator=gen_a, device=dev) - 0.3
+    g_s = torch.rand((16, 16, 4), generator=gen_a, device=dev) - 0.3
+    camera = {}
+    for analytic in (False, True):
+        mode = "analytic" if analytic else "parity"
+        cfg_c = cfg.replace(image_shape=(128, 128), analytic_normals=analytic)
+        gcfg_c = gcfg.replace(analytic_normals=analytic)
+        for ert in (False, True):
+            camera[f"noise_128_{mode}_ert_{ert}"] = camera_case(
+                vol_i, tf_i, cfg_c, u_c, lf, g_c, 1.0, ert,
+                f"noise 128^2 {mode} ert={ert}")[0]
+            camera[f"sphere_{mode}_ert_{ert}"] = camera_case(
+                sphere, gtf, gcfg_c, None, glf, g_s, 0.8, ert,
+                f"sphere {mode} ert={ert}")[0]
+    # At the bench: the default gradient step launches no camera
+    # instantiation; grad_step_ms with and without the camera gradient.
+    rc_cam = P.Raycaster((res, res, res), (img, img), R, sampling_rate=1.0,
+                         jitter=True, max_samples=512, seed=0,
+                         camera_grads=True)
+    vol_user = P.volume_from_internal(vol_i)[None]
+    v_leaf = vol_user.clone().requires_grad_()
+    t_leaf = tf_user.clone().requires_grad_()
+    lf_leaf = lf.clone().requires_grad_()
+    u = torch.rand((img, img), generator=gen_a, device=dev)
+
+    def step_default():
+        v_leaf.grad = t_leaf.grad = lf_leaf.grad = None
+        rc(v_leaf, t_leaf, lf_leaf, u=u).square().mean().backward()
+
+    def step_camera():
+        v_leaf.grad = t_leaf.grad = lf_leaf.grad = None
+        rc_cam(v_leaf, t_leaf, lf_leaf, u=u).square().mean().backward()
+
+    P.reset_launch_counts()
+    step_default()
+    sync()
+    default_counts = dict(P.launch_counts(),
+                          camera=P.march_diff_bwd.camera_launches)
+    require(default_counts["march_diff_bwd"] == 1
+            and default_counts["camera"] == 0 and lf_leaf.grad is None,
+            f"the default gradient step launched {default_counts}")
+    P.reset_launch_counts()
+    step_camera()
+    sync()
+    camera_counts = dict(P.launch_counts(),
+                         camera=P.march_diff_bwd.camera_launches)
+    require(camera_counts["march_diff_bwd"] == 1
+            and camera_counts["camera"] == 1
+            and bool(torch.isfinite(lf_leaf.grad).all()),
+            f"the camera gradient step launched {camera_counts}")
+    kernels["march_diff_fwd"]["launches"] += 2
+    kernels["march_diff_bwd"]["launches"] += 2
+    step_ms, step_ms_cam = host_ms_ab(step_default, step_camera, 7)
+    rays = P.make_rays(lf, cfg, 1.0, u=u)
+    image, _ = P.march_diff_fwd(vol_i, tf_i, rays, cfg, 1.0)
+    g_img = 2.0 * image / image.numel()
+    # At the step's rays and cotangent: K2's camera instantiation against
+    # the plain march over 16 tiles of 128^2, and the step's d_look_from
+    # against the plain one (where no ray is on the ERT knife edge, the
+    # cotangents are the same).
+    sync()
+    t_plain = time.perf_counter()
+    cam_512, lf_plain = camera_case(vol_i, tf_i, cfg, u, lf, g_img, 1.0,
+                                    True, "noise 512^2 step")
+    cam_512["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
+    step_err = None
+    if cam_512["knife_edge_rays"] == 0:
+        step_camera()
+        step_err = (float((lf_leaf.grad - lf_plain).abs().max())
+                    / float(lf_plain.norm()))
+        require(step_err <= CAMERA_TOL,
+                f"the camera step's d_look_from {lf_leaf.grad.tolist()} "
+                f"against {lf_plain.tolist()}")
+    cam_512["step_d_look_from_rel_err"] = step_err
+    camera["noise_512_step_parity_ert_True"] = cam_512
+    sums = torch.empty((img, img, 12), device=dev)
+    k2_ms, k2_ms_cam = cuda_ms_ab(
+        lambda: P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image, g_img),
+        lambda: P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image, g_img,
+                                 sums=sums), 10)
+    cc = torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
+    _, _, steps_c = P.march_diff_bwd(vol_i, tf_i, rays, cfg, 1.0, image,
+                                     g_img, counts=cc, sums=sums)
+    cam_samples = int((steps_c - 1).sum())
+    cam_scattered, cam_quiet_light = (int(cc[..., i].sum()) for i in (0, 1))
+    del cc
+    b_cam_ms, b_cam_by = bound(
+        3 * vol_bytes + R * 32 + ray_bytes + img * img * (36 + 48),
+        cam_scattered * (BWD_SAMPLE_OPS + CAMERA_POSITION_OPS)
+        + (cam_samples - cam_scattered) * QUIET_SAMPLE_OPS
+        + cam_quiet_light * QUIET_LIGHT_OPS
+        + cam_samples * CAMERA_SUM_OPS)
+    sum_errs = max(max(c["rel_err_P_S_L_V"]) for c in camera.values())
+    ray_errs = max(max(c["rel_err_ray_tensors"].values())
+                   for c in camera.values())
+    lf_errs = max(c["d_look_from_rel_err"] for c in camera.values())
+    emit({"phase": "camera", "cases": camera,
+          "tolerance_sums": CAMERA_SUM_TOL,
+          "tolerance_ray_tensors": CAMERA_RAY_TOL,
+          "tolerance_d_look_from": CAMERA_TOL,
+          "default_step_launches": default_counts,
+          "camera_step_launches": camera_counts,
+          "grad_step_ms": step_ms, "grad_step_ms_camera": step_ms_cam,
+          "k2_ms": k2_ms, "k2_ms_camera": k2_ms_cam,
+          "camera_samples": cam_samples,
+          "camera_samples_scattering": cam_scattered,
+          "bound_ms_camera": b_cam_ms, "bound_by_camera": b_cam_by,
+          "nvidia_smi": smi})
+    kernels["march_diff_bwd"].update(
+        ms_camera=k2_ms_cam, bound_ms_camera=b_cam_ms,
+        grad_step_ms_camera=step_ms_cam,
+        camera_max_rel_err_sums=sum_errs,
+        camera_max_rel_err_ray_tensors=ray_errs,
+        camera_max_rel_err_d_look_from=lf_errs)
+    del vol_i, vol_user, v_leaf, t_leaf, image, g_img, sums, lf_plain
+    torch.cuda.empty_cache()
 
     # -- 10. kernels line and the contract line ---------------------------------
     for name, k in kernels.items():

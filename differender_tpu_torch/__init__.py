@@ -8,9 +8,12 @@ and their gradients (:func:`value_and_grad_render`); ``march_nondiff`` (K3)
 behind :func:`render_nondiff` and :meth:`Raycaster.raycast_nondiff`, which
 jumps over empty space through the occupancy grid that ``cell_minmax`` (K6)
 and ``cell_distance`` (K7) build (:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows``
-(K5), the box sums of the TPU DMA probe.  CPU tensors go to plain torch
-versions of the same functions.  Importing the
-package needs neither a GPU nor ``nvcc``.
+(K5), the box sums of the TPU DMA probe.  ``RenderConfig(analytic_normals=
+True)`` takes each sample's gradient from its 8 corners in K1, K2 and K3; a
+camera that requires grad gets its gradient through K2's camera
+instantiation (``march_diff_bwd.camera_launches`` counts it).  CPU tensors
+go to plain torch versions of the same functions.  Importing the package
+needs neither a GPU nor ``nvcc``.
 """
 from typing import Dict
 
@@ -27,14 +30,17 @@ from .ops import (brick_rows, brick_rows_reference, brick_sums,
                   tf_lookup, tf_lookup_bwd, tf_lookup_bwd_reference,
                   tf_lookup_fwd, tf_lookup_reference)
 from .optim import (adamw_onecycle, nan_to_num_grads, project_nonneg,
-                    project_unit, tf_momentum)
+                    project_unit, tf_momentum, value_and_clean_grad)
 from .raycaster import (Raycaster, tf_from_internal, tf_to_internal,
                         volume_from_internal, volume_to_internal)
 from .render import (RenderOutput, march_diff, march_diff_bwd,
                      march_diff_bwd_plain, march_diff_fwd, march_diff_plain,
-                     march_nondiff, march_nondiff_plain, render,
-                     render_nondiff, value_and_grad_render)
-from .transfer import get_tf, get_tf_torch_layout, tex_from_pts
+                     march_nondiff, march_nondiff_plain, ray_cotangents,
+                     render, render_jit, render_nondiff, render_nondiff_jit,
+                     value_and_grad_render)
+from .shading import premultiply_alpha
+from .transfer import (get_tf, get_tf_torch_layout, random_peaks_tf,
+                       tex_from_pts)
 from .utils.camera import get_rand_pos, in_circles
 from .utils.scenes import ct_phantom, noise_volume, synthetic_volume
 
@@ -60,8 +66,11 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zeroes every wrapper's count, and K2's count of its camera
+    instantiation (``march_diff_bwd.camera_launches``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    march_diff_bwd.camera_launches = 0
 
 
 __all__ = [
@@ -71,12 +80,14 @@ __all__ = [
     "tf_lookup_bwd_reference", "Raycaster", "tf_from_internal",
     "tf_to_internal", "volume_from_internal", "volume_to_internal",
     "RenderOutput", "march_diff", "march_diff_fwd", "march_diff_bwd",
-    "march_diff_plain", "march_diff_bwd_plain", "march_nondiff",
-    "march_nondiff_plain", "render", "render_nondiff",
-    "value_and_grad_render", "mse_loss", "ssim", "dssim_mse_loss",
+    "march_diff_plain", "march_diff_bwd_plain", "ray_cotangents",
+    "march_nondiff", "march_nondiff_plain", "render", "render_nondiff",
+    "render_jit", "render_nondiff_jit", "value_and_grad_render",
+    "premultiply_alpha", "mse_loss", "ssim", "dssim_mse_loss",
     "tf_momentum", "project_nonneg", "project_unit", "nan_to_num_grads",
-    "adamw_onecycle", "in_circles", "get_rand_pos", "get_tf",
-    "get_tf_torch_layout", "tex_from_pts", "ct_phantom", "noise_volume",
+    "value_and_clean_grad", "adamw_onecycle", "in_circles", "get_rand_pos",
+    "get_tf", "get_tf_torch_layout", "random_peaks_tf", "tex_from_pts",
+    "ct_phantom", "noise_volume",
     "synthetic_volume", "OccupancyGrid", "build_occupancy",
     "jump_steps", "tf_alpha_range_max",
     "occupancy_from_numpy", "brick_sums", "brick_rows", "cell_minmax",

@@ -1,15 +1,19 @@
 """Static render configuration (counterpart of ``differender_tpu/config.py``).
 
 ``RenderConfig`` keeps every field of the JAX package's dataclass so that one
-keyword dict builds both.  The semantic fields drive the port, and so do the
+keyword dict builds both.  The semantic fields drive the port, among them
+``analytic_normals`` (the marches take the analytic in-cell gradient of the
+centre's 8 corners in place of the 7-point stencil), and so do the
 occupancy fields (``occupancy_skip``, ``occupancy_cell``,
 ``occupancy_max_dist``, ``occupancy_jump_every``): the inference march K3
 jumps over empty space through the grid of
-:mod:`~differender_tpu_torch.occupancy`.  The fields that tune the TPU march
-(tables, remat blocks, compaction, VJP modes) are accepted and ignored,
-because the CUDA kernels march each ray on its own thread and none of those
-knobs changes the rendered values.  Fields that would change the result and
-that the port does not implement yet raise ``NotImplementedError``.
+:mod:`~differender_tpu_torch.occupancy`.  ``camera_grads`` declares the
+intent to differentiate the camera, as in the JAX package; ``render`` gives
+``look_from`` a gradient wherever it requires grad, and
+:class:`~differender_tpu_torch.raycaster.Raycaster` takes the flag.  The
+fields that tune the TPU march (tables, remat blocks, compaction, VJP
+modes) are accepted and ignored, because the CUDA kernels march each ray on
+its own thread and none of those knobs changes the rendered values.
 """
 from __future__ import annotations
 
@@ -39,7 +43,13 @@ class RenderConfig:
         alpha_skip: TF alpha at or below which the inference march skips a
             sample.
         normal_delta: central-difference step of the gradient stencil, in
-            normalized [-1, 1] coordinates.
+            normalized [-1, 1] coordinates; with ``analytic_normals`` the
+            analytic gradient is scaled to the stencil's magnitude by it.
+        analytic_normals: take each sample's gradient from the in-cell
+            derivative of its 8 corners (one fetch) instead of the 7-point
+            central-difference stencil.
+        camera_grads: the declared intent to differentiate ``look_from``
+            (``Raycaster`` returns a camera gradient only with it).
         occupancy_skip: the inference render builds an occupancy grid when
             none is passed, and K3 jumps over empty space (the image does
             not change).
@@ -69,7 +79,6 @@ class RenderConfig:
     ert_threshold: float = 0.99
     alpha_skip: float = 1e-3
     normal_delta: float = 1e-3
-    # Result-changing options not ported yet: True raises.
     analytic_normals: bool = False
     camera_grads: bool = False
     # TPU performance knobs: accepted, ignored, except the four occupancy_*
@@ -94,16 +103,6 @@ class RenderConfig:
     ert_block_skip: bool = True
     compact_after: int = 0
     compact_prefix: float = 0.25
-
-    def __post_init__(self):
-        if self.analytic_normals:
-            raise NotImplementedError(
-                "analytic_normals=True is not ported; the port samples the "
-                "7-point central-difference stencil")
-        if self.camera_grads:
-            raise NotImplementedError(
-                "camera_grads=True is not ported: the backward march K2 "
-                "returns no camera gradient yet")
 
     @property
     def height(self) -> int:

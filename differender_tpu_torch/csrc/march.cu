@@ -29,7 +29,11 @@
 // when the centre's low indices change (the values a fresh load would give:
 // exact); it takes the 6 gradient points only when the TF alpha passes
 // alpha_skip, through K1's distinct-voxel stencil on the cached cell (fused
-// sums).  With an
+// sums).  In the kAnalytic instantiation (RenderConfig.analytic_normals)
+// K1 and K3 take the gradient from the centre's cell itself
+// (cell_gradient): K1 loads the 8 corners of every sample, even where the
+// stencil's compact branch would not hold, and K3 loads nothing beyond its
+// cached cell.  With an
 // occupancy grid (occupancy.py) it jumps over empty space: at its head
 // sample it reads the macrocell's distance d and skips floor((d - 1) *
 // cell_world / dt) samples that provably classify at or below alpha_skip
@@ -55,7 +59,7 @@
 
 // At least 5 blocks of 128 threads per SM: at most 102 registers a thread
 // (nvcc's own choice is 113, 4 blocks, a little slower).
-template <bool kGlobalTf>
+template <bool kGlobalTf, bool kAnalytic>
 __global__ void __launch_bounds__(128, 5)
     march_diff_fwd_kernel(MarchArgs a) {
   extern __shared__ float4 s_tf[];
@@ -77,8 +81,8 @@ __global__ void __launch_bounds__(128, 5)
   int cnt = 1, skipped = 0, general = 0;
   for (int s = 0; s < steps; ++s) {
     if (a.ert && !(T > a.thr)) break;
-    const Sample q = march_sample<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz,
-                                             dx, dy, dz, zero_skip);
+    const Sample q = march_sample<kGlobalTf, kAnalytic>(
+        a, tf, s, t0, dt, ox, oy, oz, dx, dy, dz, zero_skip);
     ++cnt;
     general += !q.compact;
     // A zero sample composites r += T * 0, T *= 1: nothing changes.
@@ -123,7 +127,7 @@ __device__ __forceinline__ Centre centre_at(const MarchArgs& a, int s,
 
 // At least 4 blocks of 128 threads per SM: at most 128 registers a thread
 // (5 blocks, 96 registers, spill; 3 blocks take 168; neither was faster).
-template <bool kGlobalTf>
+template <bool kGlobalTf, bool kAnalytic>
 __global__ void __launch_bounds__(128, 4) march_nondiff_kernel(MarchArgs a) {
   extern __shared__ float4 s_tf[];
   const float4* tf =
@@ -198,13 +202,17 @@ __global__ void __launch_bounds__(128, 4) march_nondiff_kernel(MarchArgs a) {
     if (!(c.w > a.alpha_skip)) continue;
     look = false;
     ++shaded;
-    const StencilAxis X = stencil_axis(q.px, a.delta, a.scale_x, a.X);
-    const StencilAxis Y = stencil_axis(q.py, a.delta, a.scale_y, a.Y);
-    const StencilAxis Z = stencil_axis(q.pz, a.delta, a.scale_z, a.Z);
     float gx, gy, gz;
-    extra_loads += stencil_gradient<false>(a, X, Y, Z, X.ok && Y.ok && Z.ok,
-                                           cell, q.px, q.py, q.pz, gx, gy,
-                                           gz);
+    if constexpr (kAnalytic) {
+      cell_gradient<false>(a, cell, q.fx, q.fy, q.fz, gx, gy, gz);
+    } else {
+      const StencilAxis X = stencil_axis(q.px, a.delta, a.scale_x, a.X);
+      const StencilAxis Y = stencil_axis(q.py, a.delta, a.scale_y, a.Y);
+      const StencilAxis Z = stencil_axis(q.pz, a.delta, a.scale_z, a.Z);
+      extra_loads += stencil_gradient<false>(a, X, Y, Z,
+                                             X.ok && Y.ok && Z.ok, cell, q.px,
+                                             q.py, q.pz, gx, gy, gz);
+    }
     const float4 sh = shade<false>(a, c, opacity(a, c.w), q.px, q.py, q.pz,
                                    gx, gy, gz, dx, dy, dz, ox, oy, oz);
     r += T * sh.x;
@@ -224,7 +232,17 @@ __global__ void __launch_bounds__(128, 4) march_nondiff_kernel(MarchArgs a) {
   }
 }
 
-template <template <bool> class Launch>
+template <template <bool, bool> class Launch, bool kAnalytic>
+static void launch_tf(const MarchArgs& a, dim3 grid, dim3 block,
+                      cudaStream_t s) {
+  if (a.R <= kMaxSharedTexels) {
+    Launch<false, kAnalytic>::run(grid, block, a.R * sizeof(float4), s, a);
+  } else {
+    Launch<true, kAnalytic>::run(grid, block, 0, s, a);
+  }
+}
+
+template <template <bool, bool> class Launch>
 static int launch(const MarchArgs* a, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -233,27 +251,27 @@ static int launch(const MarchArgs* a, int device, void* stream) {
   const dim3 grid((a->W + block.x - 1) / block.x,
                   (a->H + block.y - 1) / block.y);
   cudaStream_t s = (cudaStream_t)stream;
-  if (a->R <= kMaxSharedTexels) {
-    Launch<false>::run(grid, block, a->R * sizeof(float4), s, *a);
+  if (a->analytic) {
+    launch_tf<Launch, true>(*a, grid, block, s);
   } else {
-    Launch<true>::run(grid, block, 0, s, *a);
+    launch_tf<Launch, false>(*a, grid, block, s);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool kGlobalTf>
+template <bool kGlobalTf, bool kAnalytic>
 struct LaunchDiff {
   static void run(dim3 g, dim3 b, size_t smem, cudaStream_t s,
                   const MarchArgs& a) {
-    march_diff_fwd_kernel<kGlobalTf><<<g, b, smem, s>>>(a);
+    march_diff_fwd_kernel<kGlobalTf, kAnalytic><<<g, b, smem, s>>>(a);
   }
 };
 
-template <bool kGlobalTf>
+template <bool kGlobalTf, bool kAnalytic>
 struct LaunchNondiff {
   static void run(dim3 g, dim3 b, size_t smem, cudaStream_t s,
                   const MarchArgs& a) {
-    march_nondiff_kernel<kGlobalTf><<<g, b, smem, s>>>(a);
+    march_nondiff_kernel<kGlobalTf, kAnalytic><<<g, b, smem, s>>>(a);
   }
 };
 

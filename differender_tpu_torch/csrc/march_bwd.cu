@@ -49,6 +49,26 @@
 // most atomics in empty space.  A sample of opacity 0 whose d_tf needs no
 // light skips the gradient points (see march_diff_bwd_kernel).  The kernel
 // is held to 128 registers so that 4 blocks fit on an SM.
+//
+// Analytic normals (kAnalytic, RenderConfig.analytic_normals): the gradient
+// comes from the centre's 8 corners (cell_gradient), and scatter_cell adds
+// each sample's cotangents to those 8 voxels, one atomic per distinct one.
+//
+// Camera gradients (kCamera, launched only where a ray tensor needs a
+// gradient): sample s of a ray sits at p = o + (t0 + s dt) d.  Per sample
+// K2 also forms the position's cotangent d_p: dv times the centre value's
+// trilinear derivative, plus each dg_axis times its gradient component's
+// derivative (the parity stencil: the trilinear derivatives of its +-delta
+// points; analytic: the interpolant's mixed second derivatives, its pure
+// ones being 0), each through d(voxel coordinate)/dp = 0.5 scale, plus
+// shading's light-direction term d_l (the light sits at o + (0, 1, 0)).
+// It writes 12 floats per ray: P = sum d_p, S = sum s d_p, L = sum d_l and
+// V = sum d_v, the cotangent of shading's view direction, which is d.  The
+// caller maps them onto the ray tensors (render.py::ray_cotangents):
+// d_o = sum (P - L), d_d = t0 P + dt S + V, d_t0 = d.P, d_dt = d.S.  Twelve
+// accumulators and the derivative points would spill in the default
+// instantiation's 128 registers, so the camera one is held to 168 (3 blocks
+// an SM).
 #include <cuda_runtime.h>
 
 #include "march_common.cuh"
@@ -64,6 +84,8 @@ struct MarchBwdArgs {
   const float* grad;  // (H*W, 4) image cotangent
   float* d_volume;    // (X*Y*Z), zeroed by the caller
   float* d_tf;        // (R*4), zeroed by the caller
+  float* ray_sums;    // (H*W, 12) P, S, L, V per ray, or null: the camera
+                      // instantiation runs where it is set
 };
 
 // A sample whose f = 1 - a is below this starts a new segment (see above):
@@ -128,15 +150,66 @@ __device__ __forceinline__ void arm_weights(const StencilAxis& s, float dg,
   ae = dg * (pe - me);
 }
 
+// Analytic mode: one sample's volume cotangents on the centre's 8 corners,
+// dv w_c + sum_axis dg_axis sc_axis (+-1) w'_c (the terms of
+// cell_gradient), one atomic per distinct corner: a high index clamped onto
+// its low one merges the two corners' totals.  Returns the atomics issued.
+__device__ __forceinline__ int scatter_cell(const MarchArgs& a, float* dvol,
+                                            const Sample& q, float dv,
+                                            float dgx, float dgy,
+                                            float dgz) {
+  int lx, hx, ly, hy, lz, hz;
+  const float fx = voxel_axis(q.px, a.scale_x, a.X, lx, hx);
+  const float fy = voxel_axis(q.py, a.scale_y, a.Y, ly, hy);
+  const float fz = voxel_axis(q.pz, a.scale_z, a.Z, lz, hz);
+  const float ex = 1.0f - fx, ey = 1.0f - fy, ez = 1.0f - fz;
+  const float ax = dgx * a.sc_x, ay = dgy * a.sc_y, az = dgz * a.sc_z;
+  float w[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wx = c & 1 ? fx : ex, wy = c & 2 ? fy : ey,
+                wz = c & 4 ? fz : ez;
+    const float yz = wy * wz, xz = wx * wz, xy = wx * wy;
+    w[c] = dv * (xy * wz) + ax * (c & 1 ? yz : -yz) +
+           ay * (c & 2 ? xz : -xz) + az * (c & 4 ? xy : -xy);
+  }
+  // Corners on one voxel: merge along x, then y, then z.
+#pragma unroll
+  for (int bit = 1; bit < 8; bit <<= 1) {
+    const bool same = bit == 1 ? hx == lx : bit == 2 ? hy == ly : hz == lz;
+    if (same) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (!(c & bit)) {
+          w[c] += w[c + bit];
+          w[c + bit] = 0.0f;
+        }
+      }
+    }
+  }
+  int count = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    count += add_voxel(dvol,
+                       ((long long)(c & 1 ? hx : lx) * a.Y +
+                        (c & 2 ? hy : ly)) * a.Z + (c & 4 ? hz : lz),
+                       w[c]);
+  }
+  return count;
+}
+
 // Adds one sample's volume cotangents into d_volume: dv at the centre and
 // +-dg_axis at the +-delta points of each axis.  The compact branch merges
 // the 56 terms into one total per distinct voxel (sums of the same products
 // in another order) and adds each with one atomic; the general branch
-// scatters point by point.  Returns the atomics issued.
+// scatters point by point.  kAnalytic: scatter_cell.  Returns the atomics
+// issued.
+template <bool kAnalytic>
 __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
                                               float* dvol, const Sample& q,
                                               float dv, float dgx, float dgy,
                                               float dgz) {
+  if constexpr (kAnalytic) return scatter_cell(a, dvol, q, dv, dgx, dgy, dgz);
   if (!q.compact) {
     const float d = a.delta;
     return trilinear_scatter(a, dvol, q.px, q.py, q.pz, dv) +
@@ -203,14 +276,18 @@ __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
 // Backward of shade<true> for the cotangent d_sh of its output: returns
 // the cotangent of the TF colour c and writes that of the gradient.  Ties
 // of max/min take half, as in JAX; the unit normal's VJP is clamped at
-// |g| = 1e-6 (shading.py::_unit_normal_soa_bwd).
+// |g| = 1e-6 (shading.py::_unit_normal_soa_bwd).  kCamera: also adds the
+// cotangents of the position in the light direction, p - (o + (0, 1, 0)),
+// to d_l and of the view direction to d_v (both 0 without a normal).
+template <bool kCamera>
 __device__ __forceinline__ float4 shade_bwd(const MarchArgs& a, float4 c,
                                             float px, float py, float pz,
                                             float gx, float gy, float gz,
                                             float vdx, float vdy, float vdz,
                                             float ox, float oy, float oz,
                                             float4 d_sh, float& dgx,
-                                            float& dgy, float& dgz) {
+                                            float& dgy, float& dgz,
+                                            float3& d_l, float3& d_v) {
   const float m1 = 1.0f - c.w;
   const float mm = fmaxf(m1, 0.0f);
   const float alpha = 1.0f - powf(mm, a.inv_sr);
@@ -266,6 +343,20 @@ __device__ __forceinline__ float4 shade_bwd(const MarchArgs& a, float4 c,
     dnx = d_dot * ldx - 2.0f * dot * drx;
     dny = d_dot * ldy - 2.0f * dot * dry;
     dnz = d_dot * ldz - 2.0f * dot * drz;
+    if constexpr (kCamera) {
+      // The unit light direction's cotangent (dot = n.l, r = l - 2 dot n),
+      // then through l = l_raw / |l_raw|; the view direction's from
+      // q = -(r.v).
+      const float dlx = d_dot * nx + drx, dly = d_dot * ny + dry,
+                  dlz = d_dot * nz + drz;
+      const float proj = dlx * ldx + dly * ldy + dlz * ldz;
+      d_l.x += inv * (dlx - proj * ldx);
+      d_l.y += inv * (dly - proj * ldy);
+      d_l.z += inv * (dlz - proj * ldz);
+      d_v.x -= d_q * rx;
+      d_v.y -= d_q * ry;
+      d_v.z -= d_q * rz;
+    }
   }
   const float inv_mag = 1.0f / fmaxf(sqrtf(g2), 1e-6f);
   const float vn = dnx * nx + dny * ny + dnz * nz;
@@ -273,6 +364,78 @@ __device__ __forceinline__ float4 shade_bwd(const MarchArgs& a, float4 c,
   dgy = (dny - vn * ny) * inv_mag;
   dgz = (dnz - vn * nz) * inv_mag;
   return d_c;
+}
+
+// d(voxel coordinate)/d(position) on one axis: 0.5 * scale inside the
+// clamp to [0, 1], its bounds included (torch.clamp's gradient, which the
+// plain version takes), else 0.
+__device__ __forceinline__ float coord_slope(float p, float scale) {
+  const float u = __fadd_rn(__fmul_rn(0.5f, p), 0.5f);
+  return u >= 0.0f && u <= 1.0f ? 0.5f * scale : 0.0f;
+}
+
+// Adds w times the position gradient of the trilinear interpolant at one
+// point to (o.x, o.y, o.z): its 8 corners loaded, the in-cell derivatives
+// times coord_slope.  No-op for w = 0.
+__device__ __forceinline__ void add_point_gradient(const MarchArgs& a,
+                                                   float px, float py,
+                                                   float pz, float w,
+                                                   float3& o) {
+  if (w == 0.0f) return;
+  int x[2], y[2], z[2];
+  const float fx = voxel_axis(px, a.scale_x, a.X, x[0], x[1]);
+  const float fy = voxel_axis(py, a.scale_y, a.Y, y[0], y[1]);
+  const float fz = voxel_axis(pz, a.scale_z, a.Z, z[0], z[1]);
+  float v[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    v[c] = voxel(a, x[c & 1], y[(c >> 1) & 1], z[c >> 2]);
+  }
+  float dx, dy, dz;
+  cell_derivatives<false>(v, fx, fy, fz, dx, dy, dz);
+  o.x += w * (coord_slope(px, a.scale_x) * dx);
+  o.y += w * (coord_slope(py, a.scale_y) * dy);
+  o.z += w * (coord_slope(pz, a.scale_z) * dz);
+}
+
+// kCamera: adds the part of a sample's position cotangent that flows
+// through its value (dv) and its gradient (dg) to o.  Parity: the value's
+// trilinear derivative and, per axis, the difference of the derivatives at
+// the +-delta points.  Analytic: from the centre's cell, the value's first
+// derivatives and the gradient's mixed second ones, d g_x / d f_y =
+// sc_x sum_c v_c (+-1)_x (+-1)_y w_z,c and so on.
+template <bool kAnalytic>
+__device__ __forceinline__ void add_position_cotangent(
+    const MarchArgs& a, const Sample& q, float dv, float dgx, float dgy,
+    float dgz, float3& o) {
+  if constexpr (kAnalytic) {
+    const float fx = q.ax.f, fy = q.ay.f, fz = q.az.f;
+    const float ex = 1.0f - fx, ey = 1.0f - fy, ez = 1.0f - fz;
+    float dx, dy, dz;
+    cell_derivatives<false>(q.cell, fx, fy, fz, dx, dy, dz);
+    float dxy = 0.0f, dxz = 0.0f, dyz = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float sx = c & 1 ? 1.0f : -1.0f, sy = c & 2 ? 1.0f : -1.0f,
+                  sz = c & 4 ? 1.0f : -1.0f;
+      dxy += (sx * sy) * q.cell[c] * (c & 4 ? fz : ez);
+      dxz += (sx * sz) * q.cell[c] * (c & 2 ? fy : ey);
+      dyz += (sy * sz) * q.cell[c] * (c & 1 ? fx : ex);
+    }
+    const float ax = dgx * a.sc_x, ay = dgy * a.sc_y, az = dgz * a.sc_z;
+    o.x += coord_slope(q.px, a.scale_x) * (dv * dx + ay * dxy + az * dxz);
+    o.y += coord_slope(q.py, a.scale_y) * (dv * dy + ax * dxy + az * dyz);
+    o.z += coord_slope(q.pz, a.scale_z) * (dv * dz + ax * dxz + ay * dyz);
+  } else {
+    const float d = a.delta;
+    add_point_gradient(a, q.px, q.py, q.pz, dv, o);
+    add_point_gradient(a, q.px + d, q.py, q.pz, dgx, o);
+    add_point_gradient(a, q.px - d, q.py, q.pz, -dgx, o);
+    add_point_gradient(a, q.px, q.py + d, q.pz, dgy, o);
+    add_point_gradient(a, q.px, q.py - d, q.pz, -dgy, o);
+    add_point_gradient(a, q.px, q.py, q.pz + d, dgz, o);
+    add_point_gradient(a, q.px, q.py, q.pz - d, -dgz, o);
+  }
 }
 
 // The TF-gradient rule of the JAX march for this TF size (kGlobalTf is
@@ -285,7 +448,7 @@ constexpr int kMarchTfMask = kGlobalTf ? kTfGradEveryT : kTfGradFracPositive;
 // transmittance from 1, under the same ERT gate on the real transmittance
 // (which starts at Tn).  Inlined: a call's saved registers cost K2 more
 // than the code size.
-template <bool kGlobalTf>
+template <bool kGlobalTf, bool kAnalytic>
 __device__ __forceinline__ float rest_of_ray(
     const MarchArgs& a, const float4* tf, int s, int steps, float Tn,
     float4 g, float t0, float dt, float ox, float oy, float oz, float dx,
@@ -293,8 +456,8 @@ __device__ __forceinline__ float rest_of_ray(
   float Ur = 0.0f, Tl = 1.0f, Tr = Tn;
   for (int s2 = s + 1; s2 < steps; ++s2) {
     if (a.ert && !(Tr > a.thr)) break;
-    const Sample r = march_sample<kGlobalTf>(a, tf, s2, t0, dt, ox, oy, oz,
-                                             dx, dy, dz, zero_skip);
+    const Sample r = march_sample<kGlobalTf, kAnalytic>(
+        a, tf, s2, t0, dt, ox, oy, oz, dx, dy, dz, zero_skip);
     Ur += Tl * (g.x * r.sh.x + g.y * r.sh.y + g.z * r.sh.z);
     Tl *= 1.0f - r.sh.w;
     Tr *= 1.0f - r.sh.w;
@@ -305,9 +468,10 @@ __device__ __forceinline__ float rest_of_ray(
 
 // At least 4 blocks of 128 threads per SM: at most 128 registers a thread.
 // Left to itself nvcc gives K2 240 registers, 2 blocks per SM, too few
-// warps to hide its data-addressed loads and atomics.
-template <bool kGlobalTf>
-__global__ void __launch_bounds__(128, 4)
+// warps to hide its data-addressed loads and atomics.  The camera
+// instantiation: 3 blocks, 168 registers.
+template <bool kGlobalTf, bool kAnalytic, bool kCamera>
+__global__ void __launch_bounds__(128, kCamera ? 3 : 4)
     march_diff_bwd_kernel(MarchBwdArgs b) {
   extern __shared__ float4 s_tf[];
   const MarchArgs& a = b.f;
@@ -344,21 +508,25 @@ __global__ void __launch_bounds__(128, 4)
     float U = g.x * img.x + g.y * img.y + g.z * img.z - g.w * (1.0f - img.w);
     float T = 1.0f;
     int cnt = 1, scattered = 0, quiet_light = 0, atomics = 0, general = 0;
+    // kCamera: the per-ray sums P, S, L, V.
+    float3 sum_p = make_float3(0.0f, 0.0f, 0.0f), sum_s = sum_p,
+           sum_l = sum_p, sum_v = sum_p;
     for (int s = 0; s < steps; ++s) {
       if (a.ert && !(T > a.thr)) break;
       if (T == 0.0f) {          // without ERT: nothing more to add
         cnt += steps - s;
         break;
       }
-      Sample q = sample_centre<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz, dx,
-                                          dy, dz, zero_skip);
+      Sample q = sample_centre<kGlobalTf, kAnalytic>(a, tf, s, t0, dt, ox, oy,
+                                                     oz, dx, dy, dz,
+                                                     zero_skip);
       const float4 d_sh = make_float4(T * g.x, T * g.y, T * g.z, 0.0f);
       const float d_la = d_sh.x * q.c.x * a.lc_r + d_sh.y * q.c.y * a.lc_g +
                          d_sh.z * q.c.z * a.lc_b;
       const bool light = !q.zero || d_la != 0.0f || light_always;
       general += !q.compact;
       if (light) {
-        sample_gradient(a, q);
+        sample_gradient<kAnalytic>(a, q);
       } else {
         q.gx = q.gy = q.gz = 0.0f;
       }
@@ -370,9 +538,9 @@ __global__ void __launch_bounds__(128, 4)
       if (last) {
         d_a = T * g.w;
       } else if (f < kRestartBelow) {
-        const float Ur = rest_of_ray<kGlobalTf>(a, tf, s, steps, Tn, g, t0,
-                                                dt, ox, oy, oz, dx, dy, dz,
-                                                zero_skip);
+        const float Ur = rest_of_ray<kGlobalTf, kAnalytic>(
+            a, tf, s, steps, Tn, g, t0, dt, ox, oy, oz, dx, dy, dz,
+            zero_skip);
         d_a = -T * Ur;
         Tb = Tn;
         U = Ur;
@@ -384,21 +552,48 @@ __global__ void __launch_bounds__(128, 4)
         Tloc *= f;
       }
       float dgx, dgy, dgz;
-      const float4 d_c = shade_bwd(
+      float3 d_p = make_float3(0.0f, 0.0f, 0.0f);
+      const float4 d_c = shade_bwd<kCamera>(
           a, q.c, q.px, q.py, q.pz, q.gx, q.gy, q.gz, dx, dy, dz, ox, oy, oz,
-          make_float4(d_sh.x, d_sh.y, d_sh.z, d_a), dgx, dgy, dgz);
+          make_float4(d_sh.x, d_sh.y, d_sh.z, d_a), dgx, dgy, dgz, d_p,
+          sum_v);
       const float dv = tf_lerp_bwd<kMarchTfMask<kGlobalTf>, kGlobalTf>(
           tf, a.R, q.v, d_c, acc);
       if (dv != 0.0f || dgx != 0.0f || dgy != 0.0f || dgz != 0.0f) {
         ++scattered;
-        atomics += scatter_sample(a, b.d_volume, q, dv, dgx, dgy, dgz);
+        atomics += scatter_sample<kAnalytic>(a, b.d_volume, q, dv, dgx, dgy,
+                                             dgz);
       } else {
         quiet_light += light;
+      }
+      if constexpr (kCamera) {
+        // d_p holds the light-direction term so far.
+        sum_l.x += d_p.x;
+        sum_l.y += d_p.y;
+        sum_l.z += d_p.z;
+        add_position_cotangent<kAnalytic>(a, q, dv, dgx, dgy, dgz, d_p);
+        const float sf = (float)s;
+        sum_p.x += d_p.x;
+        sum_p.y += d_p.y;
+        sum_p.z += d_p.z;
+        sum_s.x += sf * d_p.x;
+        sum_s.y += sf * d_p.y;
+        sum_s.z += sf * d_p.z;
       }
       T = Tn;
       ++cnt;
     }
     a.steps[p] = cnt;
+    if constexpr (kCamera) {
+      float* o = b.ray_sums + 12 * p;
+      const float3 sums[4] = {sum_p, sum_s, sum_l, sum_v};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[3 * k] = sums[k].x;
+        o[3 * k + 1] = sums[k].y;
+        o[3 * k + 2] = sums[k].z;
+      }
+    }
     if (a.shaded) {
       a.shaded[4 * p] = scattered;
       a.shaded[4 * p + 1] = quiet_light;
@@ -407,6 +602,18 @@ __global__ void __launch_bounds__(128, 4)
     }
   }
   if (!kGlobalTf) flush_tf_grad(acc, a.R, b.d_tf);
+}
+
+template <bool kAnalytic, bool kCamera>
+static void launch_bwd(const MarchBwdArgs& b, dim3 grid, dim3 block,
+                       cudaStream_t s) {
+  if (b.f.R <= kMaxSharedTexels) {
+    march_diff_bwd_kernel<false, kAnalytic, kCamera>
+        <<<grid, block, 2 * b.f.R * sizeof(float4), s>>>(b);
+  } else {
+    march_diff_bwd_kernel<true, kAnalytic, kCamera><<<grid, block, 0, s>>>(
+        b);
+  }
 }
 
 extern "C" int dr_march_diff_bwd(const MarchBwdArgs* b, int device,
@@ -419,11 +626,17 @@ extern "C" int dr_march_diff_bwd(const MarchBwdArgs* b, int device,
   const dim3 grid((a.W + block.x - 1) / block.x,
                   (a.H + block.y - 1) / block.y);
   cudaStream_t s = (cudaStream_t)stream;
-  if (a.R <= kMaxSharedTexels) {
-    march_diff_bwd_kernel<false><<<grid, block, 2 * a.R * sizeof(float4),
-                                   s>>>(*b);
+  const bool camera = b->ray_sums != nullptr;
+  if (a.analytic) {
+    if (camera) {
+      launch_bwd<true, true>(*b, grid, block, s);
+    } else {
+      launch_bwd<true, false>(*b, grid, block, s);
+    }
+  } else if (camera) {
+    launch_bwd<false, true>(*b, grid, block, s);
   } else {
-    march_diff_bwd_kernel<true><<<grid, block, 0, s>>>(*b);
+    launch_bwd<false, false>(*b, grid, block, s);
   }
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,10 @@
 // sample_gradient, shade_sample), so it takes bitwise the same samples,
 // opacities and early-ray-termination decisions.  Their 7-point stencil
 // loads each distinct voxel once (see "The 7-point stencil" below); K3 takes
-// the same stencil (stencil_gradient) with fused sums.
+// the same stencil (stencil_gradient) with fused sums.  Each kernel has a
+// kAnalytic instantiation (RenderConfig.analytic_normals): the gradient is
+// the analytic in-cell derivative of the centre's 8 corners (cell_gradient),
+// which the kernel holds anyway, so it loads no voxel beyond them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,6 +47,9 @@ struct MarchArgs {
   float ambient, diffuse, specular, shininess;
   float lc_r, lc_g, lc_b, alpha_skip;
   float cell_world;  // world L-inf size of one macrocell step
+  float sc_x, sc_y, sc_z;  // f32(delta) * scale: the analytic gradient's
+                           // factor per axis
+  int analytic;      // 1: the kAnalytic instantiation
 };
 
 // Positions and voxel coordinates are rounded after every multiply and add
@@ -262,6 +268,53 @@ __device__ __forceinline__ float point_sum(const float (&v)[8], float gx,
   return s;
 }
 
+// ---------------------------------------------------------------------------
+// Analytic mode (sampling.py::sample_with_gradient_analytic): the gradient
+// is the derivative of the trilinear interpolant inside the centre's cell,
+// from its 8 corners v (order i + 2j + 4k, the high indices clamped).  Along
+// an axis it is sum_c (+-1) v_c w'_c: the sign the corner's bit on that axis,
+// w'_c the product of its weights on the other two axes.
+// ---------------------------------------------------------------------------
+
+// The three in-cell derivatives (before the scale), corner by corner;
+// kExact rounds as the plain version does (K1, K2), else fused (K3).
+template <bool kExact>
+__device__ __forceinline__ void cell_derivatives(const float (&v)[8],
+                                                 float fx, float fy,
+                                                 float fz, float& dx,
+                                                 float& dy, float& dz) {
+  const float ex = 1.0f - fx, ey = 1.0f - fy, ez = 1.0f - fz;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wx = c & 1 ? fx : ex, wy = c & 2 ? fy : ey,
+                wz = c & 4 ? fz : ez;
+    const float yz = wy * wz, xz = wx * wz, xy = wx * wy;
+    const float tx = c & 1 ? yz : -yz, ty = c & 2 ? xz : -xz,
+                tz = c & 4 ? xy : -xy;
+    if (c == 0) {
+      dx = kExact ? __fmul_rn(v[0], tx) : v[0] * tx;
+      dy = kExact ? __fmul_rn(v[0], ty) : v[0] * ty;
+      dz = kExact ? __fmul_rn(v[0], tz) : v[0] * tz;
+    } else {
+      dx = add_product<kExact>(dx, v[c], tx);
+      dy = add_product<kExact>(dy, v[c], ty);
+      dz = add_product<kExact>(dz, v[c], tz);
+    }
+  }
+}
+
+// The analytic gradient: the in-cell derivatives times sc.
+template <bool kExact>
+__device__ __forceinline__ void cell_gradient(const MarchArgs& a,
+                                              const float (&v)[8], float fx,
+                                              float fy, float fz, float& gx,
+                                              float& gy, float& gz) {
+  cell_derivatives<kExact>(v, fx, fy, fz, gx, gy, gz);
+  gx = __fmul_rn(gx, a.sc_x);
+  gy = __fmul_rn(gy, a.sc_y);
+  gz = __fmul_rn(gz, a.sc_z);
+}
+
 // Whether the zero-opacity skip is exact for these shading settings.  A
 // sample of opacity 0 shades to (c.rgb * (light * 0) * lc, 0): zeros, so
 // it leaves r, g, b and T bitwise unchanged, wherever light * 0 is a zero.
@@ -287,12 +340,15 @@ struct Sample {
   bool compact;   // the stencil's compact branch (else the general one)
   bool zero;      // opacity exactly 0, a finite TF colour and the skip
                   // exact (zero_skip_exact): the sample shades to 0
-  float cell[8];  // compact: the centre's cell, corner order i + 2j + 4k
+  float cell[8];  // compact or analytic: the centre's cell, corner order
+                  // i + 2j + 4k
 };
 
 // The position, the stencil's axes and branch, the centre value, its TF
-// colour and opacity.
-template <bool kGlobalTf>
+// colour and opacity.  kAnalytic: the centre's 8 corners, the high indices
+// clamped, are always loaded (q.cell); only each axis's lo and f are set,
+// and the sample counts as compact.
+template <bool kGlobalTf, bool kAnalytic>
 __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
                                                 const float4* tf, int s,
                                                 float t0, float dt, float ox,
@@ -304,20 +360,35 @@ __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
   q.px = ray_coord(ox, t, dx);
   q.py = ray_coord(oy, t, dy);
   q.pz = ray_coord(oz, t, dz);
-  q.ax = stencil_axis(q.px, a.delta, a.scale_x, a.X);
-  q.ay = stencil_axis(q.py, a.delta, a.scale_y, a.Y);
-  q.az = stencil_axis(q.pz, a.delta, a.scale_z, a.Z);
-  q.compact = q.ax.ok && q.ay.ok && q.az.ok;
-  if (q.compact) {
+  if constexpr (kAnalytic) {
+    int hx, hy, hz;
+    q.ax.f = voxel_axis(q.px, a.scale_x, a.X, q.ax.lo, hx);
+    q.ay.f = voxel_axis(q.py, a.scale_y, a.Y, q.ay.lo, hy);
+    q.az.f = voxel_axis(q.pz, a.scale_z, a.Z, q.az.lo, hz);
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      q.cell[c] = voxel(a, q.ax.lo + (c & 1), q.ay.lo + ((c >> 1) & 1),
-                        q.az.lo + (c >> 2));
+      q.cell[c] = voxel(a, c & 1 ? hx : q.ax.lo, c & 2 ? hy : q.ay.lo,
+                        c & 4 ? hz : q.az.lo);
     }
+    q.compact = true;
     q.v = point_sum<true>(q.cell, 1.0f - q.ax.f, q.ax.f, 1.0f - q.ay.f,
                           q.ay.f, 1.0f - q.az.f, q.az.f);
   } else {
-    q.v = trilinear<true>(a, q.px, q.py, q.pz);
+    q.ax = stencil_axis(q.px, a.delta, a.scale_x, a.X);
+    q.ay = stencil_axis(q.py, a.delta, a.scale_y, a.Y);
+    q.az = stencil_axis(q.pz, a.delta, a.scale_z, a.Z);
+    q.compact = q.ax.ok && q.ay.ok && q.az.ok;
+    if (q.compact) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        q.cell[c] = voxel(a, q.ax.lo + (c & 1), q.ay.lo + ((c >> 1) & 1),
+                          q.az.lo + (c >> 2));
+      }
+      q.v = point_sum<true>(q.cell, 1.0f - q.ax.f, q.ax.f, 1.0f - q.ay.f,
+                            q.ay.f, 1.0f - q.az.f, q.az.f);
+    } else {
+      q.v = trilinear<true>(a, q.px, q.py, q.pz);
+    }
   }
   q.c = tf_lerp<kGlobalTf, true>(tf, a.R, q.v);
   q.alpha = opacity(a, q.c.w);
@@ -408,11 +479,17 @@ __device__ __forceinline__ int stencil_gradient(
   return loads;
 }
 
-// K1/K2: the gradient of a sample from sample_centre.
+// K1/K2: the gradient of a sample from sample_centre; kAnalytic loads
+// nothing.
+template <bool kAnalytic>
 __device__ __forceinline__ void sample_gradient(const MarchArgs& a,
                                                 Sample& q) {
-  stencil_gradient<true>(a, q.ax, q.ay, q.az, q.compact, q.cell, q.px, q.py,
-                         q.pz, q.gx, q.gy, q.gz);
+  if constexpr (kAnalytic) {
+    cell_gradient<true>(a, q.cell, q.ax.f, q.ay.f, q.az.f, q.gx, q.gy, q.gz);
+  } else {
+    stencil_gradient<true>(a, q.ax, q.ay, q.az, q.compact, q.cell, q.px,
+                           q.py, q.pz, q.gx, q.gy, q.gz);
+  }
 }
 
 // The sample's premultiplied colour: 0 for a zero sample (K1 composites it
@@ -427,16 +504,16 @@ __device__ __forceinline__ void shade_sample(const MarchArgs& a, Sample& q,
 
 // One sample of the differentiable march, forward only: the centre, then
 // the gradient and the shading unless it is a zero sample.
-template <bool kGlobalTf>
+template <bool kGlobalTf, bool kAnalytic>
 __device__ __forceinline__ Sample march_sample(const MarchArgs& a,
                                                const float4* tf, int s,
                                                float t0, float dt, float ox,
                                                float oy, float oz, float dx,
                                                float dy, float dz,
                                                bool zero_skip) {
-  Sample q = sample_centre<kGlobalTf>(a, tf, s, t0, dt, ox, oy, oz, dx, dy,
-                                      dz, zero_skip);
-  if (!q.zero) sample_gradient(a, q);
+  Sample q = sample_centre<kGlobalTf, kAnalytic>(a, tf, s, t0, dt, ox, oy,
+                                                 oz, dx, dy, dz, zero_skip);
+  if (!q.zero) sample_gradient<kAnalytic>(a, q);
   shade_sample(a, q, dx, dy, dz, ox, oy, oz);
   return q;
 }

@@ -9,9 +9,13 @@
 * :func:`adamw_onecycle` -- AdamW under a cosine OneCycle schedule, the
   volume-fitting optimizer.
 * :func:`project_nonneg`, :func:`project_unit` -- in-place projections.
-* :func:`nan_to_num_grads` -- the reference's NaN/Inf scrub.
+* :func:`nan_to_num_grads` -- the reference's NaN/Inf scrub, and
+  :func:`value_and_clean_grad`, a function's value and its scrubbed
+  gradients.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -107,5 +111,35 @@ def nan_to_num_grads(grads):
     return type(grads)(nan_to_num_grads(g) for g in grads)
 
 
+def value_and_clean_grad(fn: Callable, argnums=0, has_aux: bool = False):
+    """``fn``'s value and its gradients with respect to the positional
+    arguments ``argnums`` (an int or a tuple, as in
+    ``jax.value_and_grad``), scrubbed by :func:`nan_to_num_grads`.  ``fn``
+    returns a scalar tensor, or ``(scalar, aux)`` with ``has_aux``; the
+    wrapped function returns ``(value, grads)`` or ``((value, aux),
+    grads)``, all detached.  Arguments are differentiated as given: pass
+    float tensors; they need not require grad."""
+    single = isinstance(argnums, int)
+    nums = (argnums,) if single else tuple(argnums)
+
+    def wrapped(*args, **kwargs):
+        args = list(args)
+        for i in nums:
+            args[i] = torch.as_tensor(args[i]).detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = fn(*args, **kwargs)
+            value, aux = out if has_aux else (out, None)
+            grads = torch.autograd.grad(value, [args[i] for i in nums],
+                                        allow_unused=True)
+        grads = nan_to_num_grads(tuple(
+            torch.zeros_like(args[i]) if g is None else g
+            for i, g in zip(nums, grads)))
+        grads = grads[0] if single else grads
+        value = value.detach()
+        return ((value, aux) if has_aux else value), grads
+
+    return wrapped
+
+
 __all__ = ["TFMomentum", "tf_momentum", "adamw_onecycle", "project_nonneg",
-           "project_unit", "nan_to_num_grads"]
+           "project_unit", "nan_to_num_grads", "value_and_clean_grad"]

@@ -6,7 +6,8 @@ camera ``([BS,] 3)``; if any of them is batched, all are broadcast to the
 batch.  Output ``([BS,] 4, H, W)``.  A batch is a Python loop over views.
 ``forward`` is differentiable with respect to the volume and the TF (an
 unbatched input broadcast over a batch gets the sum of its views'
-gradients); the camera gets no gradient, as in the reference.
+gradients); the camera gets no gradient, as in the reference, unless the
+module is built with ``camera_grads=True``.
 """
 from __future__ import annotations
 
@@ -52,14 +53,20 @@ class Raycaster(nn.Module):
         fov / near / far: perspective camera parameters.
         device: where the module renders; inputs are moved there.  Pass
             "cpu" to render with the plain torch versions.
-        **config_kwargs: further :class:`RenderConfig` fields.
+        camera_grads: ``forward`` also differentiates ``look_from`` (as
+            ``torch_interop.TorchRaycaster(camera_grads=True)`` does);
+            without it ``look_from.grad`` stays None, the reference's
+            contract.
+        **config_kwargs: further :class:`RenderConfig` fields, such as
+            ``analytic_normals``.
     """
 
     def __init__(self, volume_shape, output_shape, tf_shape: int,
                  sampling_rate: float = 1.0, jitter: bool = True,
                  max_samples: int = 512, fov: float = 30.0,
                  near: float = 0.1, far: float = 100.0, seed: int = 0,
-                 device="cuda", **config_kwargs):
+                 device="cuda", camera_grads: bool = False,
+                 **config_kwargs):
         super().__init__()
         d, h, w = volume_shape
         internal_shape = (w, d, h)
@@ -68,12 +75,13 @@ class Raycaster(nn.Module):
             image_shape=(output_shape[1], output_shape[0]),
             tf_resolution=tf_shape, sampling_rate=sampling_rate,
             max_samples=max_samples, fov=fov, near=near, far=far,
-            jitter=jitter, **config_kwargs)
+            jitter=jitter, camera_grads=camera_grads, **config_kwargs)
         self.volume_shape = internal_shape
         self.output_shape = tuple(output_shape)
         self.tf_shape = tf_shape
         self.sampling_rate = sampling_rate
         self.jitter = jitter
+        self.camera_grads = camera_grads
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -118,7 +126,9 @@ class Raycaster(nn.Module):
     def forward(self, volume, tf, look_from, u: Optional[torch.Tensor] = None,
                 sampling_rate: Optional[float] = None) -> torch.Tensor:
         """Differentiable-path render; returns ``([BS,] 4, H, W)``,
-        differentiable with respect to ``volume`` and ``tf``.  ``u``
+        differentiable with respect to ``volume`` and ``tf``, and to
+        ``look_from`` with ``camera_grads`` (a camera broadcast over a batch
+        gets the sum of its views' gradients).  ``u``
         ((H, W), or (BS, H, W) for a batch) jitters ray starts with the
         given draw."""
         return self.forward_with_aux(volume, tf, look_from, u,
@@ -130,6 +140,8 @@ class Raycaster(nn.Module):
                          ) -> RenderOutput:
         volume, tf, look_from = (self._as_input(volume), self._as_input(tf),
                                  self._as_input(look_from))
+        if not self.camera_grads:
+            look_from = look_from.detach()
         sr = self.sampling_rate if sampling_rate is None else sampling_rate
         batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
                                                            look_from)

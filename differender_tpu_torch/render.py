@@ -12,8 +12,13 @@ beside it, which the tests hold against the JAX package and
 differentiable march is differentiated by autograd.  Every version marches
 each ray front to back and carries the transmittance ``T``
 multiplicatively: a step composites while ``T > f32(1 - ert_threshold)``,
-and the image alpha is ``1 - T``.  Gradients flow to the volume and the TF,
-never to the camera (as in the reference).
+and the image alpha is ``1 - T``.  ``config.analytic_normals`` selects the
+gradient of every march: the 7-point central-difference stencil, or the
+analytic in-cell gradient of the centre's 8 corners.  Gradients flow to the
+volume and the TF, and to the camera where ``look_from`` requires grad (as
+JAX's functional AD gives them): on CUDA through K2's per-ray position sums
+(its camera instantiation) and autograd of the ray setup, on the CPU
+through autograd of the plain march.
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ from .config import RenderConfig
 from .geometry import RayBundle, make_rays, march_params
 from .occupancy import build_occupancy, jump_steps
 from .ops.bricks import grid_shape
-from .sampling import (apply_tf, march_tf, sample_with_gradient, trilinear,
-                       voxel_coords, voxel_scale)
+from .sampling import (apply_tf, march_tf, sample_with_gradient,
+                       sample_with_gradient_analytic, trilinear, voxel_coords,
+                       voxel_scale)
 from .shading import shade
 
 
@@ -48,13 +54,29 @@ def _ert_threshold(config: RenderConfig) -> float:
     return float(np.float32(1.0 - config.ert_threshold))
 
 
-def _ray_soa(rays: RayBundle):
-    """Flat (H*W,) ray state: directions, ``t0``, ``dt`` and ``n``."""
+class RaySoA(NamedTuple):
+    """Flat ray state of a march: sample ``s`` of ray ``i`` sits at
+    ``origin + (t0[i] + s * dt[i]) * dirs[i]``.  Differentiable in
+    ``origin``, ``dirs``, ``t0`` and ``dt`` where the bundle was."""
+    origin: torch.Tensor   # (3,)
+    dirs: torch.Tensor     # (H*W, 3)
+    t0: torch.Tensor       # (H*W,)
+    dt: torch.Tensor       # (H*W,)
+    n: torch.Tensor        # (H*W,) int32 sample count
+
+
+def _ray_soa(rays: RayBundle) -> RaySoA:
     params = march_params(rays)
     n = rays.n_samples.numel()
-    d = rays.dirs.reshape(n, 3)
-    return d, params.t0.reshape(n), params.dt.reshape(n), \
-        rays.n_samples.reshape(n)
+    return RaySoA(rays.origin.to(torch.float32), rays.dirs.reshape(n, 3),
+                  params.t0.reshape(n), params.dt.reshape(n),
+                  rays.n_samples.reshape(n))
+
+
+def _sampler(config: RenderConfig):
+    """The value-and-gradient sampler of the config's normal mode."""
+    return (sample_with_gradient_analytic if config.analytic_normals
+            else sample_with_gradient)
 
 
 def _check_grid(occupancy, config) -> None:
@@ -73,7 +95,7 @@ def _check_grid(occupancy, config) -> None:
 # ---------------------------------------------------------------------------
 
 def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
-                 nondiff, occupancy=None):
+                 nondiff, occupancy=None, taps=None):
     """Sequential march over the rays still alive; returns the flat
     composite ``(rgb, T)`` and per-ray counts ``(visited, composited)``.
     Each ray carries its own step index ``s``.  With an ``occupancy`` grid
@@ -84,9 +106,17 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
     :func:`march_tf`).  For the inference march it also counts, per ray, the
     visited samples whose centre cell's low voxel indices differ from the
     previous visited sample's, the first included: kernel K3's cell loads
-    (else that count is None)."""
-    origin = rays.origin.to(torch.float32)
-    dirs, t0, dt, _ = _ray_soa(rays)
+    (else that count is None).
+
+    ``taps`` (differentiable march only), a list, receives per iteration
+    ``(rays, s, pos, z)``: the rays stepped, their step indices and
+    positions, and five zero tensors that the march adds to the sample's
+    position, value, gradient, the position in its light direction and its
+    view direction; their gradients are those quantities' cotangents
+    (:func:`march_diff_cotangents_plain`).  Adding zeros changes no
+    value."""
+    origin, dirs, t0, dt, _ = _ray_soa(rays)
+    sample = _sampler(config)
     N = dirs.shape[0]
     dev = volume.device
     thr = _ert_threshold(config)
@@ -130,13 +160,24 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
             if occupancy is not None:
                 look[idx] = ~keep
             rgba, pos, on = rgba[keep], pos[keep], idx[keep]
-            _, grad = sample_with_gradient(volume, pos, config.normal_delta)
+            _, grad = sample(volume, pos, config.normal_delta)
+            light_pos, view = pos, dirs[on]
         else:
-            intensity, grad = sample_with_gradient(volume, pos,
-                                                   config.normal_delta)
+            on, view = idx, dirs[idx]
+            if taps is not None:
+                m = idx.numel()
+                z = [torch.zeros(shape, dtype=torch.float32, device=dev,
+                                 requires_grad=True)
+                     for shape in ((m, 3), (m,), (m, 3), (m, 3), (m, 3))]
+                taps.append((idx, s[idx].clone(), pos.detach(), z))
+                pos, view = pos + z[0], view + z[4]
+            intensity, grad = sample(volume, pos, config.normal_delta)
+            light_pos = pos
+            if taps is not None:
+                intensity, grad, light_pos = (intensity + z[1], grad + z[2],
+                                              pos + z[3])
             rgba = march_tf(tf, intensity)
-            on = idx
-        shaded = shade(pos, grad, rgba, dirs[on], origin, sampling_rate,
+        shaded = shade(light_pos, grad, rgba, view, origin, sampling_rate,
                        config, clamp_light=not nondiff)
         Ti = T[on]
         rgb = rgb.index_add(0, on, Ti[:, None] * shaded[:, :3])
@@ -164,6 +205,77 @@ def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
                                       nondiff=False)
     image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1).reshape(H, W, 4)
     return image, (comp + 1).reshape(H, W)
+
+
+class SampleCotangents(NamedTuple):
+    """Per sample of a differentiable march (M samples), the cotangents
+    that K2's camera instantiation sums per ray."""
+    ray: torch.Tensor       # (M,) int64 flat ray index
+    s: torch.Tensor         # (M,) int32 step index
+    pos: torch.Tensor       # (M, 3) position o + (t0 + s*dt) d
+    d_pos: torch.Tensor     # (M, 3) the position's whole cotangent
+    d_value: torch.Tensor   # (M,) the sampled value's
+    d_grad: torch.Tensor    # (M, 3) the sampled gradient's
+    d_light: torch.Tensor   # (M, 3) the position's in the light direction
+                            # p - (o + (0, 1, 0)) alone
+    d_view: torch.Tensor    # (M, 3) the view direction's (the ray's dirs)
+
+
+def march_diff_cotangents_plain(volume: torch.Tensor, tf: torch.Tensor,
+                                rays: RayBundle, config: RenderConfig,
+                                sampling_rate, grad: torch.Tensor,
+                                ert: bool = True) -> SampleCotangents:
+    """Autograd of :func:`march_diff_plain` for the image cotangent
+    ``grad`` (H, W, 4), taken at each sample (the ``taps`` of the plain
+    march): the plain version of K2's per-ray position sums
+    (:func:`ray_sums`).  Neither is exported: they are the oracle that the
+    tests and ``chip_smoke.py`` hold K2's camera sums to, ray by ray."""
+    limit = torch.clamp(rays.n_samples.reshape(-1), max=config.max_samples)
+    taps = []
+    with torch.enable_grad():
+        rgb, T, _, _, _ = _plain_march(volume, tf, rays, config,
+                                       sampling_rate, limit, ert,
+                                       nondiff=False, taps=taps)
+        image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1)
+        if not taps:          # no ray meets the volume
+            e = volume.new_zeros((0, 3))
+            return SampleCotangents(e[:, 0].long(), e[:, 0].int(), e, e,
+                                    e[:, 0], e, e, e)
+        leaves = [z for tap in taps for z in tap[3]]
+        got = torch.autograd.grad(image, leaves, grad.reshape(-1, 4),
+                                  allow_unused=True)
+    cots = [torch.cat([torch.zeros_like(z) if g is None else g
+                       for z, g in zip(leaves[k::5], got[k::5])])
+            for k in range(5)]
+    ray, s, pos = (torch.cat([tap[i] for tap in taps]) for i in range(3))
+    return SampleCotangents(ray, s, pos, *cots)
+
+
+def ray_sums(cot: SampleCotangents, image_shape) -> torch.Tensor:
+    """K2's 12 per-ray sums from per-sample cotangents, (H, W, 12):
+    ``P = sum d_pos``, ``S = sum s * d_pos``, ``L = sum d_light`` and
+    ``V = sum d_view``."""
+    H, W = image_shape
+    out = torch.zeros((H * W, 12), dtype=torch.float32,
+                      device=cot.d_pos.device)
+    s = cot.s.to(torch.float32)[:, None]
+    terms = torch.cat([cot.d_pos, s * cot.d_pos, cot.d_light, cot.d_view],
+                      -1)
+    return out.index_add_(0, cot.ray, terms).reshape(H, W, 12)
+
+
+def ray_cotangents(sums: torch.Tensor, dirs: torch.Tensor, t0: torch.Tensor,
+                   dt: torch.Tensor):
+    """The cotangents of a march's ray tensors from K2's per-ray sums
+    ``sums`` (N, 12) (:func:`ray_sums`): sample ``s`` sits at ``o + (t0 +
+    s*dt) d``, its light at ``o + (0, 1, 0)``, and shading's view direction
+    is ``d``.  Returns ``(d_origin (3,), d_dirs (N, 3), d_t0 (N,),
+    d_dt (N,))``: ``sum (P - L)``, ``t0 P + dt S + V``, ``d.P`` and
+    ``d.S``."""
+    P, S, L, V = sums.reshape(-1, 12).split(3, dim=-1)
+    d_origin = (P - L).sum(0)
+    d_dirs = t0[:, None] * P + dt[:, None] * S + V
+    return (d_origin, d_dirs, (dirs * P).sum(-1), (dirs * S).sum(-1))
 
 
 @torch.no_grad()
@@ -211,13 +323,15 @@ class _MarchArgs(ctypes.Structure):
         + [(f, ctypes.c_float) for f in (
             "scale_x", "scale_y", "scale_z", "delta", "inv_sr", "thr",
             "ambient", "diffuse", "specular", "shininess",
-            "lc_r", "lc_g", "lc_b", "alpha_skip", "cell_world")])
+            "lc_r", "lc_g", "lc_b", "alpha_skip", "cell_world",
+            "sc_x", "sc_y", "sc_z")]
+        + [("analytic", ctypes.c_int)])
 
 
 class _MarchBwdArgs(ctypes.Structure):
     """Mirror of ``struct MarchBwdArgs`` in ``csrc/march_bwd.cu``."""
     _fields_ = [("f", _MarchArgs)] + [(f, ctypes.c_void_p) for f in (
-        "grad", "d_volume", "d_tf")]
+        "grad", "d_volume", "d_tf", "ray_sums")]
 
 
 def _checked(name, t, dev, shape=None, dtype=torch.float32):
@@ -245,12 +359,12 @@ def _occupancy_args(occupancy, config, dev):
     return dist, far, ints, float(np.float32(occupancy.cell_world))
 
 
-def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
+def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
                 image, steps, shaded=None, occupancy=None, counts=None):
-    """Validate the operands and fill ``MarchArgs``.  Returns the struct and
-    the tensors it points into, which the caller keeps referenced until the
-    launch is enqueued (the caching allocator keeps their memory for the
-    stream after that)."""
+    """Validate the operands and fill ``MarchArgs`` for the rays ``soa``
+    (:class:`RaySoA`).  Returns the struct and the tensors it points into,
+    which the caller keeps referenced until the launch is enqueued (the
+    caching allocator keeps their memory for the stream after that)."""
     dev = volume.device
     H, W = config.image_shape
     volume = _checked("volume", volume, dev, config.volume_shape)
@@ -259,17 +373,17 @@ def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
     tf = _checked("tf", tf, dev)
     if tf.data_ptr() % 16:
         tf = tf.clone()          # float4 loads need 16-byte alignment
-    origin = _checked("look_from", rays.origin, dev, (3,))
-    dirs, t0, dt, n = _ray_soa(rays)
-    dirs = _checked("ray dirs", dirs, dev, (H * W, 3))
+    origin = _checked("look_from", soa.origin, dev, (3,))
+    dirs = _checked("ray dirs", soa.dirs, dev, (H * W, 3))
     dx, dy, dz = (dirs[:, i].contiguous() for i in range(3))
-    t0 = _checked("t0", t0, dev, (H * W,))
-    dt = _checked("dt", dt, dev, (H * W,))
-    n = _checked("n_samples", n, dev, (H * W,), torch.int32)
+    t0 = _checked("t0", soa.t0, dev, (H * W,))
+    dt = _checked("dt", soa.dt, dev, (H * W,))
+    n = _checked("n_samples", soa.n, dev, (H * W,), torch.int32)
     image = _checked("image", image, dev, (H, W, 4))
     if image.data_ptr() % 16:
         image = image.clone()    # float4 loads need 16-byte alignment
     scale = voxel_scale(config.volume_shape)
+    sc = np.float32(config.normal_delta) * scale
     X, Y, Z = config.volume_shape
     lc = config.light_color
     dist, far, occ_ints, cell_world = _occupancy_args(occupancy, config,
@@ -288,7 +402,8 @@ def _march_args(volume, tf, rays, config, sampling_rate, ert, max_steps,
         float(np.float32(1.0) / np.float32(sampling_rate)),
         _ert_threshold(config), config.ambient, config.diffuse,
         config.specular, config.shininess, lc[0], lc[1], lc[2],
-        config.alpha_skip, cell_world)
+        config.alpha_skip, cell_world, float(sc[0]), float(sc[1]),
+        float(sc[2]), int(config.analytic_normals))
     return args, (volume, tf, origin, dx, dy, dz, t0, dt, n, image, dist,
                   far)
 
@@ -299,18 +414,18 @@ def _launch(entry, args, volume):
                     _build.stream_of(volume)), entry)
 
 
-def _counts_out(name, counts, dev, shape):
-    """Checks an optional int32 tensor of per-ray counts that a kernel
+def _counts_out(name, counts, dev, shape, dtype=torch.int32):
+    """Checks an optional tensor of per-ray counts or sums that a kernel
     writes, and returns it (or None)."""
     if counts is None:
         return None
-    _checked(name, counts, dev, shape, torch.int32)
+    _checked(name, counts, dev, shape, dtype)
     if not counts.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return counts
 
 
-def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
+def _launch_march(entry, volume, tf, soa, config, sampling_rate, ert,
                   max_steps, shaded=None, occupancy=None, counts=None):
     """Allocate the outputs and launch one forward march kernel; ``shaded``
     and ``counts`` (if given) receive its per-ray counts."""
@@ -318,10 +433,18 @@ def _launch_march(entry, volume, tf, rays, config, sampling_rate, ert,
     dev = volume.device
     image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
-    args, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
+    args, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
                              max_steps, image, steps, shaded, occupancy,
                              counts)
     _launch(entry, args, keep[0])
+    return image, steps
+
+
+def _k1(volume, tf, soa, config, sampling_rate, ert, counts=None):
+    image, steps = _launch_march(
+        "dr_march_diff_fwd", volume, tf, soa, config, sampling_rate, ert,
+        config.max_samples, counts)
+    march_diff_fwd.launches += 1
     return image, steps
 
 
@@ -334,7 +457,8 @@ def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     ``counts``, an (H, W, 2) int32 tensor beside the volume, receives two
     counts per ray: the samples of opacity exactly 0, which K1 composites
     without their gradient and shading, and the samples of the stencil's
-    general branch (K1 only: ``chip_smoke.py`` reads them)."""
+    general branch (0 with ``analytic_normals``; K1 only: ``chip_smoke.py``
+    reads them)."""
     if _build.uses_plain(volume):
         if counts is not None:
             raise ValueError("counts are counted by kernel K1 only; the "
@@ -344,11 +468,8 @@ def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                                     ert)
     counts = _counts_out("counts", counts, volume.device,
                          config.image_shape + (2,))
-    image, steps = _launch_march(
-        "dr_march_diff_fwd", volume, tf, rays, config, sampling_rate, ert,
-        config.max_samples, counts)
-    march_diff_fwd.launches += 1
-    return image, steps
+    return _k1(volume, tf, _ray_soa(rays), config, sampling_rate, ert,
+               counts)
 
 
 march_diff_fwd.launches = 0
@@ -373,10 +494,35 @@ def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
     return d_v, d_t, steps
 
 
+def _k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
+        counts=None, sums=None):
+    """One launch of K2, its camera instantiation where ``sums`` (an
+    (H, W, 12) f32 tensor) is given to receive the per-ray sums."""
+    H, W = config.image_shape
+    dev = volume.device
+    steps = torch.empty((H, W), dtype=torch.int32, device=dev)
+    fwd, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
+                            config.max_samples, image, steps, counts)
+    grad = _checked("image cotangent", grad, dev, (H, W, 4))
+    if grad.data_ptr() % 16:
+        grad = grad.clone()      # float4 loads need 16-byte alignment
+    d_volume = torch.zeros(config.volume_shape, dtype=torch.float32,
+                           device=dev)
+    d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
+    args = _MarchBwdArgs(fwd, grad.data_ptr(), d_volume.data_ptr(),
+                         d_tf.data_ptr(),
+                         sums.data_ptr() if sums is not None else None)
+    _launch("dr_march_diff_bwd", args, keep[0])
+    march_diff_bwd.launches += 1
+    march_diff_bwd.camera_launches += sums is not None
+    return d_volume, d_tf, steps
+
+
 def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                    config: RenderConfig, sampling_rate, image: torch.Tensor,
                    grad: torch.Tensor, ert: bool = True, *,
-                   counts: Optional[torch.Tensor] = None):
+                   counts: Optional[torch.Tensor] = None,
+                   sums: Optional[torch.Tensor] = None):
     """Backward of the differentiable march for the image cotangent
     ``grad`` (H, W, 4): kernel K2 on CUDA tensors (one launch, counted in
     ``march_diff_bwd.launches``), :func:`march_diff_bwd_plain` on CPU.
@@ -391,69 +537,76 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     the samples that add anything to ``d_volume``, the samples that add
     nothing but whose ``d_tf`` needs the light (so the gradient points), the
     atomics K2 added to ``d_volume``, and the samples of the stencil's
-    general branch (K2 only: ``chip_smoke.py`` reads them for K2's bound)."""
+    general branch (K2 only: ``chip_smoke.py`` reads them for K2's bound).
+    ``sums``, an (H, W, 12) f32 tensor beside the volume, receives K2's
+    per-ray position sums (:func:`ray_sums`; K2's camera instantiation,
+    also counted in ``march_diff_bwd.camera_launches``), the plain version
+    of which is :func:`march_diff_cotangents_plain`."""
     if _build.uses_plain(volume):
-        if counts is not None:
-            raise ValueError("counts are counted by kernel K2 only; "
+        if counts is not None or sums is not None:
+            raise ValueError("counts and sums are taken by kernel K2 only; "
                              "the volume is on the CPU")
         return march_diff_bwd_plain(volume, tf, rays, config, sampling_rate,
                                     grad, ert)
     H, W = config.image_shape
-    dev = volume.device
-    steps = torch.empty((H, W), dtype=torch.int32, device=dev)
-    counts = _counts_out("counts", counts, dev, (H, W, 4))
-    fwd, keep = _march_args(volume, tf, rays, config, sampling_rate, ert,
-                            config.max_samples, image, steps, counts)
-    grad = _checked("image cotangent", grad, dev, (H, W, 4))
-    if grad.data_ptr() % 16:
-        grad = grad.clone()      # float4 loads need 16-byte alignment
-    d_volume = torch.zeros(config.volume_shape, dtype=torch.float32,
-                           device=dev)
-    d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
-    args = _MarchBwdArgs(fwd, grad.data_ptr(), d_volume.data_ptr(),
-                         d_tf.data_ptr())
-    _launch("dr_march_diff_bwd", args, keep[0])
-    march_diff_bwd.launches += 1
-    return d_volume, d_tf, steps
+    counts = _counts_out("counts", counts, volume.device, (H, W, 4))
+    sums = _counts_out("sums", sums, volume.device, (H, W, 12),
+                       torch.float32)
+    return _k2(volume, tf, _ray_soa(rays), config, sampling_rate, image,
+               grad, ert, counts, sums)
 
 
 march_diff_bwd.launches = 0
+march_diff_bwd.camera_launches = 0
 
 
 class _MarchDiff(torch.autograd.Function):
-    """K1 forward, K2 backward.  Saves the inputs and the image (O(H*W)
-    state beside the volume); ``valid_steps`` is not differentiable."""
+    """K1 forward, K2 backward, differentiable in the volume, the TF and
+    the ray tensors of :class:`RaySoA`.  Saves the inputs and the image
+    (O(H*W) state beside the volume); ``valid_steps`` is not
+    differentiable.  Where a ray tensor needs a gradient, K2's camera
+    instantiation also sums the position cotangents per ray, and
+    :func:`ray_cotangents` maps them onto the ray tensors."""
 
     @staticmethod
-    def forward(ctx, volume, tf, rays, config, sampling_rate, ert):
-        image, steps = march_diff_fwd(volume, tf, rays, config,
-                                      sampling_rate, ert)
-        ctx.save_for_backward(volume, tf, image)
-        ctx.march = (rays, config, sampling_rate, ert)
+    def forward(ctx, volume, tf, origin, dirs, t0, dt, n, config,
+                sampling_rate, ert):
+        soa = RaySoA(origin, dirs, t0, dt, n)
+        image, steps = _k1(volume, tf, soa, config, sampling_rate, ert)
+        ctx.save_for_backward(volume, tf, origin, dirs, t0, dt, n, image)
+        ctx.march = (config, sampling_rate, ert)
         ctx.mark_non_differentiable(steps)
         return image, steps
 
     @staticmethod
     def backward(ctx, g_image, _g_steps):
-        volume, tf, image = ctx.saved_tensors
-        rays, config, sampling_rate, ert = ctx.march
-        d_volume, d_tf, _ = march_diff_bwd(volume, tf, rays, config,
-                                           sampling_rate, image, g_image,
-                                           ert)
-        need_v, need_t = ctx.needs_input_grad[:2]
-        return (d_volume if need_v else None, d_tf if need_t else None,
-                None, None, None, None)
+        volume, tf, origin, dirs, t0, dt, n, image = ctx.saved_tensors
+        config, sampling_rate, ert = ctx.march
+        need = ctx.needs_input_grad
+        camera = any(need[2:6])
+        sums = (torch.empty(config.image_shape + (12,), dtype=torch.float32,
+                            device=volume.device) if camera else None)
+        d_volume, d_tf, _ = _k2(volume, tf, RaySoA(origin, dirs, t0, dt, n),
+                                config, sampling_rate, image, g_image, ert,
+                                sums=sums)
+        d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
+                  else (None,) * 4)
+        grads = (d_volume, d_tf) + d_rays
+        return tuple(g if k else None for g, k in zip(grads, need[:6])) + \
+            (None,) * 4
 
 
 def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                config: RenderConfig, sampling_rate, ert: bool = True):
-    """Differentiable-path march, differentiable in ``volume`` and ``tf``:
-    K1 forward and K2 backward on CUDA tensors, :func:`march_diff_plain`
-    (differentiated by autograd) on CPU tensors.  Returns
-    ``(image (H, W, 4), valid_steps (H, W))``."""
+    """Differentiable-path march, differentiable in ``volume``, ``tf`` and
+    the ray bundle (so in the camera that built it): K1 forward and K2
+    backward on CUDA tensors, :func:`march_diff_plain` (differentiated by
+    autograd) on CPU tensors.  Returns ``(image (H, W, 4), valid_steps
+    (H, W))``."""
     if _build.uses_plain(volume):
         return march_diff_plain(volume, tf, rays, config, sampling_rate, ert)
-    return _MarchDiff.apply(volume, tf, rays, config, sampling_rate, ert)
+    return _MarchDiff.apply(volume, tf, *_ray_soa(rays), config,
+                            sampling_rate, ert)
 
 
 def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
@@ -467,8 +620,9 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     counts per ray: K3's loads of the centre's 2x2x2 cell (it keeps the
     cell across samples and loads it when the centre's low voxel indices
     change), the voxels its composited samples loaded beyond that cell for
-    their gradient, and its reads of the occupancy grid (K3 only:
-    ``chip_smoke.py`` reads them)."""
+    their gradient (0 with ``analytic_normals``: the gradient comes from the
+    cell), and its reads of the occupancy grid (K3 only: ``chip_smoke.py``
+    reads them)."""
     if _build.uses_plain(volume):
         if counts is not None:
             raise ValueError("counts are counted by kernel K3 only; the "
@@ -481,8 +635,9 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     composited = torch.empty(config.image_shape, dtype=torch.int32,
                              device=volume.device)
     image, visited = _launch_march(
-        "dr_march_nondiff", volume, tf, rays, config, sampling_rate, True,
-        np.iinfo(np.int32).max, composited, occupancy, counts)
+        "dr_march_nondiff", volume, tf, _ray_soa(rays), config,
+        sampling_rate, True, np.iinfo(np.int32).max, composited, occupancy,
+        counts)
     march_nondiff.launches += 1
     return image, visited, composited
 
@@ -494,11 +649,11 @@ march_nondiff.launches = 0
 # Public functional API
 # ---------------------------------------------------------------------------
 
-def _inputs(volume, tf, look_from, config):
-    """f32 views of the inputs; the camera never gets a gradient."""
-    dev = volume.device
+def _inputs(volume, tf, look_from):
+    """f32 views of the inputs on the volume's device; a camera that
+    requires grad keeps its graph."""
     look_from = torch.as_tensor(look_from, dtype=torch.float32,
-                                device=dev).detach()
+                                device=volume.device)
     return volume.to(torch.float32), tf.to(torch.float32), look_from
 
 
@@ -522,10 +677,12 @@ def render(volume: torch.Tensor, tf: torch.Tensor, look_from,
         ert: early ray termination.
     Runs where ``volume`` lives: kernels K1 (forward) and K2 (backward) on
     CUDA, the plain march on CPU.  The image is differentiable with respect
-    to ``volume`` and ``tf``; ``look_from`` gets no gradient.
+    to ``volume`` and ``tf``, and to ``look_from`` where it requires grad
+    (as JAX's functional AD differentiates it; on CUDA K2's camera
+    instantiation then runs in place of its default one).
     """
     sr = config.sampling_rate if sampling_rate is None else sampling_rate
-    volume, tf, look_from = _inputs(volume, tf, look_from, config)
+    volume, tf, look_from = _inputs(volume, tf, look_from)
     if u is None and generator is not None:
         u = torch.rand(config.image_shape, generator=generator,
                        dtype=torch.float32, device=volume.device)
@@ -548,7 +705,7 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
     and TF is passed; the image does not change.  ``valid_steps`` is all
     ones, as in the JAX package."""
     sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
-    volume, tf, look_from = _inputs(volume, tf, look_from, config)
+    volume, tf, look_from = _inputs(volume, tf, look_from)
     if occupancy is None and config.occupancy_skip:
         occupancy = build_occupancy(volume, tf, config)
     rays = make_rays(look_from, config, sr, u=u)
@@ -570,9 +727,11 @@ def value_and_grad_render(volume: torch.Tensor, tf: torch.Tensor, look_from,
     K2 holds only O(H*W) state beside the volume, so one strategy serves
     every size: ``config.use_blockwise_grad()`` changes nothing here.
     ``u`` takes the place of the JAX package's jitter key.  Returns
-    ``(loss, (d_volume, d_tf))``, all detached."""
+    ``(loss, (d_volume, d_tf))``, all detached; the camera is held fixed
+    (:func:`render` gives its gradient where ``look_from`` requires grad)."""
     v = volume.detach().to(torch.float32).requires_grad_(True)
     t = tf.detach().to(torch.float32).requires_grad_(True)
+    look_from = torch.as_tensor(look_from).detach()
     with torch.enable_grad():
         out = render(v, t, look_from, config, sampling_rate, u=u, ert=ert)
         loss = loss_fn(out, *loss_args)
@@ -582,7 +741,14 @@ def value_and_grad_render(volume: torch.Tensor, tf: torch.Tensor, look_from,
     return loss.detach(), (d_v, d_t)
 
 
-__all__ = ["RenderOutput", "march_diff", "march_diff_fwd", "march_diff_bwd",
-           "march_diff_plain", "march_diff_bwd_plain", "march_nondiff",
-           "march_nondiff_plain", "render", "render_nondiff",
+# The JAX package's jitted entry points; PyTorch runs eagerly, so these are
+# the same functions.
+render_jit = render
+render_nondiff_jit = render_nondiff
+
+
+__all__ = ["RenderOutput", "RaySoA", "march_diff", "march_diff_fwd",
+           "march_diff_bwd", "march_diff_plain", "march_diff_bwd_plain",
+           "ray_cotangents", "march_nondiff", "march_nondiff_plain",
+           "render", "render_nondiff", "render_jit", "render_nondiff_jit",
            "value_and_grad_render"]

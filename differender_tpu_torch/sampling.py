@@ -18,6 +18,11 @@ import torch
 _CORNERS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
             (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1))
 
+# Per axis, the sign of each corner in the analytic in-cell derivative: +1
+# where the corner's bit on that axis is 1, else -1.
+_CORNER_SIGNS = np.array([[1.0 if c[ax] else -1.0 for c in _CORNERS]
+                          for ax in range(3)], np.float32)
+
 # The 7 points of a shaded sample: the centre, then +-delta per axis.
 _NORMAL_OFFSETS = np.array(
     [[0, 0, 0],
@@ -38,25 +43,33 @@ def voxel_coords(pos: torch.Tensor, volume_shape) -> torch.Tensor:
     return torch.clamp(0.5 * pos + 0.5, 0.0, 1.0) * scale
 
 
-def corner_indices_weights(pos: torch.Tensor, volume_shape):
-    """Per-axis corner indices ``(ix, iy, iz)`` each ``(..., 8)`` int64 and
-    trilinear weights ``(..., 8)``: ``low = floor(coord)``,
-    ``high = min(low+1, size-1)``, ``frac`` taken before the high clamp."""
+def _corner_factors(pos: torch.Tensor, volume_shape):
+    """Per-axis corner indices ``(ix, iy, iz)``, each ``(..., 8)`` int64,
+    and per-axis weight factors ``(fx, fy, fz)``, each ``(..., 8)``: ``f``
+    where the corner's bit on that axis is 1, else ``1 - f``.  ``low =
+    floor(coord)``, ``high = min(low+1, size-1)``, ``frac`` taken before the
+    high clamp."""
     pv = voxel_coords(pos, volume_shape)
     low_f = torch.floor(pv)
     frac = pv - low_f
     low = low_f.to(torch.int64)
-    idx = []
+    idx, fac = [], []
     for ax, size in enumerate(volume_shape):
         lo = low[..., ax]
         hi = torch.clamp(lo + 1, max=size - 1)
         idx.append(torch.stack([hi if c[ax] else lo for c in _CORNERS], -1))
-    w = torch.ones(frac.shape[:-1] + (8,), dtype=frac.dtype,
-                   device=frac.device)
-    for ax in range(3):
         f = frac[..., ax]
-        w = w * torch.stack([f if c[ax] else 1.0 - f for c in _CORNERS], -1)
-    return idx[0], idx[1], idx[2], w
+        fac.append(torch.stack([f if c[ax] else 1.0 - f for c in _CORNERS],
+                               -1))
+    return idx, fac
+
+
+def corner_indices_weights(pos: torch.Tensor, volume_shape):
+    """Per-axis corner indices ``(ix, iy, iz)`` each ``(..., 8)`` int64 and
+    trilinear weights ``(..., 8)``: ``low = floor(coord)``,
+    ``high = min(low+1, size-1)``, ``frac`` taken before the high clamp."""
+    (ix, iy, iz), fac = _corner_factors(pos, volume_shape)
+    return ix, iy, iz, (fac[0] * fac[1]) * fac[2]
 
 
 def corner_flat_weights(pos: torch.Tensor, volume_shape):
@@ -66,15 +79,45 @@ def corner_flat_weights(pos: torch.Tensor, volume_shape):
     return (ix * Y + iy) * Z + iz, w
 
 
-def trilinear(volume: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Trilinear sample of ``volume`` (X, Y, Z) at ``pos`` (..., 3)."""
-    flat, w = corner_flat_weights(pos, tuple(volume.shape))
-    terms = volume.reshape(-1)[flat] * w
-    # Corner by corner, in the kernels' order and rounding.
+def _corner_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (8 corners), corner by corner in the kernels'
+    order and rounding."""
     out = terms[..., 0]
     for c in range(1, 8):
         out = out + terms[..., c]
     return out
+
+
+def trilinear(volume: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of ``volume`` (X, Y, Z) at ``pos`` (..., 3)."""
+    flat, w = corner_flat_weights(pos, tuple(volume.shape))
+    return _corner_sum(volume.reshape(-1)[flat] * w)
+
+
+def sample_with_gradient_analytic(volume: torch.Tensor, pos: torch.Tensor,
+                                  delta: float = 1e-3):
+    """Intensity at ``pos`` and the analytic in-cell gradient of the
+    trilinear interpolant from the same 8 corners, ``(...)`` and
+    ``(..., 3)`` (``analytic_normals=True``; the JAX package's
+    ``sampling.py::sample_with_gradient_analytic``).
+
+    Per axis the gradient is ``sum_c v_c * (+-1) * w'_c``, the sign the
+    corner's bit on that axis and ``w'_c`` its weight's product over the
+    other two axes, times ``f32(delta) * voxel_scale`` (the central
+    difference's magnitude: ``2 * delta`` world is ``delta * scale``
+    voxels).  Corner sums run corner by corner, as the kernels sum them.
+    Differentiable by autograd in the volume and in ``pos``."""
+    shape = tuple(volume.shape)
+    (ix, iy, iz), fac = _corner_factors(pos, shape)
+    _, Y, Z = shape
+    vals = volume.reshape(-1)[(ix * Y + iy) * Z + iz]
+    intensity = _corner_sum(vals * ((fac[0] * fac[1]) * fac[2]))
+    sc = np.float32(delta) * voxel_scale(shape)
+    pairs = (fac[1] * fac[2], fac[0] * fac[2], fac[0] * fac[1])
+    signs = torch.as_tensor(_CORNER_SIGNS, device=pos.device)
+    grad = torch.stack([_corner_sum(vals * (signs[ax] * pairs[ax]))
+                        * float(sc[ax]) for ax in range(3)], dim=-1)
+    return intensity, grad
 
 
 def sample_with_gradient(volume: torch.Tensor, pos: torch.Tensor,
@@ -109,7 +152,8 @@ class Footprint(NamedTuple):
     corner: torch.Tensor   # (N, 7, 8) int64: the entry that holds each
                            # point's corner (points as in
                            # :func:`sample_with_gradient`, corners as in
-                           # :func:`corner_indices_weights`)
+                           # :func:`corner_indices_weights`); (N, 8) for
+                           # :func:`analytic_footprint`
 
 
 def stencil_footprint(pos: torch.Tensor, volume_shape,
@@ -139,6 +183,33 @@ def stencil_footprint(pos: torch.Tensor, volume_shape,
                          device=pos.device).index_add_(0, inv, terms)
     return Footprint(uniq // numel, uniq % numel, weight,
                      inv.reshape(n, 7, 8))
+
+
+def analytic_footprint(pos: torch.Tensor, volume_shape,
+                       delta: float = 1e-3) -> Footprint:
+    """The plain version of K2's analytic scatter: for positions ``pos``
+    (N, 3), the distinct voxels among each sample's 8 corners (fewer than 8
+    where a high index is clamped onto its low one) and each voxel's total
+    weight in the value and the three components of
+    :func:`sample_with_gradient_analytic`'s gradient.  Used as
+    :func:`stencil_footprint` is; ``corner`` is (N, 8)."""
+    n = pos.shape[0]
+    (ix, iy, iz), fac = _corner_factors(pos, volume_shape)
+    _, Y, Z = volume_shape
+    flat = (ix * Y + iy) * Z + iz
+    sc = np.float32(delta) * voxel_scale(volume_shape)
+    signs = torch.as_tensor(_CORNER_SIGNS, device=pos.device)
+    pairs = (fac[1] * fac[2], fac[0] * fac[2], fac[0] * fac[1])
+    terms = torch.stack([(fac[0] * fac[1]) * fac[2]]
+                        + [signs[ax] * pairs[ax] * float(sc[ax])
+                           for ax in range(3)], -1).reshape(-1, 4)
+    numel = int(np.prod(volume_shape))
+    key = (torch.arange(n, device=pos.device)[:, None] * numel
+           + flat).reshape(-1)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    weight = torch.zeros((uniq.numel(), 4), dtype=terms.dtype,
+                         device=pos.device).index_add_(0, inv, terms)
+    return Footprint(uniq // numel, uniq % numel, weight, inv.reshape(n, 8))
 
 
 def apply_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
@@ -239,6 +310,7 @@ def march_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["voxel_scale", "voxel_coords", "corner_indices_weights",
            "corner_flat_weights", "trilinear", "sample_with_gradient",
-           "Footprint", "stencil_footprint",
+           "sample_with_gradient_analytic", "Footprint", "stencil_footprint",
+           "analytic_footprint",
            "apply_tf", "apply_tf_dot", "march_tf", "tf_lerp_bwd",
            "TF_DOT_MAX_TEXELS"]

@@ -22,6 +22,12 @@ from .config import RenderConfig
 NORMAL_BWD_EPS = 1e-6
 
 
+def premultiply_alpha(rgba: torch.Tensor) -> torch.Tensor:
+    """``rgba.rgb *= rgba.a`` out of place, ``(..., 4)`` (the reference's
+    helper; the renderer's composite is premultiplied already)."""
+    return torch.cat([rgba[..., :3] * rgba[..., 3:4], rgba[..., 3:4]], -1)
+
+
 def opacity_correction(alpha: torch.Tensor, sampling_rate) -> torch.Tensor:
     """``1 - max(1 - a, 0) ** (1 / sampling_rate)``, the exponent an f32."""
     inv_sr = float(np.float32(1.0) / np.float32(sampling_rate))
@@ -110,4 +116,4 @@ def shade(pos: torch.Tensor, grad: torch.Tensor, sample_rgba: torch.Tensor,
                         alpha], dim=-1)
 
 
-__all__ = ["opacity_correction", "unit_normal", "shade", "NORMAL_BWD_EPS"]
+__all__ = ["premultiply_alpha", "opacity_correction", "unit_normal", "shade", "NORMAL_BWD_EPS"]

@@ -6,7 +6,7 @@ gives the reference's channel-major ``(4, R)``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -108,12 +108,71 @@ def tex_from_pts(pts, res: int, device="cuda") -> torch.Tensor:
     return torch.as_tensor(tex, device=device)
 
 
+class Peaks(NamedTuple):
+    """The draws of a random peaked TF, f32 numpy arrays of one row per
+    peak, centres sorted."""
+    centers: np.ndarray    # (n,) in [0.08, 0.85)
+    widths: np.ndarray     # (n,) half-widths in [0.02, 0.15)
+    top_frac: np.ndarray   # (n,) flat-top share of the half-width [0.1, 0.9)
+    heights: np.ndarray    # (n,) plateau alpha in [0.15, 0.95)
+    colors: np.ndarray     # (n, 3) rgb in [0.05, 1.0)
+
+
+def draw_peaks(generator: torch.Generator, max_num_peaks: int = 2) -> Peaks:
+    """The draws of :func:`random_peaks_tf` from ``generator``, in the
+    ranges of the JAX package's ``transfer.py::random_peaks_tf`` (torch
+    cannot replay its ``jax.random`` bits): a count uniform in
+    ``1..max_num_peaks``, then per peak a centre, a half-width, a flat-top
+    share, a height and a colour, each uniform."""
+    dev = generator.device
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=dev).cpu().numpy()
+        return (u * np.float32(hi - lo) + np.float32(lo)).astype(np.float32)
+
+    n = int(torch.randint(1, max_num_peaks + 1, (1,), generator=generator,
+                          device=dev))
+    return Peaks(np.sort(uniform((n,), 0.08, 0.85)),
+                 uniform((n,), 0.02, 0.15), uniform((n,), 0.1, 0.9),
+                 uniform((n,), 0.15, 0.95), uniform((n, 3), 0.05, 1.0))
+
+
+def peaks_points(peaks: Peaks) -> np.ndarray:
+    """Control points (rows of pos, r, g, b, a) of flat-top trapezoids, one
+    per peak, as the JAX package's ``random_peaks_tf`` lays them out: a
+    peak that its left neighbour swallows is left out."""
+    pts = [[0.0, 0.0, 0.0, 0.0, 0.0]]
+    prev_end = 0.0
+    for c, w, tfr, h, (r, g, b) in zip(*peaks):
+        t = w * tfr
+        lo, hi = max(c - w, prev_end + 1e-4), min(c + w, 1.0 - 1e-4)
+        ti, to = max(c - t, lo), min(c + t, hi)
+        if not (lo < ti <= to < hi):
+            continue
+        pts += [[lo, r, g, b, 0.0], [ti, r, g, b, h],
+                [to, r, g, b, h], [hi, r, g, b, 0.0]]
+        prev_end = hi
+    pts += [[1.0, 0.0, 0.0, 0.0, 0.0]]
+    return np.asarray(pts, np.float32)
+
+
+def random_peaks_tf(res: int, generator: torch.Generator,
+                    max_num_peaks: int = 2, device="cuda") -> torch.Tensor:
+    """A random TF of trapezoidal peaks, ``(res, 4)``: the draws of
+    :func:`draw_peaks` rasterized by :func:`peaks_points` and
+    :func:`tex_from_pts`."""
+    return tex_from_pts(peaks_points(draw_peaks(generator, max_num_peaks)),
+                        res, device=device)
+
+
 def get_tf(tf_id: str, res: int,
            generator: Optional[torch.Generator] = None,
            device="cuda") -> torch.Tensor:
     """Named presets in the renderer layout ``(res, 4)``: ``tf1..tf5``,
-    ``black`` (1e-2 everywhere), ``gray`` (0.5 colour, 0.02 alpha) and
-    ``rand`` (uniform noise, drawn from ``generator``)."""
+    ``black`` (1e-2 everywhere), ``gray`` (0.5 colour, 0.02 alpha),
+    ``rand`` (uniform noise) and ``generate`` (:func:`random_peaks_tf`),
+    the last two drawn from ``generator``."""
     if tf_id in _TF_POINTS:
         return tex_from_pts(_TF_POINTS[tf_id], res, device=device)
     if tf_id == "black":
@@ -127,6 +186,11 @@ def get_tf(tf_id: str, res: int,
             raise ValueError("get_tf('rand', ...) requires a torch.Generator.")
         return torch.rand((res, 4), generator=generator, dtype=torch.float32,
                           device=device)
+    if tf_id == "generate":
+        if generator is None:
+            raise ValueError("get_tf('generate', ...) requires a "
+                             "torch.Generator.")
+        return random_peaks_tf(res, generator, device=device)
     raise ValueError(f"Invalid Transfer function identifier given ({tf_id}).")
 
 

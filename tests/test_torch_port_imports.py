@@ -85,9 +85,11 @@ def test_cpu_tensors_never_launch():
 
 @pytest.mark.parametrize("field", ["analytic_normals", "camera_grads"])
 def test_unported_fields_raise(field):
-    with pytest.raises(NotImplementedError):
-        P.RenderConfig(volume_shape=(4, 4, 4), image_shape=(2, 2),
-                       **{field: True})
+    """No field raises any more: the last two that did, the analytic
+    normals and the camera gradients, are ported."""
+    cfg = P.RenderConfig(volume_shape=(4, 4, 4), image_shape=(2, 2),
+                         **{field: True})
+    assert getattr(cfg, field) is True
 
 
 def test_tpu_knobs_accepted():
@@ -120,21 +122,22 @@ def test_march_args_mirror_the_c_struct():
     body = re.sub(r"//[^\n]*", "", body)
     c_fields = re.findall(r"(\w+)\s*[,;]", body)
     assert c_fields == [name for name, _ in _MarchArgs._fields_]
-    assert ctypes.sizeof(_MarchArgs) == 15 * 8 + 13 * 4 + 15 * 4
+    assert ctypes.sizeof(_MarchArgs) == 15 * 8 + 14 * 4 + 18 * 4
     for name in ("occ", "occ_far", "counts", "nx", "ny", "nz", "cell",
-                 "jump_every", "cell_world"):
+                 "jump_every", "cell_world", "sc_x", "sc_y", "sc_z",
+                 "analytic"):
         assert name in c_fields
 
 
 def test_march_bwd_args_mirror_the_c_struct():
-    """K2's argument struct wraps K1's and adds three pointers, in order."""
+    """K2's argument struct wraps K1's and adds four pointers, in order."""
     with open(os.path.join(PKG, "csrc", "march_bwd.cu")) as f:
         src = f.read()
     body = re.search(r"struct MarchBwdArgs \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     c_fields = re.findall(r"(\w+)\s*[,;]", body)
     assert c_fields == [name for name, _ in _MarchBwdArgs._fields_]
-    assert ctypes.sizeof(_MarchBwdArgs) == ctypes.sizeof(_MarchArgs) + 3 * 8
+    assert ctypes.sizeof(_MarchBwdArgs) == ctypes.sizeof(_MarchArgs) + 4 * 8
 
 
 def test_build_is_lazy_and_keyed_on_sources():

@@ -123,7 +123,7 @@ def _k3_mirror(vol, tf, rays, cfg, sr, grid):
     shape = vol.shape
     flat = vol.numpy().reshape(-1)
     scale = ps.voxel_scale(shape)
-    dirs_t, t0_t, dt_t, n_t = _ray_soa(rays)
+    _, dirs_t, t0_t, dt_t, n_t = _ray_soa(rays)
     dirs, t0, dt = dirs_t.numpy(), t0_t.numpy(), dt_t.numpy()
     limit = n_t.numpy().astype(np.int64)
     origin = rays.origin.numpy().astype(F)
