@@ -79,7 +79,9 @@ Phases (one JSON line each):
      and ct_phantom, through a Raycaster of that config: K1 against the
      plain march (ERT on and off), no sample in the stencil's general
      branch; a gradient step (one K1, one K2, no camera launch) and K2
-     against autograd of the plain march summed over 16 tiles of 128^2;
+     against autograd of the plain march summed over 4 of the 16 tiles of
+     128^2 (a corner and an edge tile on the box's silhouette, two central
+     ones; a cotangent that is 0 on the other 12);
      ``raycast_nondiff`` (one K6, K7, K3), K3 with the grid bitwise K3
      without it and against the plain march, no voxel loaded beyond the
      cached cell; K1, K2 and K3 timed beside the parity instantiations;
@@ -98,6 +100,37 @@ Phases (one JSON line each):
      the step's rays and cotangent over 16 tiles of 128^2, the step's
      ``d_look_from`` against the plain one, and K2's camera instantiation
      timed beside the default one.
+  9d. strips: ``render_nondiff_strips`` (4 strips, 4 K3 launches) at the
+     viewer on synthetic and ct_phantom, bitwise ``render_nondiff``;
+     ``render_strips``' gradient step at the bench on noise (4 K1, 4 K2):
+     image and counts bitwise ``render``'s, gradients within
+     K2_GRAD_TOL * max|g|; each timed in turn with its monolithic form.
+  9e. depth_sorted: ``render_depth_sorted`` (4 chunks) at the bench on
+     noise and ct_phantom, the same checks; ``grad_step_ms`` sorted and
+     unsorted in turn, and K1's and K2's device time in each.
+  9f. policy: ``choose_diff_renderer`` (heuristic) on both scenes with its
+     two statistics; the timed probe on ct_phantom, whose choice renders
+     within 1e-5 * max of ``render``.
+  9g. blockwise512: ``value_and_grad_blockwise`` on a 512^3 uniform volume
+     (x 0.5, seed 1) at 512^2 with ``march_vjp="sorted"`` and
+     ``march_table="super64s2"``: one K1 and one K2, the loss equal to
+     ``value_and_grad_render``'s, gradients within K2_GRAD_TOL; peak
+     memory; K1 (image, counts) and K2 (gradients within K2_GRAD_TOL) at
+     512^3 against the plain march on a silhouette corner tile and a
+     central tile of 128^2; a batched ``Raycaster.forward`` gradient step
+     of 2 views, each view's image bitwise ``render`` on that view alone
+     and its gradients within K2_GRAD_TOL.
+  9h. fastpath: ``render_fast`` at 256^3, 512^2, O = 576, 2 planes per
+     voxel on noise and ct_phantom against ``render_fast_plain`` (image
+     within 1e-5, ``hit`` equal, gradients within K2_GRAD_TOL), one K0
+     launch per slab chunk forward, in the gradient step one K0b (``"dot"``
+     mask) per chunk and two K0; the image unchanged with TF32 allowed;
+     times (also at other slab batches) and the step's peak memory beside
+     K3's ``render_nondiff`` at the same view; SSIM against ``render`` and
+     ``choose_fast_params``' record; K0b's dot mask on quantised
+     intensities; ``Raycaster.raycast_fast`` at the viewer (O = 1024)
+     against ``raycast_nondiff`` (SSIM, times).
+  Each of 9d-9h prints its own seconds.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -746,22 +779,63 @@ def main() -> int:
                                       ert=ert)[:2]
         return k2_grad_errs(got, want, label), n_knife, img_s, g_m
 
+    def tile_of(rays_f, cfg_f, blk):
+        """The rays of the image block ``blk`` (a pair of slices) as a
+        bundle of their own, and its config."""
+        rays_b = rays_f._replace(
+            dirs=rays_f.dirs[blk], entry=rays_f.entry[blk],
+            exit=rays_f.exit[blk], n_samples=rays_f.n_samples[blk])
+        return rays_b, cfg_f.replace(image_shape=tuple(
+            rays_b.n_samples.shape))
+
+    def spread_tiles(n_samples, tile, kinds):
+        """Blocks of tile x tile rays spread over the image, one for each
+        of ``kinds``: "corner" and "edge" the corner tile and the other
+        border tile whose share of rays meeting the volume box is nearest
+        1/2 (silhouette tiles), each "centre" the next tile down the
+        diagonal inside the border.  Returns the tiles' (row, column), the
+        blocks and an (H, W, 1) mask that is 1 on them."""
+        H, W = n_samples.shape
+        nr, nc = H // tile, W // tile
+        hit = (n_samples > 0).float()
+
+        def off_half(rc):
+            r, c = rc
+            share = hit[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile]
+            return abs(float(share.mean()) - 0.5)
+
+        border = [(r, c) for r in range(nr) for c in range(nc)
+                  if r in (0, nr - 1) or c in (0, nc - 1)]
+        corners = [rc for rc in border
+                   if rc[0] in (0, nr - 1) and rc[1] in (0, nc - 1)]
+        pools = {"corner": corners,
+                 "edge": [rc for rc in border if rc not in corners]}
+        diagonal = iter((i, i) for i in range(1, min(nr, nc) - 1))
+        picks = [next(diagonal) if k == "centre"
+                 else min(pools[k], key=off_half) for k in kinds]
+        mask = torch.zeros((H, W, 1), device=n_samples.device)
+        blocks = []
+        for r, c in picks:
+            blk = (slice(r * tile, (r + 1) * tile),
+                   slice(c * tile, (c + 1) * tile))
+            mask[blk] = 1.0
+            blocks.append(blk)
+        return picks, blocks, mask
+
     def plain_bwd_tiled(vol_i, tf_c, rays_f, cfg_f, g_f, tile):
         """Autograd of the plain march (sampling rate 1) for the cotangent
         g_f, summed over tile x tile blocks of the same rays: rays are
         independent and the gradient is linear in the cotangent, so the
         blocks add up to the whole image's gradient in a fraction of its
-        autograd memory."""
+        autograd memory.  A block whose cotangent is 0 is skipped."""
         H, W = cfg_f.image_shape
         d_v, d_t = torch.zeros_like(vol_i), torch.zeros_like(tf_c)
         for r in range(0, H, tile):
             for c in range(0, W, tile):
                 blk = (slice(r, r + tile), slice(c, c + tile))
-                rays_b = rays_f._replace(
-                    dirs=rays_f.dirs[blk], entry=rays_f.entry[blk],
-                    exit=rays_f.exit[blk], n_samples=rays_f.n_samples[blk])
-                cfg_b = cfg_f.replace(image_shape=tuple(
-                    rays_b.n_samples.shape))
+                if not bool(g_f[blk].any()):
+                    continue            # a zero cotangent adds nothing
+                rays_b, cfg_b = tile_of(rays_f, cfg_f, blk)
                 dv_b, dt_b, _ = P.march_diff_bwd_plain(
                     vol_i, tf_c, rays_b, cfg_b, 1.0, g_f[blk])
                 d_v += dv_b
@@ -1873,8 +1947,14 @@ def main() -> int:
         del k2c
         agree, n_knife = knife_mask(steps_a, want_steps,
                                     f"analytic {scene} (512, 512)")
+        # The cotangent on 4 of the 16 tiles of 128^2, 0 elsewhere: a
+        # corner and an edge tile on the box's silhouette and two central
+        # ones.  The plain march's autograd on the host is the longest part
+        # of the command, and the parity check above covers every tile.
+        a_tiles, _, a_mask = spread_tiles(
+            rays.n_samples, 128, ("corner", "edge", "centre", "centre"))
         g_full = (torch.rand((img, img, 4), generator=gen_a, device=dev)
-                  - 0.3) * agree[..., None]
+                  - 0.3) * agree[..., None] * a_mask
         got_full = P.march_diff_bwd(vol_i, tf_i, rays, cfg_a, 1.0, image_a,
                                     g_full)[:2]
         sync()
@@ -1966,7 +2046,8 @@ def main() -> int:
                   "counts_equal_k1": True,
                   "vs_plain_512_ert_True": {"rel_err_d_volume": k2_errs[0],
                                             "rel_err_d_tf": k2_errs[1],
-                                            "knife_edge_rays": n_knife},
+                                            "knife_edge_rays": n_knife,
+                                            "tiles_128": a_tiles},
                   "samples_scattering": n_scattered,
                   "samples_quiet_needing_light": n_quiet_light,
                   "atomics": n_atomics,
@@ -2307,6 +2388,470 @@ def main() -> int:
         camera_max_rel_err_ray_tensors=ray_errs,
         camera_max_rel_err_d_look_from=lf_errs)
     del vol_i, vol_user, v_leaf, t_leaf, image, g_img, sums, lf_plain
+    torch.cuda.empty_cache()
+
+    # -- 9d. strips: the row-strip forms against the monolithic ones --------
+    from differender_tpu_torch.render import _alive_fraction, _depth_spread
+
+    def user_to_internal(make):
+        return P.volume_to_internal(
+            torch.from_numpy(make()).to(dev)).contiguous()
+
+    def add_launches(counts, names):
+        for name in names:
+            kernels[name]["launches"] += counts[name]
+
+    def step_of(fn, vol_i, u, cfg_s=None, lf_s=None):
+        """One forward and backward step of ``mean(image^2)`` through
+        ``fn`` (``render``'s signature): the output and both gradients."""
+        v = vol_i.clone().requires_grad_(True)
+        t = tf_i.clone().requires_grad_(True)
+        out = fn(v, t, lf if lf_s is None else lf_s,
+                 cfg if cfg_s is None else cfg_s, 1.0, u=u)
+        torch.mean(out.image ** 2).backward()
+        return out, v.grad, t.grad
+
+    def grads_close(got, want, label, whats=("d_volume", "d_tf")):
+        """Each gradient within K2_GRAD_TOL * its max of the reference's
+        (K2's atomics add in another order); returns the relative errors."""
+        errs = []
+        for g, w, what in zip(got, want, whats):
+            m = float(w.abs().max())
+            e = float((g - w).abs().max())
+            require(bool(torch.isfinite(g).all()) and m > 0
+                    and e <= K2_GRAD_TOL * m,
+                    f"{label} {what}: max |diff| {e} > {K2_GRAD_TOL} * {m}")
+            errs.append(e / m)
+        return errs
+
+    def kernel_ms(fn, names):
+        """Device ms per call of ``fn`` of the kernels whose names hold each
+        of ``names`` (torch.profiler), or None where none was seen."""
+        got = device_kernels(fn, reps=2)
+        out = {}
+        for n in names:
+            hits = [v["ms"] for k, v in got.items() if n in k]
+            out[n] = sum(hits) if hits else None
+        return out
+
+    t_phase = time.perf_counter()
+    u_b = torch.rand((img, img), generator=gen_b, device=dev)
+    strips = {}
+    for scene, make in (("synthetic", lambda: P.synthetic_volume(res)),
+                        ("ct_phantom", lambda: P.ct_phantom(res))):
+        vol_i = user_to_internal(make)
+        P.reset_launch_counts()
+        st = P.render_nondiff_strips(vol_i, tf_i, lf_v, cfg_v, v_sr,
+                                     n_strips=4)
+        sync()
+        counts = P.launch_counts()
+        require(counts["march_nondiff"] == 4, f"render_nondiff_strips "
+                                              f"launched {counts}")
+        count_build(counts, "render_nondiff_strips")
+        add_launches(counts, ["march_nondiff"])
+        mono = P.render_nondiff(vol_i, tf_i, lf_v, cfg_v, v_sr)
+        sync()
+        require(torch.equal(st.image, mono.image),
+                f"render_nondiff_strips differs from render_nondiff on "
+                f"{scene}: {int((st.image != mono.image).any(-1).sum())} px")
+        ms_s, ms_m = host_ms_ab(
+            lambda: P.render_nondiff_strips(vol_i, tf_i, lf_v, cfg_v, v_sr,
+                                            n_strips=4),
+            lambda: P.render_nondiff(vol_i, tf_i, lf_v, cfg_v, v_sr), 3)
+        strips[f"nondiff_viewer_{scene}"] = {
+            "launches": counts, "bitwise_equal": True, "ms": ms_s,
+            "ms_monolithic": ms_m}
+    vol_i = user_to_internal(scenes["noise"])
+
+    def strips4(*a, **k):
+        return P.render_strips(*a, n_strips=4, **k)
+
+    P.reset_launch_counts()
+    out_s, dv_s, dt_s = step_of(strips4, vol_i, u_b)
+    sync()
+    counts = P.launch_counts()
+    require(counts["march_diff_fwd"] == 4 and counts["march_diff_bwd"] == 4,
+            f"render_strips' step launched {counts}")
+    add_launches(counts, ["march_diff_fwd", "march_diff_bwd"])
+    out_m, dv_m, dt_m = step_of(P.render, vol_i, u_b)
+    sync()
+    require(torch.equal(out_s.image, out_m.image)
+            and torch.equal(out_s.valid_steps, out_m.valid_steps),
+            "render_strips' image or valid_steps differ from render's")
+    errs = grads_close((dv_s, dt_s), (dv_m, dt_m), "render_strips")
+    ms_s, ms_m = host_ms_ab(lambda: step_of(strips4, vol_i, u_b),
+                            lambda: step_of(P.render, vol_i, u_b), 3)
+    strips["diff_bench_noise"] = {
+        "launches": counts, "bitwise_equal": True,
+        "grad_rel_err_d_volume_d_tf": errs, "grad_step_ms": ms_s,
+        "grad_step_ms_monolithic": ms_m}
+    del out_s, dv_s, dt_s, out_m, dv_m, dt_m
+    emit({"phase": "strips", "cases": strips, "n_strips": 4,
+          "viewer": [v_img, v_sr], "bench": [res, img],
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+    # -- 9e. depth_sorted: rays sorted by predicted depth --------------------
+    t_phase = time.perf_counter()
+    sorted_cases = {}
+
+    def sorted4(*a, **k):
+        return P.render_depth_sorted(*a, chunks=4, **k)
+
+    for scene in ("noise", "ct_phantom"):
+        vol_i = user_to_internal(scenes[scene])
+        P.reset_launch_counts()
+        out_s, dv_s, dt_s = step_of(sorted4, vol_i, u_b)
+        sync()
+        counts = P.launch_counts()
+        require(counts["march_diff_fwd"] == 4
+                and counts["march_diff_bwd"] == 4,
+                f"render_depth_sorted's step launched {counts}")
+        count_build(counts, "render_depth_sorted's sort key")
+        add_launches(counts, ["march_diff_fwd", "march_diff_bwd"])
+        out_m, dv_m, dt_m = step_of(P.render, vol_i, u_b)
+        sync()
+        require(torch.equal(out_s.image, out_m.image)
+                and torch.equal(out_s.valid_steps, out_m.valid_steps),
+                f"render_depth_sorted's image or valid_steps differ from "
+                f"render's on {scene}")
+        errs = grads_close((dv_s, dt_s), (dv_m, dt_m),
+                           f"render_depth_sorted on {scene}")
+        del out_s, dv_s, dt_s, out_m, dv_m, dt_m
+        ms_s, ms_m = host_ms_ab(lambda: step_of(sorted4, vol_i, u_b),
+                                lambda: step_of(P.render, vol_i, u_b), 3)
+        names = ["march_diff_fwd_kernel", "march_diff_bwd_kernel"]
+        k_s = kernel_ms(lambda: step_of(sorted4, vol_i, u_b), names)
+        k_m = kernel_ms(lambda: step_of(P.render, vol_i, u_b), names)
+        sorted_cases[scene] = {
+            "launches": counts, "bitwise_equal": True,
+            "grad_rel_err_d_volume_d_tf": errs,
+            "grad_step_ms_sorted": ms_s, "grad_step_ms_unsorted": ms_m,
+            "k1_ms_sorted": k_s[names[0]], "k1_ms_unsorted": k_m[names[0]],
+            "k2_ms_sorted": k_s[names[1]], "k2_ms_unsorted": k_m[names[1]]}
+    emit({"phase": "depth_sorted", "cases": sorted_cases, "chunks": 4,
+          "chunk_image": [img // 4, img], "bench": [res, img],
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+    # -- 9f. policy: the scene-adaptive choice of the renderer ---------------
+    t_phase = time.perf_counter()
+    policy = {}
+    probe_cfg = cfg.replace(image_shape=(128, 128), compact_after=0)
+    for scene in ("noise", "ct_phantom"):
+        vol_i = user_to_internal(scenes[scene])
+        fn, name = P.choose_diff_renderer(vol_i, tf_i, lf, cfg)
+        policy[scene] = {
+            "name": name,
+            "alive_fraction_after_2_blocks": _alive_fraction(
+                vol_i, tf_i, lf, probe_cfg, 1.0, 2 * cfg.block_size),
+            "depth_spread": _depth_spread(vol_i, tf_i, lf, cfg, 1.0)}
+    fn, name = P.choose_diff_renderer(vol_i, tf_i, lf, cfg, probe="timed")
+    with torch.no_grad():
+        got = fn(vol_i, tf_i, lf, cfg, 1.0, u=u_b).image
+        want = P.render(vol_i, tf_i, lf, cfg, 1.0, u=u_b).image
+    err = float((got - want).abs().max())
+    require(err <= 1e-5 * float(want.abs().max()),
+            f"the timed probe's {name} renders {err} from render")
+    policy["ct_phantom_timed"] = {"name": name, "max_abs_err_vs_render": err}
+    emit({"phase": "policy", "cases": policy,
+          "thresholds": {"alive": 0.125, "depth_spread": 0.25},
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+    # -- 9g. blockwise512: the 512^3 gradient step ----------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg512 = P.RenderConfig(volume_shape=(512,) * 3, image_shape=(img, img),
+                            max_samples=512, block_size=32,
+                            march_vjp="sorted", march_table="super64s2")
+    g512 = torch.Generator(device=dev)
+    g512.manual_seed(1)
+    vol512 = torch.rand((512,) * 3, generator=g512, device=dev) * 0.5
+
+    def loss512(out):
+        return torch.mean(out.image ** 2)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    P.reset_launch_counts()
+    (loss_b, (dv_b, dt_b)), ms_once = timed_once(
+        lambda: P.value_and_grad_blockwise(vol512, tf_i, lf, cfg512,
+                                           loss512))
+    counts = P.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated(dev)
+    require(counts["march_diff_fwd"] == 1 and counts["march_diff_bwd"] == 1,
+            f"value_and_grad_blockwise launched {counts}")
+    add_launches(counts, ["march_diff_fwd", "march_diff_bwd"])
+    loss_r, (dv_r, dt_r) = P.value_and_grad_render(vol512, tf_i, lf, cfg512,
+                                                   loss512)
+    sync()
+    require(float(loss_b) == float(loss_r),
+            f"blockwise loss {float(loss_b)} != value_and_grad_render's "
+            f"{float(loss_r)}")
+    errs = grads_close((dv_b, dt_b), (dv_r, dt_r), "blockwise 512^3")
+    del dv_b, dt_b, dv_r, dt_r
+    # The step's kernels on the 512^3 volume against the plain march, on a
+    # corner tile of 128^2 on the box's silhouette and a central one: K1's
+    # image and counts, and K2 for a cotangent that is 0 off those tiles.
+    t_plain = time.perf_counter()
+    rays512 = P.make_rays(lf, cfg512, 1.0)
+    image512, steps512 = P.march_diff_fwd(vol512, tf_i, rays512, cfg512,
+                                          1.0)
+    b_tiles, b_blocks, b_mask = spread_tiles(rays512.n_samples, 128,
+                                             ("corner", "centre"))
+    agree512 = torch.ones((img, img), dtype=torch.bool, device=dev)
+    k1_512_err = 0.0
+    for blk in b_blocks:
+        rays_t, cfg_t = tile_of(rays512, cfg512, blk)
+        with torch.no_grad():
+            want_t, wsteps_t = P.march_diff_plain(vol512, tf_i, rays_t,
+                                                  cfg_t, 1.0)
+        k1_512_err = max(k1_512_err, image_check(
+            "K1 at 512^3", image512[blk], want_t)[0])
+        count_check("K1 at 512^3 valid_steps", steps512[blk], wsteps_t)
+        agree512[blk] = steps512[blk] == wsteps_t
+    knife512 = int((~agree512).sum())
+    require(knife512 <= 1e-3 * len(b_blocks) * 128 * 128,
+            f"{knife512} knife-edge rays on the 512^3 tiles")
+    cot512 = (torch.rand((img, img, 4), generator=g512, device=dev)
+              - 0.3) * agree512[..., None] * b_mask
+    got512 = P.march_diff_bwd(vol512, tf_i, rays512, cfg512, 1.0, image512,
+                              cot512)[:2]
+    want512 = plain_bwd_tiled(vol512, tf_i, rays512, cfg512, cot512, 128)
+    plain512_errs = k2_grad_errs(got512, want512,
+                                 "512^3 (512, 512), ert=True")
+    sync()
+    plain512_s = time.perf_counter() - t_plain
+    del got512, want512, cot512, image512, steps512, rays512
+    ms_b, ms_r = host_ms_ab(
+        lambda: P.value_and_grad_blockwise(vol512, tf_i, lf, cfg512,
+                                           loss512),
+        lambda: P.value_and_grad_render(vol512, tf_i, lf, cfg512, loss512),
+        2)
+    del vol512
+    torch.cuda.empty_cache()
+    # A batched gradient step of the Raycaster at the bench: two views.
+    vols2 = torch.stack([torch.from_numpy(scenes[s]()).to(dev)[None]
+                         for s in ("noise", "ct_phantom")])
+    lf2 = torch.tensor([[1.2, 0.8, 2.0], [-1.0, 0.4, 2.1]], device=dev)
+    u2 = torch.rand((2, img, img), generator=g512, device=dev)
+
+    def batch_step():
+        v = vols2.clone().requires_grad_(True)
+        t = tf_user.clone().requires_grad_(True)
+        out = rc(v, t, lf2, u=u2)
+        torch.mean(out ** 2).backward()
+        return out, v.grad, t.grad
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    P.reset_launch_counts()
+    out2, dv2, dt2 = batch_step()
+    sync()
+    counts2 = P.launch_counts()
+    peak_2 = torch.cuda.max_memory_allocated(dev)
+    require(counts2["march_diff_fwd"] == 2 and counts2["march_diff_bwd"] == 2
+            and out2.shape == (2, 4, img, img)
+            and bool(torch.isfinite(dv2).all() & torch.isfinite(dt2).all()),
+            f"the batched Raycaster step launched {counts2}")
+    add_launches(counts2, ["march_diff_fwd", "march_diff_bwd"])
+    # Each view against render on that view alone (the same loss term):
+    # the image bitwise, its d_volume, and d_tf summed over the views.
+    dt_views = torch.zeros_like(tf_i)
+    batch_errs = []
+    for i in range(2):
+        v_one = P.volume_to_internal(vols2[i, 0]).contiguous() \
+            .requires_grad_(True)
+        t_one = tf_i.clone().requires_grad_(True)
+        one = P.render(v_one, t_one, lf2[i], cfg, 1.0, u=u2[i]).image
+        (torch.sum(one ** 2) / out2.numel()).backward()
+        require(torch.equal(out2[i].detach(), one.detach().permute(2, 0, 1)),
+                f"the batched Raycaster's view {i} differs from render's")
+        batch_errs += grads_close((P.volume_to_internal(dv2[i, 0]),),
+                                  (v_one.grad,),
+                                  f"the batched Raycaster's view {i}")
+        dt_views += t_one.grad
+    batch_errs += grads_close((P.tf_to_internal(dt2),), (dt_views,),
+                              "the batched Raycaster's", ("d_tf",))
+    del out2, dv2, dt2, v_one, t_one, one, dt_views
+    ms_2 = host_ms(batch_step, 2)
+    del vols2
+    emit({"phase": "blockwise512", "volume": 512, "image": img,
+          "config": {"march_vjp": "sorted", "march_table": "super64s2",
+                     "block_size": 32, "max_samples": 512},
+          "launches": counts, "loss": float(loss_b),
+          "loss_equal_value_and_grad_render": True,
+          "grad_rel_err_d_volume_d_tf": errs,
+          "vs_plain": {"tiles_128": b_tiles,
+                       "k1_max_abs_err": k1_512_err,
+                       "k2_rel_err_d_volume_d_tf": plain512_errs,
+                       "knife_edge_rays": knife512,
+                       "seconds": plain512_s},
+          "first_step_ms": ms_once,
+          "grad_step_ms": ms_b, "grad_step_ms_value_and_grad_render": ms_r,
+          "peak_bytes": peak_b,
+          "batched_raycaster": {"views": 2, "launches": counts2,
+                                "images_equal_render": True,
+                                "grad_rel_err_view0_view1_d_tf": batch_errs,
+                                "grad_step_ms": ms_2, "peak_bytes": peak_2},
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+    # -- 9h. fastpath: the shear-warp renderer --------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    O_fast, ppv = 576, 2.0
+    n_chunks = -(-int(round(ppv * res)) // 32)
+    fast = {}
+    k0_fast, k0b_fast = 0, 0
+
+    def fast_step(fn, vol_i, slab_batch=32):
+        v = vol_i.clone().requires_grad_(True)
+        t = tf_i.clone().requires_grad_(True)
+        out = fn(v, t, lf, cfg, intermediate=O_fast, planes_per_voxel=ppv,
+                 slab_batch=slab_batch)
+        torch.mean(out.image ** 2).backward()
+        return out, v.grad, t.grad
+
+    def fast_fwd(fn, vol_i, slab_batch=32):
+        with torch.no_grad():
+            return fn(vol_i, tf_i, lf, cfg, intermediate=O_fast,
+                      planes_per_voxel=ppv, slab_batch=slab_batch)
+
+    for scene in ("noise", "ct_phantom"):
+        vol_i = user_to_internal(scenes[scene])
+        P.reset_launch_counts()
+        out = fast_fwd(P.render_fast, vol_i)
+        sync()
+        c_fwd = P.launch_counts()
+        k0 = c_fwd["tf_lookup_fwd"]
+        require(1 <= k0 <= n_chunks and sum(c_fwd.values()) == k0,
+                f"render_fast's forward launched {c_fwd}")
+        plain = fast_fwd(P.render_fast_plain, vol_i)
+        sync()
+        err = float((out.image - plain.image).abs().max())
+        require(err <= 1e-5 and torch.equal(out.hit, plain.hit)
+                and bool(torch.isfinite(out.image).all()),
+                f"render_fast on {scene}: {err} from render_fast_plain")
+        old = (torch.backends.cuda.matmul.allow_tf32,
+               torch.get_float32_matmul_precision())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        tf32_img = fast_fwd(P.render_fast, vol_i).image
+        torch.backends.cuda.matmul.allow_tf32 = old[0]
+        torch.set_float32_matmul_precision(old[1])
+        require(torch.equal(tf32_img, out.image),
+                "render_fast's image changes with TF32 allowed")
+        torch.cuda.reset_peak_memory_stats(dev)
+        P.reset_launch_counts()
+        _, dv_k, dt_k = fast_step(P.render_fast, vol_i)
+        sync()
+        c_step = P.launch_counts()
+        peak_f = torch.cuda.max_memory_allocated(dev)
+        require(c_step["tf_lookup_bwd"] == k0
+                and c_step["tf_lookup_fwd"] == 2 * k0,
+                f"render_fast's step launched {c_step} (forward: {k0} K0)")
+        k0_fast += k0 + c_step["tf_lookup_fwd"]
+        k0b_fast += c_step["tf_lookup_bwd"]
+        # The plain gradient at chunks of 2 slabs (the gradient does not
+        # depend on the batch): its d_tf is index_add_'s f32 sum, whose
+        # rounding grows with the lookups a chunk adds onto each texel.
+        _, dv_p, dt_p = fast_step(P.render_fast_plain, vol_i, slab_batch=2)
+        sync()
+        errs = grads_close((dv_k, dt_k), (dv_p, dt_p),
+                           f"render_fast on {scene}")
+        del dv_k, dt_k, dv_p, dt_p, tf32_img
+        fwd_ms, plain_fwd_ms = host_ms_ab(
+            lambda: fast_fwd(P.render_fast, vol_i),
+            lambda: fast_fwd(P.render_fast_plain, vol_i), 3)
+        step_ms = host_ms(lambda: fast_step(P.render_fast, vol_i), 2)
+        fast_ms, k3_ms = host_ms_ab(
+            lambda: fast_fwd(P.render_fast, vol_i),
+            lambda: P.render_nondiff(vol_i, tf_i, lf, cfg), 3)
+        # Smaller chunks (the JAX package's default is 2): more launches
+        # for the same image.
+        batch_ms = {f"slab_batch_{b}": host_ms(
+            lambda b=b: fast_fwd(P.render_fast, vol_i, b), 2)
+            for b in (2, 8)}
+        with torch.no_grad():
+            exact = P.render(vol_i, tf_i, lf, cfg, 1.0).image
+        fast[scene] = {
+            "k0_launches_forward": k0, "chunks": n_chunks,
+            "launches_step": c_step, "max_abs_err_vs_plain": err,
+            "grad_rel_err_d_volume_d_tf": errs, "fwd_ms": fwd_ms,
+            "plain_fwd_ms": plain_fwd_ms, "fwd_ms_by_batch": batch_ms,
+            "grad_step_ms": step_ms,
+            "grad_peak_bytes": peak_f,
+            "vs_k3": {"render_fast_ms": fast_ms,
+                      "render_nondiff_ms": k3_ms, "sampling_rate": 4.0},
+            "ssim_vs_render": float(P.ssim(out.image.permute(2, 0, 1),
+                                           exact.permute(2, 0, 1))),
+            "choose_fast_params": P.choose_fast_params(vol_i, tf_i, lf,
+                                                       cfg)}
+        del out, plain, exact
+    # K0b's dot mask at the fast path's lookups: quantised intensities on
+    # integer t keep no slope, the Pallas mask keeps it.
+    x_q = (torch.randint(0, R, (1 << 20,), generator=gen_b, device=dev)
+           .float() / (R - 1))
+    g_q = torch.rand((1 << 20, 4), generator=gen_b, device=dev) - 0.5
+    d_tf_q, d_x_q = P.tf_lookup_bwd(tf_i, x_q, g_q, mask="dot")
+    ref_tf_q, ref_x_q = P.tf_lookup_bwd_reference(tf_i, x_q, g_q, mask="dot")
+    _, d_x_pallas = P.tf_lookup_bwd(tf_i, x_q, g_q)
+    t_q = x_q * (R - 1)
+    on_grid = (t_q == torch.floor(t_q)) & (t_q > 0) & (t_q < R - 1)
+    mask_err = float((d_x_q - ref_x_q).abs().max())
+    require(mask_err <= 1e-5 and bool(on_grid.any())
+            and not bool(d_x_q[on_grid].any())
+            and bool((d_x_pallas[on_grid] != 0).any())
+            and float((d_tf_q - ref_tf_q).abs().max())
+            <= 1e-4 * float(ref_tf_q.abs().max()),
+            f"K0b's dot mask: d_intensity {mask_err} from its plain version")
+    # One slab chunk's classify at the default batch of 32 slabs.
+    x_fast = torch.rand((32, O_fast, O_fast), generator=gen_b, device=dev)
+    k0_fast_ms = cuda_ms(lambda: P.tf_lookup_fwd(tf_i, x_fast), 5,
+                         per_pair=20)
+    g_fast = torch.rand((32, O_fast, O_fast, 4), generator=gen_b,
+                        device=dev) - 0.5
+    k0b_fast_ms = cuda_ms(lambda: P.tf_lookup_bwd(tf_i, x_fast, g_fast,
+                                                  mask="dot"), 5, per_pair=20)
+    n_fast = x_fast.numel()
+    # The viewer through Raycaster.raycast_fast (O = 1024 by default).
+    for scene, make in (("synthetic", lambda: P.synthetic_volume(res)),
+                        ("ct_phantom", lambda: P.ct_phantom(res))):
+        vol_user = torch.from_numpy(make()).to(dev)[None]
+        P.reset_launch_counts()
+        sw = rc_v.raycast_fast(vol_user, tf_user, lf_v)
+        sync()
+        c_v = P.launch_counts()
+        require(c_v["tf_lookup_fwd"] >= 1
+                and sw.shape == (4, v_img, v_img)
+                and bool(torch.isfinite(sw).all()),
+                f"raycast_fast at the viewer launched {c_v}")
+        k0_fast += c_v["tf_lookup_fwd"]
+        exact = rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
+                                     sampling_rate=v_sr)
+        sw_ms, nd_ms = host_ms_ab(
+            lambda: rc_v.raycast_fast(vol_user, tf_user, lf_v),
+            lambda: rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
+                                         sampling_rate=v_sr), 3)
+        fast[f"viewer_{scene}"] = {
+            "k0_launches": c_v["tf_lookup_fwd"], "intermediate": 1024,
+            "planes_per_voxel": 2.0,
+            "ssim_vs_raycast_nondiff": float(P.ssim(sw, exact)),
+            "raycast_fast_ms": sw_ms, "raycast_nondiff_ms": nd_ms}
+        del sw, exact
+    kernels["tf_lookup_fwd"]["launches"] += k0_fast
+    kernels["tf_lookup_bwd"]["launches"] += k0b_fast
+    kernels["tf_lookup_fwd"].update(
+        fastpath_launches=k0_fast, fastpath_ms=k0_fast_ms,
+        fastpath_bound_ms=bound(n_fast * 20 + R * 16,
+                                n_fast * TF_LOOKUP_OPS)[0])
+    kernels["tf_lookup_bwd"].update(
+        fastpath_launches=k0b_fast, fastpath_ms=k0b_fast_ms,
+        fastpath_bound_ms=bound(n_fast * 24 + R * 32,
+                                n_fast * TF_LOOKUP_BWD_OPS)[0],
+        mask_dot_max_abs_err=mask_err)
+    emit({"phase": "fastpath", "cases": fast, "volume": res, "image": img,
+          "intermediate": O_fast, "planes_per_voxel": ppv,
+          "k0_fast_shape_ms": k0_fast_ms, "k0b_fast_shape_ms": k0b_fast_ms,
+          "k0b_dot_mask_max_abs_err": mask_err,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    del x_q, g_q, x_fast, g_fast
     torch.cuda.empty_cache()
 
     # -- 10. kernels line and the contract line ---------------------------------

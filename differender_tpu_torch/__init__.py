@@ -4,20 +4,28 @@ The renderer runs on hand-written CUDA kernels for Hopper (``csrc/``, built
 with ``nvcc`` at first use): ``tf_lookup_fwd`` (K0) and ``tf_lookup_bwd``
 (K0b) behind :func:`tf_lookup`; ``march_diff_fwd`` (K1) and
 ``march_diff_bwd`` (K2) behind :func:`render`, :meth:`Raycaster.forward`
-and their gradients (:func:`value_and_grad_render`); ``march_nondiff`` (K3)
-behind :func:`render_nondiff` and :meth:`Raycaster.raycast_nondiff`, which
-jumps over empty space through the occupancy grid that ``cell_minmax`` (K6)
-and ``cell_distance`` (K7) build (:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows``
-(K5), the box sums of the TPU DMA probe.  ``RenderConfig(analytic_normals=
-True)`` takes each sample's gradient from its 8 corners in K1, K2 and K3; a
-camera that requires grad gets its gradient through K2's camera
-instantiation (``march_diff_bwd.camera_launches`` counts it).  CPU tensors
-go to plain torch versions of the same functions.  Importing the package
-needs neither a GPU nor ``nvcc``.
+and their gradients (:func:`value_and_grad_render`), also marched in row
+strips (:func:`render_strips`) or depth-sorted chunks
+(:func:`render_depth_sorted`, chosen per scene by
+:func:`choose_diff_renderer`); ``march_nondiff`` (K3) behind
+:func:`render_nondiff`, :func:`render_nondiff_strips` and
+:meth:`Raycaster.raycast_nondiff`, which jumps over empty space through the
+occupancy grid that ``cell_minmax`` (K6) and ``cell_distance`` (K7) build
+(:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows`` (K5), the
+box sums of the TPU DMA probe.  The shear-warp fast path
+(:func:`render_fast`, :meth:`Raycaster.raycast_fast`) classifies through K0
+and K0b.  ``RenderConfig(analytic_normals=True)`` takes each sample's
+gradient from its 8 corners in K1, K2 and K3; a camera that requires grad
+gets its gradient through K2's camera instantiation
+(``march_diff_bwd.camera_launches`` counts it).  CPU tensors go to plain
+torch versions of the same functions.  Importing the package needs neither
+a GPU nor ``nvcc``.
 """
 from typing import Dict
 
 from .config import RenderConfig
+from .fastpath import (FastRenderOutput, choose_fast_params, render_fast,
+                       render_fast_auto, render_fast_plain)
 from .geometry import (MarchParams, RayBundle, make_rays, march_params,
                        ray_aabb, ray_directions)
 from .interop import occupancy_from_numpy, state_from_numpy
@@ -33,11 +41,13 @@ from .optim import (adamw_onecycle, nan_to_num_grads, project_nonneg,
                     project_unit, tf_momentum, value_and_clean_grad)
 from .raycaster import (Raycaster, tf_from_internal, tf_to_internal,
                         volume_from_internal, volume_to_internal)
-from .render import (RenderOutput, march_diff, march_diff_bwd,
-                     march_diff_bwd_plain, march_diff_fwd, march_diff_plain,
-                     march_nondiff, march_nondiff_plain, ray_cotangents,
-                     render, render_jit, render_nondiff, render_nondiff_jit,
-                     value_and_grad_render)
+from .render import (RenderOutput, choose_diff_renderer, march_diff,
+                     march_diff_bwd, march_diff_bwd_plain, march_diff_fwd,
+                     march_diff_plain, march_nondiff, march_nondiff_plain,
+                     ray_cotangents, render, render_depth_sorted, render_jit,
+                     render_nondiff, render_nondiff_jit,
+                     render_nondiff_strips, render_strips,
+                     value_and_grad_blockwise, value_and_grad_render)
 from .shading import premultiply_alpha
 from .transfer import (get_tf, get_tf_torch_layout, random_peaks_tf,
                        tex_from_pts)
@@ -83,6 +93,10 @@ __all__ = [
     "march_diff_plain", "march_diff_bwd_plain", "ray_cotangents",
     "march_nondiff", "march_nondiff_plain", "render", "render_nondiff",
     "render_jit", "render_nondiff_jit", "value_and_grad_render",
+    "render_nondiff_strips", "render_strips", "render_depth_sorted",
+    "choose_diff_renderer", "value_and_grad_blockwise", "render_fast",
+    "render_fast_plain", "choose_fast_params", "render_fast_auto",
+    "FastRenderOutput",
     "premultiply_alpha", "mse_loss", "ssim", "dssim_mse_loss",
     "tf_momentum", "project_nonneg", "project_unit", "nan_to_num_grads",
     "value_and_clean_grad", "adamw_onecycle", "in_circles", "get_rand_pos",

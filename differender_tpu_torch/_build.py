@@ -142,7 +142,7 @@ def library() -> ctypes.CDLL:
                                           ctypes.POINTER(i64)]
     lib.dr_tf_lookup_bwd_plan.restype = i32
     lib.dr_tf_lookup_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
-                                     i32, i32, ptr]
+                                     i32, i32, i32, ptr]
     lib.dr_tf_lookup_bwd.restype = i32
     for name in ("dr_march_diff_fwd", "dr_march_diff_bwd",
                  "dr_march_nondiff"):

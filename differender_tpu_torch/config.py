@@ -144,6 +144,30 @@ class RenderConfig:
         Kept so code written for the JAX package's config still runs."""
         return False
 
+    def resolved_march_table(self) -> str:
+        """The JAX package's march table for this config, its ``"auto"``
+        resolved as there: ``super64`` where the 64-wide supercell table
+        fits ``super64_max_bytes`` and the parity stencil fits one 4x4x4
+        row, else ``super64s2`` (the stride-2 table) for even parity
+        volumes, else ``cell8`` or ``flat``.  The port marches no table;
+        :func:`~differender_tpu_torch.render.value_and_grad_blockwise`
+        refuses what the JAX package refuses with it."""
+        if self.march_table != "auto":
+            return self.march_table
+        x, y, z = self.volume_shape
+        bytes64 = x * y * z * 64 * 4
+        stencil_ok = (self.analytic_normals
+                      or 2.0 * self.normal_delta
+                      * (max(self.volume_shape) - 1.0) < 1.0)
+        if bytes64 <= self.super64_max_bytes and stencil_ok:
+            return "super64"
+        if (not self.analytic_normals
+                and bytes64 // 8 <= self.super64_max_bytes
+                and self.normal_delta * (max(self.volume_shape) - 1.0) < 1.0
+                and all(s % 2 == 0 for s in self.volume_shape)):
+            return "super64s2"
+        return "cell8" if self.cell_gather else "flat"
+
     def resolved_occupancy(self) -> Tuple[int, int]:
         """``(cell, max_dist)`` with the auto (0) defaults resolved, as the
         JAX package resolves them.  Cell: the smallest edge in

@@ -1,7 +1,7 @@
 // Shared 1D RGBA transfer-function lerp, used by tf_lookup_fwd (K0),
 // march_diff_fwd (K1) and march_nondiff (K3), and its backward, used by
 // march_diff_bwd (K2).  tf_lookup_bwd (K0b) has its own backward, with the
-// Pallas kernel's mask, in tf_lookup.cu.
+// Pallas kernel's mask or the dot form's, in tf_lookup.cu.
 //
 // Semantics of tf_lookup_reference in differender_tpu/ops/tf_lookup.py:
 //   t = max(i*(R-1), 0); low = min(floor t, R-1); high = min(low+1, R-1);

@@ -17,7 +17,10 @@
 // _bwd), which rebuilds the hat weights W and their d/dfrac per block and
 // computes d_intensity = ((dW @ tf) . g) * (R-1), masked to 0 < t < R-1 on
 // the raw t, and d_tf = W^T @ g summed over the sequential grid in one VMEM
-// accumulator.  A GPU's blocks run in parallel, so the sum over lookups
+// accumulator.  That mask ("pallas") is K0b's default; the shear-warp path
+// (fastpath.py) asks for the VJP of the JAX package's dot-form TF instead
+// (sampling.py::_apply_tf_dot_bwd, "dot"): d_intensity only where the lerp's
+// frac > 0, so 0 at integer t, where quantised intensities land.  A GPU's blocks run in parallel, so the sum over lookups
 // becomes a scatter: each lookup adds (1 - frac) g to its low texel and
 // frac g to its high one, 8 floats onto 8 of 4R addresses.
 //
@@ -135,11 +138,12 @@ __device__ __forceinline__ void add_texel(float* acc, int R, int r, int lane,
 }
 
 // One lookup's backward: its d_tf terms into acc, and d_intensity under the
-// Pallas kernel's mask, rounded as tf_lerp_bwd rounds it.
+// mask (dot: frac > 0; else the Pallas kernel's 0 < t < R-1 on the raw t),
+// rounded as tf_lerp_bwd rounds it.
 template <int kMode>
 __device__ __forceinline__ float lookup_bwd(const float4* table, int R,
                                             float x, float4 g, float* acc,
-                                            int lane) {
+                                            int lane, bool dot) {
   const float t_raw = x * (float)(R - 1);
   const float t = fmaxf(t_raw, 0.0f);
   const float low_f = floorf(t);
@@ -148,7 +152,9 @@ __device__ __forceinline__ float lookup_bwd(const float4* table, int R,
   const int high = min(low + 1, R - 1);
   add_texel<kMode>(acc, R, low, lane, 1.0f - frac, g);
   if (frac != 0.0f) add_texel<kMode>(acc, R, high, lane, frac, g);
-  if (!(t_raw > 0.0f && t_raw < (float)(R - 1))) return 0.0f;
+  const bool keep =
+      dot ? frac > 0.0f : (t_raw > 0.0f && t_raw < (float)(R - 1));
+  if (!keep) return 0.0f;
   const bool staged = kMode == kBwdLanes;
   const float4 a = staged ? table[low] : __ldg(table + low);
   const float4 b = staged ? table[high] : __ldg(table + high);
@@ -167,7 +173,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 tf_lookup_bwd_kernel(const float* __restrict__ intensity,
                      const float4* __restrict__ tf,
                      const float4* __restrict__ g, float* __restrict__ d_int,
-                     float* __restrict__ out, long long n, int R) {
+                     float* __restrict__ out, long long n, int R, int dot) {
   extern __shared__ float4 s_tf[];
   const float4* table = tf;
   float* acc = out;
@@ -200,7 +206,10 @@ tf_lookup_bwd_kernel(const float* __restrict__ intensity,
 #pragma unroll
     for (int u = 0; u < kBwdUnroll; ++u) {
       const long long i = i0 + u * stride;
-      if (i < n) d_int[i] = lookup_bwd<kMode>(table, R, x[u], gg[u], acc, lane);
+      if (i < n) {
+        d_int[i] = lookup_bwd<kMode>(table, R, x[u], gg[u], acc, lane,
+                                     dot != 0);
+      }
     }
   }
   if (kMode == kBwdGlobal) return;
@@ -293,13 +302,14 @@ extern "C" int dr_tf_lookup_bwd_plan(long long n, int R, int device,
   return 0;
 }
 
-// blocks and partial from dr_tf_lookup_bwd_plan.  Lanes and shared: two
+// blocks and partial from dr_tf_lookup_bwd_plan; dot selects the mask of
+// d_intensity (1: frac > 0; 0: the Pallas kernel's).  Lanes and shared: two
 // launches, the lookups into the partials, then their sum into d_tf (every
 // entry written).  Global: one launch adding into d_tf.
 extern "C" int dr_tf_lookup_bwd(const float* intensity, const float* tf,
                                 const float* g, float* d_int, float* d_tf,
                                 float* partial, int blocks, long long n,
-                                int R, int device, void* stream) {
+                                int R, int dot, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || blocks <= 0) return 0;
@@ -316,13 +326,13 @@ extern "C" int dr_tf_lookup_bwd(const float* intensity, const float* tf,
   }
   if (mode == kBwdLanes) {
     tf_lookup_bwd_kernel<kBwdLanes><<<blocks, kBwdThreads, smem, s>>>(
-        intensity, tf4, g4, d_int, partial, n, R);
+        intensity, tf4, g4, d_int, partial, n, R, dot);
   } else if (mode == kBwdShared) {
     tf_lookup_bwd_kernel<kBwdShared><<<blocks, kBwdThreads, smem, s>>>(
-        intensity, tf4, g4, d_int, partial, n, R);
+        intensity, tf4, g4, d_int, partial, n, R, dot);
   } else {
     tf_lookup_bwd_kernel<kBwdGlobal><<<blocks, kBwdThreads, 0, s>>>(
-        intensity, tf4, g4, d_int, d_tf, n, R);
+        intensity, tf4, g4, d_int, d_tf, n, R, dot);
     return (int)cudaGetLastError();
   }
   err = cudaGetLastError();

@@ -87,23 +87,30 @@ def build_occupancy(volume: torch.Tensor, tf: torch.Tensor,
                          cell=cell, cell_world=float(scale), far=far)
 
 
+def cell_index(grid: OccupancyGrid, volume_shape, px, py, pz
+               ) -> torch.Tensor:
+    """Flat int64 index into ``grid.dist`` of the macrocell that holds each
+    world position ``(px, py, pz)`` (clamped onto the grid)."""
+    nx, ny, nz = grid.shape
+
+    def cell_of(p, size, n):
+        v = torch.clamp(0.5 * p + 0.5, 0.0, 1.0) * float(
+            np.float32(size - 1.0 - 1e-4))
+        return torch.clamp((v / grid.cell).to(torch.int32), 0,
+                           n - 1).to(torch.int64)
+
+    return ((cell_of(px, volume_shape[0], nx) * ny
+             + cell_of(py, volume_shape[1], ny)) * nz
+            + cell_of(pz, volume_shape[2], nz))
+
+
 def jump_steps(grid: OccupancyGrid, volume_shape, px, py, pz,
                dt) -> torch.Tensor:
     """Per-ray safe advance (int32, >= 0) from head positions
     ``(px, py, pz)`` (N,): how many consecutive samples from the head lie
     provably at or below ``alpha_skip`` (0 where the head's cell is occupied
     or next to one, and where ``dt`` is 0)."""
-    nx, ny, nz = grid.shape
-
-    def cell_of(p, size, n):
-        v = torch.clamp(0.5 * p + 0.5, 0.0, 1.0) * float(
-            np.float32(size - 1.0 - 1e-4))
-        return torch.clamp((v / grid.cell).to(torch.int32), 0, n - 1)
-
-    cx = cell_of(px, volume_shape[0], nx).to(torch.int64)
-    cy = cell_of(py, volume_shape[1], ny).to(torch.int64)
-    cz = cell_of(pz, volume_shape[2], nz).to(torch.int64)
-    d = grid.dist[(cx * ny + cy) * nz + cz]
+    d = grid.dist[cell_index(grid, volume_shape, px, py, pz)]
     safe = torch.clamp(d - 1, min=0).to(torch.float32) * float(
         np.float32(grid.cell_world))
     q = safe / torch.clamp(dt, min=1e-30)
@@ -111,4 +118,4 @@ def jump_steps(grid: OccupancyGrid, volume_shape, px, py, pz,
 
 
 __all__ = ["OccupancyGrid", "tf_alpha_range_max", "build_occupancy",
-           "jump_steps"]
+           "cell_index", "jump_steps"]

@@ -4,6 +4,7 @@
 Inputs: volume ``([BS,] 1, D, H, W)``, transfer function ``([BS,] 4, R)``,
 camera ``([BS,] 3)``; if any of them is batched, all are broadcast to the
 batch.  Output ``([BS,] 4, H, W)``.  A batch is a Python loop over views.
+``raycast_fast`` renders through the shear-warp fast path.
 ``forward`` is differentiable with respect to the volume and the TF (an
 unbatched input broadcast over a batch gets the sum of its views'
 gradients); the camera gets no gradient, as in the reference, unless the
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from .config import RenderConfig
+from .fastpath import render_fast
 from .render import RenderOutput, render, render_nondiff
 
 
@@ -181,6 +183,25 @@ class Raycaster(nn.Module):
             img = render_nondiff(vol, tf_i, lf, self.config, sr).image
             return img.permute(2, 0, 1)
         imgs = [render_nondiff(vol[i], tf_i[i], lf[i], self.config, sr).image
+                for i in range(bs)]
+        return torch.stack(imgs).permute(0, 3, 1, 2)
+
+    def raycast_fast(self, volume, tf, look_from,
+                     intermediate: Optional[int] = None,
+                     planes_per_voxel: float = 2.0) -> torch.Tensor:
+        """Shear-warp fast render
+        (:func:`~differender_tpu_torch.fastpath.render_fast`: slab
+        quadrature, not bit-exact with the exact renderer); returns
+        ``([BS,] 4, H, W)``, differentiable in the volume and the TF."""
+        volume, tf, look_from = (self._as_input(volume), self._as_input(tf),
+                                 self._as_input(look_from))
+        batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
+                                                           look_from)
+        if not batched:
+            return render_fast(vol, tf_i, lf, self.config, intermediate,
+                               planes_per_voxel).image.permute(2, 0, 1)
+        imgs = [render_fast(vol[i], tf_i[i], lf[i], self.config,
+                            intermediate, planes_per_voxel).image
                 for i in range(bs)]
         return torch.stack(imgs).permute(0, 3, 1, 2)
 

@@ -19,10 +19,20 @@ volume and the TF, and to the camera where ``look_from`` requires grad (as
 JAX's functional AD gives them): on CUDA through K2's per-ray position sums
 (its camera instantiation) and autograd of the ray setup, on the CPU
 through autograd of the plain march.
+
+The JAX package's large-scale entry points run on the same kernels: row
+strips (:func:`render_strips`, :func:`render_nondiff_strips`) and rays
+sorted by predicted depth into chunks (:func:`render_depth_sorted`) are
+one launch per strip or chunk, each ray marching as it would in one launch;
+:func:`choose_diff_renderer` is the JAX package's scene policy over them,
+and :func:`value_and_grad_blockwise` its refusals over
+:func:`value_and_grad_render`.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -31,7 +41,7 @@ import torch
 from . import _build
 from .config import RenderConfig
 from .geometry import RayBundle, make_rays, march_params
-from .occupancy import build_occupancy, jump_steps
+from .occupancy import build_occupancy, cell_index, jump_steps
 from .ops.bricks import grid_shape
 from .sampling import (apply_tf, march_tf, sample_with_gradient,
                        sample_with_gradient_analytic, trilinear, voxel_coords,
@@ -716,6 +726,288 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
                         n_samples=rays.n_samples)
 
 
+# ---------------------------------------------------------------------------
+# Large-scale entry points: strips, depth-sorted chunks, the scene policy
+# ---------------------------------------------------------------------------
+
+def _strip_height(config: RenderConfig, n_strips: int) -> int:
+    H = config.height
+    if H % n_strips:
+        raise ValueError(
+            f"n_strips={n_strips} must divide the image height {H}")
+    return H // n_strips
+
+
+def _ray_rows(rays: RayBundle, sl: slice) -> RayBundle:
+    return RayBundle(origin=rays.origin, dirs=rays.dirs[sl],
+                     entry=rays.entry[sl], exit=rays.exit[sl],
+                     n_samples=rays.n_samples[sl])
+
+
+def render_nondiff_strips(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                          config: RenderConfig,
+                          sampling_rate: Optional[float] = None,
+                          u: Optional[torch.Tensor] = None,
+                          n_strips: int = 4,
+                          occupancy=None) -> RenderOutput:
+    """:func:`render_nondiff` marched as ``n_strips`` row strips, one K3
+    launch each (the JAX package bounds its program size this way).  The
+    occupancy grid and the rays are built once and shared; every ray's K3
+    thread does the same work as in one launch, so the image is
+    :func:`render_nondiff`'s bit for bit.  ``n_strips`` must divide the
+    image height."""
+    sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
+    h = _strip_height(config, n_strips)
+    volume, tf, look_from = _inputs(volume, tf, look_from)
+    if occupancy is None and config.occupancy_skip:
+        occupancy = build_occupancy(volume, tf, config)
+    rays = make_rays(look_from, config, sr, u=u)
+    strip_cfg = config.replace(image_shape=(h, config.width))
+    image = torch.cat([
+        march_nondiff(volume, tf, _ray_rows(rays, slice(s * h, (s + 1) * h)),
+                      strip_cfg, sr, occupancy)[0]
+        for s in range(n_strips)])
+    ones = torch.ones(config.image_shape, dtype=torch.int32,
+                      device=volume.device)
+    return RenderOutput(image=image, valid_steps=ones,
+                        n_samples=rays.n_samples)
+
+
+def render_strips(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                  config: RenderConfig, sampling_rate: Optional[float] = None,
+                  u: Optional[torch.Tensor] = None, n_strips: int = 4,
+                  ert: bool = True) -> RenderOutput:
+    """:func:`render` marched as ``n_strips`` row strips: one K1 launch each
+    forward, one K2 launch each backward, and autograd sums the strips'
+    ``d_volume``/``d_tf``.  The image and ``valid_steps`` are
+    :func:`render`'s; the gradients differ only in the order of K2's atomic
+    adds.  Differentiable in ``look_from`` where it requires grad, as
+    :func:`render` is.  ``n_strips`` must divide the image height."""
+    sr = config.sampling_rate if sampling_rate is None else sampling_rate
+    h = _strip_height(config, n_strips)
+    volume, tf, look_from = _inputs(volume, tf, look_from)
+    rays = make_rays(look_from, config, sr, u=u)
+    strip_cfg = config.replace(image_shape=(h, config.width))
+    outs = [march_diff(volume, tf, _ray_rows(rays, slice(s * h, (s + 1) * h)),
+                       strip_cfg, sr, ert=ert) for s in range(n_strips)]
+    return RenderOutput(image=torch.cat([o[0] for o in outs]),
+                        valid_steps=torch.cat([o[1] for o in outs]),
+                        n_samples=rays.n_samples)
+
+
+@torch.no_grad()
+def _predict_march_depth(volume, tf, rays: RayBundle, config: RenderConfig,
+                         coarse: int = 32) -> torch.Tensor:
+    """Per-ray upper estimate of the useful march depth, in samples (N,):
+    the occupancy distance field (:func:`build_occupancy`) at ``coarse``
+    points along each ray, the last occupied coarse interval plus one of
+    slack, mapped to a sample index.  A sort key for
+    :func:`render_depth_sorted`; its errors cost scheduling, never
+    correctness."""
+    grid = build_occupancy(volume, tf, config)
+    soa = _ray_soa(rays)
+    dev = soa.t0.device
+    n_f = soa.n.to(torch.float32)
+    frac = (torch.arange(coarse, dtype=torch.float32, device=dev)
+            + 0.5) / coarse
+    t = soa.t0[None] + frac[:, None] * (
+        torch.clamp(n_f - 1.0, min=0.0) * soa.dt)[None]       # (C, N)
+    p = [soa.origin[i] + t * soa.dirs[:, i][None] for i in range(3)]
+    occ = grid.dist[cell_index(grid, config.volume_shape, *p)] == 0
+    idx = torch.arange(1, coarse + 1, dtype=torch.float32,
+                       device=dev)[:, None]
+    last = torch.amax(torch.where(occ, idx, idx.new_zeros(())), dim=0)
+    return torch.clamp((last + 1.0) / coarse, max=1.0) * n_f
+
+
+def render_depth_sorted(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                        config: RenderConfig,
+                        sampling_rate: Optional[float] = None,
+                        u: Optional[torch.Tensor] = None,
+                        chunks: int = 4) -> RenderOutput:
+    """:func:`render` with the rays sorted by predicted march depth
+    (:func:`_predict_march_depth`, a stable sort, as ``jnp.argsort``) into
+    ``chunks`` equal groups, each marched by its own K1 launch (and K2
+    launch backward); the image and ``valid_steps`` are scattered back to
+    pixel order.  Every ray marches its own samples with its own ERT, so the
+    result is :func:`render`'s (gradients up to K2's atomic order).
+
+    The JAX package sorts so that its global per-block ERT skip fires per
+    chunk; the card terminates each ray on its own thread, so what sorting
+    can buy here is less divergence within a warp, at the cost of spatial
+    locality.  A chunk of M rays is marched as an image of ``(M // w, w)``
+    with ``w = gcd(M, W)`` (``W`` when ``chunks`` divides the height): the
+    kernels launch 16x8 thread blocks over the image and index rays as
+    ``h*W + w``, so a chunk one ray wide would idle 15 of 16 lanes.
+    ``chunks`` must divide H*W."""
+    sr = config.sampling_rate if sampling_rate is None else sampling_rate
+    volume, tf, look_from = _inputs(volume, tf, look_from)
+    H, W = config.image_shape
+    N = H * W
+    if N % chunks:
+        raise ValueError(f"chunks={chunks} must divide H*W={N}")
+    M = N // chunks
+    rays = make_rays(look_from, config, sr, u=u)
+    depth = _predict_march_depth(volume, tf, rays, config)
+    order = torch.argsort(depth, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(N, device=order.device)
+    w = math.gcd(M, W)
+    shape = (M // w, w)
+    chunk_cfg = config.replace(image_shape=shape)
+    fields = [rays.dirs.reshape(N, 3)[order], rays.entry.reshape(N)[order],
+              rays.exit.reshape(N)[order], rays.n_samples.reshape(N)[order]]
+    images, steps = [], []
+    for c in range(chunks):
+        d, e, x, n = (f[c * M:(c + 1) * M] for f in fields)
+        rb = RayBundle(origin=rays.origin, dirs=d.reshape(shape + (3,)),
+                       entry=e.reshape(shape), exit=x.reshape(shape),
+                       n_samples=n.reshape(shape))
+        image, vs = march_diff(volume, tf, rb, chunk_cfg, sr, ert=True)
+        images.append(image.reshape(M, 4))
+        steps.append(vs.reshape(M))
+    return RenderOutput(image=torch.cat(images)[inv].reshape(H, W, 4),
+                        valid_steps=torch.cat(steps)[inv].reshape(H, W),
+                        n_samples=rays.n_samples)
+
+
+@torch.no_grad()
+def _depth_spread(volume, tf, look_from, config: RenderConfig,
+                  sampling_rate: float) -> float:
+    """The share of the rays that meet the volume whose predicted useful
+    depth is under half their sample count: the scene statistic behind
+    :func:`choose_diff_renderer` (high on bounded objects in empty space,
+    0 on a fully occupied scene)."""
+    volume, tf, look_from = _inputs(volume, tf, look_from)
+    rays = make_rays(look_from, config, sampling_rate)
+    d = _predict_march_depth(volume, tf, rays, config)
+    nf = rays.n_samples.reshape(-1).to(torch.float32)
+    hit = nf > 0.0
+    rho = d / torch.clamp(nf, min=1.0)
+    n_hit = torch.clamp(torch.sum(hit.to(torch.float32)), min=1.0)
+    return float(torch.sum(((rho < 0.5) & hit).to(torch.float32)) / n_hit)
+
+
+@torch.no_grad()
+def _alive_fraction(volume, tf, look_from, config: RenderConfig,
+                    sampling_rate: float, s_split: int) -> float:
+    """The share of rays still marching after ``s_split`` steps, from one
+    forward render at ``config`` (``valid_steps > s_split``)."""
+    out = render(volume.detach(), tf.detach(), look_from, config,
+                 sampling_rate)
+    return float(torch.mean((out.valid_steps.reshape(-1) > s_split)
+                            .to(torch.float32)))
+
+
+def _compacted(compact_after: int, compact_prefix: float):
+    """The JAX package's "compacted" candidate: :func:`render` with
+    ``compact_after``/``compact_prefix`` set.  The port accepts and ignores
+    those knobs (each ray terminates on its own thread), so it renders as
+    :func:`render` does."""
+    def fn(volume, tf, look_from, config, sampling_rate=None, u=None):
+        return render(volume, tf, look_from,
+                      config.replace(compact_after=compact_after,
+                                     compact_prefix=compact_prefix),
+                      sampling_rate=sampling_rate, u=u)
+    return fn
+
+
+def _depth_sorted(chunks: int):
+    def fn(volume, tf, look_from, config, sampling_rate=None, u=None):
+        return render_depth_sorted(volume, tf, look_from, config,
+                                   sampling_rate=sampling_rate, u=u,
+                                   chunks=chunks)
+    return fn
+
+
+def _compact_prefix(alive: float) -> float:
+    """The prefix bucket of the JAX package's compaction: the power-of-two
+    fraction 2^-k, k in [2, 5], with ~1.5x slack over ``alive``."""
+    return 2.0 ** -min(5, max(2, int(-math.log2(max(alive, 1e-6) * 1.5))))
+
+
+def choose_diff_renderer(volume, tf, look_from, config: RenderConfig,
+                         sampling_rate: Optional[float] = None,
+                         chunks: int = 4, threshold: float = 0.25,
+                         alive_threshold: float = 0.125,
+                         compact_after: int = 2, probe: str = "heuristic"):
+    """The JAX package's scene-adaptive choice of the differentiable
+    renderer; returns ``(render_fn, name)`` with ``name`` one of
+    ``"compacted"``, ``"depth_sorted"`` and ``"plain"`` (then ``render_fn``
+    is :func:`render` itself), and ``render_fn`` taking :func:`render`'s
+    ``(volume, tf, look_from, config, sampling_rate=None, u=None)``.
+
+    ``probe="heuristic"`` decides as the JAX package does, with its
+    thresholds: a 128^2 probe render without jitter gives the share of rays
+    alive after ``compact_after`` march blocks (``config.block_size``
+    samples each; at most ``alive_threshold`` picks "compacted"), else the
+    depth-spread statistic (above ``threshold`` picks "depth_sorted"), else
+    "plain".  ``probe="timed"`` times one forward and backward step of
+    "plain" and "depth_sorted" at the full config and returns the faster.
+    On the card "compacted" renders as :func:`render` does (the port ignores
+    the compaction knobs) and "depth_sorted" changes only the rays' order,
+    so every choice gives :func:`render`'s image."""
+    if probe not in ("heuristic", "timed"):
+        raise ValueError(f"probe must be 'heuristic' or 'timed'; "
+                         f"got {probe!r}")
+    if probe == "timed":
+        return _choose_diff_renderer_timed(volume, tf, look_from, config,
+                                           sampling_rate, chunks)
+    sr = config.sampling_rate if sampling_rate is None else sampling_rate
+    volume, tf, look_from = _inputs(volume, tf, look_from)
+    n_blocks = -(-config.diff_march_steps(float(sr)) // config.block_size)
+    if 0 < compact_after < n_blocks:
+        probe_cfg = config.replace(image_shape=(128, 128), compact_after=0)
+        alive = _alive_fraction(volume, tf, look_from, probe_cfg, float(sr),
+                                compact_after * config.block_size)
+        if alive <= alive_threshold:
+            return _compacted(compact_after, _compact_prefix(alive)), \
+                "compacted"
+    if _depth_spread(volume, tf, look_from, config, float(sr)) > threshold:
+        return _depth_sorted(chunks), "depth_sorted"
+    return render, "plain"
+
+
+def _choose_diff_renderer_timed(volume, tf, look_from, config, sampling_rate,
+                                chunks):
+    """``choose_diff_renderer(probe="timed")``: one warm-up and one timed
+    forward and backward step (``mean(image^2)``) of each distinct renderer,
+    "plain" and "depth_sorted", the camera moved by 1e-6 between them; the
+    faster wins, ties to "plain".  "compacted" is not timed: here it is
+    :func:`render` with ignored knobs, so it would only time "plain" twice.
+    Timed by the host clock after ``torch.cuda.synchronize()`` on the
+    card."""
+    sr = config.sampling_rate if sampling_rate is None else sampling_rate
+    volume, tf, look_from = _inputs(volume, tf, look_from)
+    dev = volume.device
+    candidates = [("plain", render), ("depth_sorted", _depth_sorted(chunks))]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    best = None
+    for name, fn in candidates:
+        def step(c, _fn=fn):
+            v = volume.detach().requires_grad_(True)
+            t = tf.detach().requires_grad_(True)
+            with torch.enable_grad():
+                img = _fn(v, t, look_from.detach() + c * 1e-6, config,
+                          sampling_rate=sr).image
+                torch.autograd.grad(torch.mean(img ** 2), (v, t),
+                                    allow_unused=True)
+        step(0.0)
+        sync()
+        t0 = time.perf_counter()
+        step(1.0)
+        sync()
+        dt = time.perf_counter() - t0
+        if best is None or dt < best[2]:
+            best = (name, fn, dt)
+    name, fn, _ = best
+    return (fn, name) if name != "plain" else (render, "plain")
+
+
 def value_and_grad_render(volume: torch.Tensor, tf: torch.Tensor, look_from,
                           config: RenderConfig, loss_fn,
                           sampling_rate: Optional[float] = None,
@@ -741,6 +1033,41 @@ def value_and_grad_render(volume: torch.Tensor, tf: torch.Tensor, look_from,
     return loss.detach(), (d_v, d_t)
 
 
+def value_and_grad_blockwise(volume: torch.Tensor, tf: torch.Tensor,
+                             look_from, config: RenderConfig, loss_fn,
+                             sampling_rate: Optional[float] = None,
+                             u: Optional[torch.Tensor] = None,
+                             ert: bool = True, loss_args: tuple = ()):
+    """Loss and ``(d_volume, d_tf)`` of ``loss_fn(render(...), *loss_args)``
+    (counterpart of ``differender_tpu/render.py::value_and_grad_blockwise``).
+
+    The JAX package splits its 512^3-class backward into host-level march
+    blocks because one program of it exceeds the TPU compiler's limits.
+    Here the march is one K1 launch, the loss head, and one K2 launch that
+    recomputes the march and keeps only O(H*W) state beside the volume, so
+    no block loop is needed: this is :func:`value_and_grad_render`.  It
+    refuses what the JAX package refuses, with the same ``ValueError``:
+    ``march_vjp="tiled"``, ``camera_grads``, and ``march_vjp="sorted"``
+    with a march table other than ``super64``/``super64s2``
+    (:meth:`RenderConfig.resolved_march_table`); the other TPU knobs,
+    ``block_size`` and ``compact_after`` among them, are ignored."""
+    if config.march_vjp == "tiled":
+        raise ValueError("value_and_grad_blockwise supports march_vjp "
+                         "'ad' and 'sorted', not 'tiled'")
+    if config.camera_grads:
+        raise ValueError(
+            "camera_grads=True is unsupported on the blockwise backward; "
+            "use render()/value_and_grad over it (march_vjp='ad' or "
+            "'sorted') for camera gradients")
+    kind = config.resolved_march_table()
+    if config.march_vjp == "sorted" and kind not in ("super64", "super64s2"):
+        raise ValueError(
+            "march_vjp='sorted' requires march_table super64 or "
+            f"super64s2; got {kind}")
+    return value_and_grad_render(volume, tf, look_from, config, loss_fn,
+                                 sampling_rate, u, ert, loss_args)
+
+
 # The JAX package's jitted entry points; PyTorch runs eagerly, so these are
 # the same functions.
 render_jit = render
@@ -751,4 +1078,6 @@ __all__ = ["RenderOutput", "RaySoA", "march_diff", "march_diff_fwd",
            "march_diff_bwd", "march_diff_plain", "march_diff_bwd_plain",
            "ray_cotangents", "march_nondiff", "march_nondiff_plain",
            "render", "render_nondiff", "render_jit", "render_nondiff_jit",
-           "value_and_grad_render"]
+           "render_nondiff_strips", "render_strips", "render_depth_sorted",
+           "choose_diff_renderer", "value_and_grad_render",
+           "value_and_grad_blockwise"]

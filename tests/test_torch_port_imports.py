@@ -30,6 +30,7 @@ def test_import_leaves_jax_out():
             "import differender_tpu_torch.occupancy\n"
             "import differender_tpu_torch.ops.bricks\n"
             "import differender_tpu_torch.ops.distance\n"
+            "import differender_tpu_torch.fastpath\n"
             "assert differender_tpu_torch._build.library.cache_info()"
             ".currsize == 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
