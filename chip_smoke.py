@@ -9,7 +9,7 @@ Phases (one JSON line each):
      report of each kernel (the kernels are built here from ``csrc/``);
      resources: the registers, spills and shared memory of K4, K5, K6 and
      K0b, and of each instantiation of K1, K2 and K3 (parity and analytic,
-     K2's camera one).
+     K2's camera one, K1's and K2's segment ones).
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
   2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
@@ -130,7 +130,37 @@ Phases (one JSON line each):
      ``choose_fast_params``' record; K0b's dot mask on quantised
      intensities; ``Raycaster.raycast_fast`` at the viewer (O = 1024)
      against ``raycast_nondiff`` (SSIM, times).
-  Each of 9d-9h prints its own seconds.
+  9i. parallel: one NCCL rank (the card's machine has one card), backend
+     and NCCL version printed; at the bench on noise and ct_phantom the K =
+     4 shards' segments (``pad_halos``, K1's segment instantiation through
+     ``segment_march``, ``compose_segments``) against K1's ``render(...,
+     ert=False)`` (image within 2e-4, ``valid_steps`` equal), on noise also
+     K = 8; the gradient of mean(image^2) through the 4 segments against
+     ``render_volume_sharded``'s at world size 1 (one launch of each
+     segment kernel, one segment over the whole volume) within
+     K2_GRAD_TOL, its d_tf against K2's ``render(..., ert=False)`` (whose
+     d_volume follows the other TF rule at integer t: the voxels where they
+     part are counted); the same world-size-1 step against
+     ``segment_march_plain`` on three tiles of 128^2 of its 512^2 rays (a
+     silhouette corner, a central tile and the tile whose cotangent alone
+     parts the two kernels' d_volumes most; the cotangent 0 elsewhere and
+     on rays with a sample on a kink of the shading, n.l = 0 or light = 1
+     within 1e-6, at most 0.1% of the tiles' rays):
+     image within 2e-4, ``valid_steps`` equal, d_volume and d_tf within
+     K2_GRAD_TOL, and K2's ``render(..., ert=False)`` against the plain
+     march there too, the parting voxels counted in both pairs; at 128^2
+     on noise
+     each shard's K1 and K2 segment against ``segment_march_plain`` and its
+     autograd, and at K = 8 with a quarter-length window at JAX's side-on
+     camera; at world size 1 ``render_views`` (each view bitwise
+     ``render``'s), ``view_parallel_grads`` and ``train_step_views`` (both
+     modes, and the shear-warp renderer at 128^3 / 256^2) against the
+     serial mean-loss gradient, ``render_fast_sharded`` bitwise
+     ``render_fast`` and 4 row strips bitwise its intermediate image; the
+     segment kernels per shard and summed over 4 beside K1 and K2 without
+     ERT on the whole volume, the entry points' wall times beside
+     ``render``'s.
+  Each of 9d-9i prints its own seconds.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -495,8 +525,8 @@ def main() -> int:
           "march_nondiff": ptxas_of("march.cu", ["march_nondiff_kernel"]),
           "march_diff_bwd": ptxas_of("march_bwd.cu",
                                      ["march_diff_bwd_kernel"]),
-          "ptxas_names": "template arguments <kGlobalTf, kAnalytic[, "
-                         "kCamera]> as Lb0/Lb1",
+          "ptxas_names": "template arguments <kGlobalTf, kAnalytic, "
+                         "[kCamera, ]kSegment> as Lb0/Lb1",
           "nvidia_smi": smi})
 
     kernels = {}
@@ -659,6 +689,19 @@ def main() -> int:
         kernels[name] = dict(
             route="cuda", source=f"differender_tpu_torch/csrc/{src}",
             replaces=replaces, launches=0, max_abs_err=0.0)
+    for name, src, note in (
+            ("march_segment_fwd", "march.cu",
+             "the local march of segment_render (sampling.py:124 "
+             "trilinear_shard, :181 sample_with_gradient_shard): XLA, no "
+             "Pallas kernel"),
+            ("march_segment_bwd", "march_bwd.cu",
+             "JAX's AD through segment_render (jax.checkpoint per block): "
+             "XLA, no Pallas kernel")):
+        kernels[name] = dict(
+            route="cuda", source=f"differender_tpu_torch/csrc/{src}",
+            replaces="differender_tpu/parallel/volume_sharding.py:133",
+            replaces_note=note, launches=0, max_abs_err=0.0,
+            library_ms=None)
     kernels["cell_minmax"]["replaces_note"] = (
         "the reduce_window pair of _cell_minmax: XLA, no Pallas kernel")
     kernels["cell_distance"]["replaces_note"] = (
@@ -762,6 +805,41 @@ def main() -> int:
         require(n_knife <= 0.001 * agree.numel(),
                 f"{n_knife} knife-edge rays on {label}")
         return agree, n_knife
+
+    def kink_free(vol_i, tf_c, rays_b, cfg_b, chunk=32):
+        """Rays none of whose samples of opacity > 0 lies within 1e-6 of a
+        kink of the shading (sampling rate 1, no ERT): the diffuse term's
+        max(n.l, 0) at n.l = 0 and min(1, light) at light = 1.  There the
+        gradient takes all, half or none of a slope as the last ulp falls,
+        and K2 and the plain march round n.l and the light apart.  Such
+        rays get no cotangent, as rays on the ERT knife edge."""
+        from differender_tpu_torch.shading import (opacity_correction, shade,
+                                                   unit_normal)
+        prm = P.march_params(rays_b)
+        n = rays_b.n_samples.clamp(max=cfg_b.max_samples)
+        ok = torch.ones(n.shape, dtype=torch.bool, device=dev)
+        lamp = rays_b.origin + torch.tensor([0.0, 1.0, 0.0], device=dev)
+        top = int(n.max())
+        for s0 in range(0, top, chunk):
+            s = torch.arange(s0, min(s0 + chunk, top), device=dev,
+                             dtype=torch.float32)
+            t = prm.t0[..., None] + s * prm.dt[..., None]
+            pos = rays_b.origin + t[..., None] * rays_b.dirs[..., None, :]
+            flat = pos.reshape(-1, 3)
+            inten, grad = P.sampling.sample_with_gradient(
+                vol_i, flat, cfg_b.normal_delta)
+            rgba = P.sampling.apply_tf(tf_c, inten)
+            dirs = rays_b.dirs[..., None, :].expand(pos.shape).reshape(-1, 3)
+            light = shade(flat, grad, torch.ones_like(rgba), dirs,
+                          rays_b.origin, 1.0, cfg_b, clamp_light=False)
+            to_lamp = flat - lamp
+            to_lamp = to_lamp / to_lamp.norm(dim=-1, keepdim=True)
+            n_dot_l = (unit_normal(grad) * to_lamp).sum(-1)
+            kink = (opacity_correction(rgba[:, 3], 1.0) > 0) & (
+                ((light[:, 0] - 1.0).abs() <= 1e-6)
+                | (((grad * grad).sum(-1) > 0) & (n_dot_l.abs() <= 1e-6)))
+            ok &= ~(kink.reshape(pos.shape[:-1]) & (s < n[..., None])).any(-1)
+        return ok
 
     def k2_vs_plain(vol_i, tf_c, rays_s, cfg_s, g_s, ert, label, sr=1.0):
         """K2 against autograd of the plain march for the cotangent g_s."""
@@ -2852,6 +2930,470 @@ def main() -> int:
           "k0b_dot_mask_max_abs_err": mask_err,
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     del x_q, g_q, x_fast, g_fast
+    torch.cuda.empty_cache()
+
+    # -- 9i. parallel: the parallel layer on one card -------------------------
+    t_phase = time.perf_counter()
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from differender_tpu_torch import fastpath as PF
+    from differender_tpu_torch import parallel as PP
+    from differender_tpu_torch.parallel import volume_sharding as PV
+    from differender_tpu_torch.render import _ray_soa
+
+    # One NCCL rank: the card's machine has one card, and NCCL takes one
+    # rank per card.  The K shards' segments run one after another here.
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method="file://" + os.path.join(store, "s"))
+    try:
+        backend = str(dist.get_backend())
+        nccl = ".".join(str(x) for x in torch.cuda.nccl.version())
+        print(f"parallel: backend {backend}, NCCL {nccl}", flush=True)
+        require(backend == "nccl", f"the process group's backend is "
+                                   f"{backend}")
+        par = {"backend": backend, "nccl": nccl, "world_size": 1}
+        length, _ = PV.segment_length(cfg, 1.0)
+        u_p = torch.rand((img, img), generator=gen_b, device=dev)
+        rays_p = P.make_rays(lf, cfg, 1.0, u=u_p)
+        dir_x = rays_p.dirs[..., 0]
+        seg_fwd_err, seg_bwd_err = 0.0, 0.0
+
+        def composed(vol_i, n, rays_c, cfg_c, length_c, t=None):
+            """The n shards' segments (K1 segment through segment_march)
+            composed, and their counts."""
+            t = tf_i if t is None else t
+            outs = [PP.segment_march(PV.pad_halos(vol_i, k, n), t, rays_c,
+                                     cfg_c, 1.0, k, n, length_c)
+                    for k in range(n)]
+            image, valid = PV.compose_segments(
+                torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]), rays_c.dirs[..., 0])
+            return image, valid, outs
+
+        # 1./2. K shards on one card against render(ert=False), and the
+        # gradient through K = 4 segments against K2's render(ert=False).
+        for scene in ("noise", "ct_phantom"):
+            vol_i = user_to_internal(scenes[scene])
+            want, want_steps = P.march_diff_fwd(vol_i, tf_i, rays_p, cfg,
+                                                1.0, ert=False)
+            for n in ((4, 8) if scene == "noise" else (4,)):
+                image, valid, _ = composed(vol_i, n, rays_p, cfg, length)
+                err = float((image - want).abs().max())
+                require(err <= 2e-4 and torch.equal(valid, want_steps),
+                        f"{n} segments on {scene}: max |diff| {err} from "
+                        f"render(ert=False), valid_steps equal "
+                        f"{torch.equal(valid, want_steps)}")
+                par[f"{scene}_K{n}"] = {"max_abs_err": err,
+                                        "valid_steps_equal": True}
+            # The gradient of mean(image^2) through the 4 segments, against
+            # render_volume_sharded's at world size 1 (one segment over the
+            # whole volume: JAX's segment, whose TF gradient is apply_tf's)
+            # and, in d_tf, against K2's render(ert=False).  K2's
+            # render(ert=False) takes the d_volume of the JAX march's TF
+            # (the dot form: no slope at an integer t = i * (R - 1)); the
+            # samples where the two rules part are counted, not held.
+            v = vol_i.clone().requires_grad_(True)
+            t = tf_i.clone().requires_grad_(True)
+            composed(v, 4, rays_p, cfg, length, t)[0].square().mean() \
+                .backward()
+            v1 = vol_i.clone().requires_grad_(True)
+            t1 = tf_i.clone().requires_grad_(True)
+            P.reset_launch_counts()
+            out = PP.render_volume_sharded(v1, t1, lf, cfg, u=u_p)
+            out.image.square().mean().backward()
+            sync()
+            c_rvs = P.launch_counts()
+            require(c_rvs["march_segment_fwd"] == 1
+                    and c_rvs["march_segment_bwd"] == 1
+                    and sum(c_rvs.values()) == 2,
+                    f"render_volume_sharded's step launched {c_rvs}")
+            for name in ("march_segment_fwd", "march_segment_bwd"):
+                kernels[name]["launches"] += c_rvs[name]
+            err = float((out.image - want).abs().max())
+            require(err <= 2e-4 and torch.equal(out.valid_steps, want_steps),
+                    f"render_volume_sharded on {scene}: max |diff| {err} "
+                    f"from render(ert=False)")
+            _, dv_r, dt_r = step_of(
+                lambda *a, **k: P.render(*a, ert=False, **k), vol_i, u_p)
+            over = (v1.grad - dv_r).abs() > K2_GRAD_TOL * dv_r.abs().max()
+            par[f"{scene}_render_volume_sharded"] = {
+                "launches": c_rvs, "max_abs_err": err,
+                "valid_steps_equal": True,
+                "grad_rel_err_d_tf_vs_render": grads_close(
+                    (t1.grad,), (dt_r,), "render_volume_sharded",
+                    ("d_tf",))[0],
+                "d_volume_vs_render_rel_err": float(
+                    (v1.grad - dv_r).abs().max() / dv_r.abs().max()),
+                "d_volume_vs_render_voxels_over_tol": int(over.sum())}
+            par[f"{scene}_K4"]["grad_rel_err_d_volume_d_tf"] = grads_close(
+                (v.grad, t.grad), (v1.grad, t1.grad),
+                f"the gradient through 4 segments on {scene}")
+            # The same world-size-1 step (K1 and K2 segment on the whole
+            # volume's block at 512^2) against the plain segment march on
+            # three tiles of 128^2, the cotangent 0 off them: a silhouette
+            # corner, a central tile and the tile whose cotangent alone
+            # parts the segment's d_volume most from K2's render(ert=False).
+            # On them K2's render(ert=False) is held to the plain march too,
+            # and the voxels where the segment's TF rule (apply_tf) parts
+            # from render's (march_tf) are counted in both pairs.  Rays with
+            # a sample on a kink of the shading (kink_free) get no cotangent.
+            v4 = vol_i.clone().requires_grad_(True)
+            img_s = PP.render_volume_sharded(v4, tf_i, lf, cfg, u=u_p).image
+            img_r = P.render(v4, tf_i, lf, cfg, 1.0, u=u_p, ert=False).image
+            g_all = 2.0 * img_s.detach() / img_s.numel()
+            part = {}
+            for r in range(img // 128):
+                for c in range(img // 128):
+                    g_rc = torch.zeros_like(g_all)
+                    blk = (slice(r * 128, (r + 1) * 128),
+                           slice(c * 128, (c + 1) * 128))
+                    g_rc[blk] = g_all[blk]
+                    d_s, = torch.autograd.grad(img_s, v4, g_rc,
+                                               retain_graph=True)
+                    d_r, = torch.autograd.grad(img_r, v4, g_rc,
+                                               retain_graph=True)
+                    part[(r, c)] = float((d_s - d_r).abs().max())
+            worst = max(part, key=part.get)
+            del v4, img_s, img_r, g_rc, d_s, d_r
+            picks, blocks, mask = spread_tiles(rays_p.n_samples, 128,
+                                               ("corner", "centre"))
+            if worst not in picks:
+                blk = (slice(worst[0] * 128, (worst[0] + 1) * 128),
+                       slice(worst[1] * 128, (worst[1] + 1) * 128))
+                picks.append(worst)
+                blocks.append(blk)
+                mask[blk] = 1.0
+            keep = torch.ones((img, img), dtype=torch.bool, device=dev)
+            for blk in blocks:
+                keep[blk] = kink_free(vol_i, tf_i, *tile_of(rays_p, cfg, blk))
+            n_kink = int((~keep).sum())
+            require(n_kink <= 0.001 * len(blocks) * 128 * 128,
+                    f"{n_kink} rays on a kink of the shading on {scene}")
+            v2 = vol_i.clone().requires_grad_(True)
+            t2 = tf_i.clone().requires_grad_(True)
+            out2 = PP.render_volume_sharded(v2, t2, lf, cfg, u=u_p)
+            g_t = 2.0 * out2.image.detach() / out2.image.numel() * mask \
+                * keep[..., None]
+            out2.image.backward(g_t)
+            vp = vol_i.clone().requires_grad_(True)
+            tp = tf_i.clone().requires_grad_(True)
+            dv_rp, dt_rp = torch.zeros_like(vol_i), torch.zeros_like(tf_i)
+            tile_err = 0.0
+            t0 = time.perf_counter()
+            for blk in blocks:
+                rays_b, cfg_b = tile_of(rays_p, cfg, blk)
+                acc_p, cnt_p = PV.segment_march_plain(
+                    PV.pad_halos(vp, 0, 1), tp, rays_b, cfg_b, 1.0, 0, 1,
+                    length)
+                img_p, valid_p = PV.compose_segments(
+                    acc_p[None], cnt_p[None], rays_b.dirs[..., 0])
+                err = float((out2.image[blk] - img_p).detach().abs().max())
+                require(err <= 2e-4
+                        and torch.equal(out2.valid_steps[blk], valid_p),
+                        f"render_volume_sharded on {scene}, tile {blk}: max "
+                        f"|diff| {err} from the plain segment march, "
+                        f"valid_steps equal "
+                        f"{torch.equal(out2.valid_steps[blk], valid_p)}")
+                tile_err = max(tile_err, err)
+                img_p.backward(g_t[blk])
+                d_rp = P.march_diff_bwd_plain(vol_i, tf_i, rays_b, cfg_b, 1.0,
+                                              g_t[blk], ert=False)
+                dv_rp += d_rp[0]
+                dt_rp += d_rp[1]
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            errs = k2_grad_errs((v2.grad, t2.grad), (vp.grad, tp.grad),
+                                f"render_volume_sharded on {scene}, tiles "
+                                f"{picks} of 128^2")
+            seg_fwd_err = max(seg_fwd_err, tile_err)
+            seg_bwd_err = max(seg_bwd_err, *errs)
+            v3 = vol_i.clone().requires_grad_(True)
+            t3 = tf_i.clone().requires_grad_(True)
+            P.render(v3, t3, lf, cfg, 1.0, u=u_p, ert=False).image \
+                .backward(g_t)
+            errs_r = k2_grad_errs((v3.grad, t3.grad), (dv_rp, dt_rp),
+                                  f"K2 render(ert=False) on {scene}, tiles "
+                                  f"{picks} of 128^2")
+            tol = K2_GRAD_TOL * vp.grad.abs().max()
+            par[f"{scene}_render_volume_sharded"]["tiles_vs_plain"] = {
+                "tiles": picks, "parting_tile": worst,
+                "rays_on_shading_kinks": n_kink,
+                "parting_tile_max_abs": part[worst],
+                "image_max_abs_err": tile_err, "valid_steps_equal": True,
+                "k2_segment_rel_err_d_volume_d_tf": errs,
+                "k2_render_rel_err_d_volume_d_tf": errs_r,
+                "plain_ms_segment_and_render_bwd": plain_ms,
+                "d_volume_segment_vs_render_voxels_over_tol_plain": int(
+                    ((vp.grad - dv_rp).abs() > tol).sum()),
+                "d_volume_segment_vs_render_voxels_over_tol_kernels": int(
+                    ((v2.grad - v3.grad).abs() > tol).sum())}
+            del v, t, v1, t1, dv_r, dt_r, want, out, over, v2, t2, out2, g_t
+            del vp, tp, dv_rp, dt_rp, v3, t3, acc_p, img_p, mask, keep
+        vol_n = user_to_internal(scenes["noise"])
+        # Each shard's K1 and K2 segment against the plain segment march at
+        # 128^2; the reduced window of JAX's side-on test at K = 8.
+        cfg_s = cfg.replace(image_shape=(128, 128))
+        u_s = torch.rand((128, 128), generator=gen_b, device=dev)
+        g_s = torch.rand((128, 128, 4), generator=gen_b, device=dev) - 0.3
+        full = PV.segment_length(cfg_s, 1.0)[0]
+        shard_cases = []
+        for label, lf_c, n, length_c in (
+                ("bench", lf, 4, full),
+                ("window", torch.tensor([0.1, 0.4, 2.4], device=dev), 8,
+                 PV.segment_length(cfg_s, 1.0, full // 4)[0])):
+            rays_s = P.make_rays(lf_c, cfg_s, 1.0, u=u_s)
+            outs = []
+            for k in range(n):
+                pad = PV.pad_halos(vol_n, k, n)
+                acc, cnt = P.march_segment_fwd(pad, tf_i, rays_s, cfg_s, 1.0,
+                                               k, n, length_c)
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    acc_p, cnt_p = PV.segment_march_plain(
+                        pad, tf_i, rays_s, cfg_s, 1.0, k, n, length_c)
+                sync()
+                plain_fwd_ms = (time.perf_counter() - t0) * 1e3
+                err = float((acc - acc_p).abs().max())
+                require(err <= 2e-4 and torch.equal(cnt, cnt_p),
+                        f"K1 segment {k} of {n} ({label}) at 128^2: max "
+                        f"|diff| {err}, counts equal "
+                        f"{torch.equal(cnt, cnt_p)}")
+                seg_fwd_err = max(seg_fwd_err, err)
+                case = {"case": label, "shard": k, "of": n,
+                        "length": length_c, "k1_max_abs_err": err,
+                        "samples": int(cnt.sum()),
+                        "plain_fwd_ms": plain_fwd_ms}
+                outs.append((acc, cnt))
+                if label == "bench":
+                    got = P.march_segment_bwd(pad, tf_i, rays_s, cfg_s, 1.0,
+                                              k, n, length_c, acc, g_s)[:2]
+                    t0 = time.perf_counter()
+                    with torch.enable_grad():
+                        pv = pad.clone().requires_grad_(True)
+                        tv = tf_i.clone().requires_grad_(True)
+                        out_p, _ = PV.segment_march_plain(
+                            pv, tv, rays_s, cfg_s, 1.0, k, n, length_c)
+                        want_g = torch.autograd.grad(out_p, (pv, tv), g_s)
+                    sync()
+                    case["plain_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+                    errs = k2_grad_errs(got, want_g,
+                                        f"K2 segment {k} of {n} at 128^2")
+                    case["k2_rel_err_d_padded_d_tf"] = errs
+                    seg_bwd_err = max(seg_bwd_err, *errs)
+                    case["k1_ms_128"] = cuda_ms(lambda: P.march_segment_fwd(
+                        pad, tf_i, rays_s, cfg_s, 1.0, k, n, length_c), 5)
+                    case["k2_ms_128"] = cuda_ms(lambda: P.march_segment_bwd(
+                        pad, tf_i, rays_s, cfg_s, 1.0, k, n, length_c, acc,
+                        g_s), 5)
+                    del pv, tv, out_p, want_g, got
+                shard_cases.append(case)
+            if label == "window":
+                image, _ = PV.compose_segments(
+                    torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]), rays_s.dirs[..., 0])
+                whole, _ = P.march_diff_fwd(vol_n, tf_i, rays_s, cfg_s, 1.0,
+                                            ert=False)
+                par["window_distance_from_render"] = float(
+                    (image - whole).abs().max())
+        par["shards_128"] = shard_cases
+
+        # 4. World size 1 through the other entry points.  Four views: render_views, each view bitwise render's alone; the
+        # gradients of view_parallel_grads and train_step_views (both
+        # modes) against the serial mean-loss gradient.
+        lfs = torch.stack([torch.tensor([math.cos(a) * 2.4, 0.6,
+                                         math.sin(a) * 2.4], device=dev)
+                           for a in (0.3, 1.1, 1.9, 2.7)])
+        u4 = torch.rand((4, img, img), generator=gen_b, device=dev)
+        P.reset_launch_counts()
+        imgs = PP.render_views(vol_n, tf_i, lfs, cfg, u=u4)
+        sync()
+        c_views = P.launch_counts()
+        require(c_views["march_diff_fwd"] == 4, f"render_views: {c_views}")
+        singles = [P.render(vol_n, tf_i, lfs[i], cfg, 1.0, u=u4[i]).image
+                   for i in range(4)]
+        require(all(torch.equal(imgs[i], singles[i]) for i in range(4)),
+                "render_views differs from render of each view alone")
+        targets = 0.9 * torch.stack(singles)
+        del singles
+        v = vol_n.clone().requires_grad_(True)
+        t = tf_i.clone().requires_grad_(True)
+        loss_s = sum(P.mse_loss(P.render(v, t, lfs[i], cfg, 1.0,
+                                         u=u4[i]).image, targets[i])
+                     for i in range(4)) / 4
+        loss_s.backward()
+        serial = (v.grad, t.grad)
+        views = {"render_views_bitwise_render": True,
+                 "launches_render_views": c_views}
+        for label, fn in (
+                ("view_parallel_grads", lambda: PP.view_parallel_grads(
+                    P.mse_loss, vol_n, tf_i, lfs, targets, cfg, u=u4)),
+                ("train_step_views_accum", lambda: PP.train_step_views(
+                    P.mse_loss, vol_n, tf_i, lfs, targets, cfg, u=u4,
+                    mode="accum")),
+                ("train_step_views_shard_map", lambda: PP.train_step_views(
+                    P.mse_loss, vol_n, tf_i, lfs, targets, cfg, u=u4,
+                    group=dist.group.WORLD))):
+            loss, grads = fn()
+            views[label] = {
+                "loss_rel_err": abs(float(loss) - float(loss_s))
+                / float(loss_s),
+                "grad_rel_err_d_volume_d_tf": grads_close(grads, serial,
+                                                          label)}
+            require(views[label]["loss_rel_err"] <= 1e-5,
+                    f"{label}: loss {float(loss)} vs {float(loss_s)}")
+        del v, t, serial, imgs, targets
+        # The shear-warp train step, 2 views at 128^3 / 256^2, against two
+        # render_fast steps.
+        cfg_sw = cfg.replace(volume_shape=(128,) * 3, image_shape=(256, 256))
+        vol_sw = user_to_internal(lambda: P.noise_volume(128, seed=0))
+        lfs_sw = lfs[:2]
+        with torch.no_grad():
+            tg_sw = 0.9 * torch.stack([P.render_fast(
+                vol_sw, tf_i, lfs_sw[i], cfg_sw).image for i in range(2)])
+        P.reset_launch_counts()
+        loss_sw, grads_sw = PP.train_step_views(
+            P.mse_loss, vol_sw, tf_i, lfs_sw, tg_sw, cfg_sw,
+            sampling_rate=1.0, mode="accum", renderer="shearwarp")
+        sync()
+        c_sw = P.launch_counts()
+        require(c_sw["tf_lookup_fwd"] > 0 and c_sw["tf_lookup_bwd"] > 0,
+                f"the shear-warp train step launched {c_sw}")
+        v = vol_sw.clone().requires_grad_(True)
+        t = tf_i.clone().requires_grad_(True)
+        (sum(P.mse_loss(P.render_fast(v, t, lfs_sw[i], cfg_sw).image,
+                        tg_sw[i]) for i in range(2)) / 2).backward()
+        views["train_step_views_shearwarp"] = {
+            "launches": c_sw, "grad_rel_err_d_volume_d_tf": grads_close(
+                grads_sw, (v.grad, t.grad), "the shear-warp train step")}
+        del v, t, vol_sw, grads_sw
+        par["views"] = views
+        # render_fast_sharded bitwise render_fast; 4 row strips joined
+        # bitwise the whole intermediate image.
+        with torch.no_grad():
+            f_sh = P.render_fast_sharded(vol_n, tf_i, lf, cfg,
+                                         intermediate=576,
+                                         planes_per_voxel=2.0)
+            f_mono = P.render_fast(vol_n, tf_i, lf, cfg, intermediate=576,
+                                   planes_per_voxel=2.0)
+            require(torch.equal(f_sh.image, f_mono.image)
+                    and torch.equal(f_sh.hit, f_mono.hit),
+                    "render_fast_sharded differs from render_fast")
+            args = (vol_n, tf_i, lf, cfg, 576, 2.0, 32, PF._classify_kernel)
+            whole = PF._intermediate(*args)[0]
+            strips = torch.cat([PF._intermediate(*args, 144 * k, 144)[0]
+                                for k in range(4)])
+            require(torch.equal(strips, whole),
+                    "4 row strips differ from the whole intermediate image")
+        par["render_fast_sharded"] = {"bitwise_render_fast": True,
+                                      "strips4_bitwise": True}
+        del f_sh, f_mono, whole, strips
+
+        # 5. Times: K1 and K2 segments per shard and summed over K = 4,
+        # beside K1 and K2 without ERT on the whole volume; the entry points'
+        # wall times at world size 1 beside render's.
+        soa = _ray_soa(rays_p)
+        pads = [PV.pad_halos(vol_n, k, 4) for k in range(4)]
+        segs = [PV._segment(rays_p, cfg, k, 4, length) for k in range(4)]
+        c1 = [torch.zeros((img, img, 2), dtype=torch.int32, device=dev)
+              for _ in range(4)]
+        fwd = [PV._k1_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0, c1[k])
+               for k in range(4)]
+        accs = torch.stack([f[0] for f in fwd]).requires_grad_(True)
+        image, _ = PV.compose_segments(accs, torch.stack([f[1] for f in fwd]),
+                                       dir_x)
+        g_accs = torch.autograd.grad(image.square().mean(), accs)[0]
+        c2 = [torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
+              for _ in range(4)]
+        for k in range(4):
+            PV._k2_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0, fwd[k][0],
+                           g_accs[k], c2[k])
+        k1_ms = [cuda_ms(lambda k=k: PV._k1_segment(
+            pads[k], tf_i, soa, segs[k], cfg, 1.0), 10) for k in range(4)]
+        k2_ms = [cuda_ms(lambda k=k: PV._k2_segment(
+            pads[k], tf_i, soa, segs[k], cfg, 1.0, fwd[k][0], g_accs[k]),
+            10) for k in range(4)]
+        whole_img, whole_steps = P.march_diff_fwd(vol_n, tf_i, rays_p, cfg,
+                                                  1.0, ert=False)
+        g_whole = 2.0 * whole_img / whole_img.numel()
+        k1_sum_ms, k1_whole_ms = cuda_ms_ab(
+            lambda: [PV._k1_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0)
+                     for k in range(4)],
+            lambda: P.march_diff_fwd(vol_n, tf_i, rays_p, cfg, 1.0,
+                                     ert=False), 10, warm=2)
+        k2_sum_ms, k2_whole_ms = cuda_ms_ab(
+            lambda: [PV._k2_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0,
+                                    fwd[k][0], g_accs[k]) for k in range(4)],
+            lambda: P.march_diff_bwd(vol_n, tf_i, rays_p, cfg, 1.0,
+                                     whole_img, g_whole, ert=False),
+            10, warm=2)
+        blk_bytes = pads[0].numel() * 4
+        k1_b, k2_b = [], []
+        for k in range(4):
+            n_s = int(fwd[k][1].sum())
+            n_zero = int(c1[k][..., 0].sum())
+            k1_b.append(bound(blk_bytes + R * 16 + ray_bytes + img * img * 24,
+                              (n_s - n_zero) * DIFF_SAMPLE_OPS
+                              + n_zero * ZERO_OPACITY_OPS))
+            n_sc, n_ql = int(c2[k][..., 0].sum()), int(c2[k][..., 1].sum())
+            k2_b.append(bound(3 * blk_bytes + R * 32 + ray_bytes
+                              + img * img * 40,
+                              n_sc * BWD_SAMPLE_OPS
+                              + (n_s - n_sc) * QUIET_SAMPLE_OPS
+                              + n_ql * QUIET_LIGHT_OPS))
+        rvs_ms, render_ms = host_ms_ab(
+            lambda: PP.render_volume_sharded(vol_n, tf_i, lf, cfg, u=u_p),
+            lambda: P.render(vol_n, tf_i, lf, cfg, 1.0, u=u_p, ert=False),
+            5)
+        views_ms, renders_ms = host_ms_ab(
+            lambda: PP.render_views(vol_n, tf_i, lfs, cfg, u=u4),
+            lambda: [P.render(vol_n, tf_i, lfs[i], cfg, 1.0, u=u4[i])
+                     for i in range(4)], 3)
+        shard_128 = [c for c in shard_cases if c["case"] == "bench"]
+        times = {
+            "k1_segment_ms_per_shard": k1_ms,
+            "k1_segment_ms_sum_k4": k1_sum_ms,
+            "k1_whole_ert_false_ms": k1_whole_ms,
+            "k1_segment_bound_ms_per_shard": [b[0] for b in k1_b],
+            "k2_segment_ms_per_shard": k2_ms,
+            "k2_segment_ms_sum_k4": k2_sum_ms,
+            "k2_whole_ert_false_ms": k2_whole_ms,
+            "k2_segment_bound_ms_per_shard": [b[0] for b in k2_b],
+            "samples_per_shard": [int(f[1].sum()) for f in fwd],
+            "samples_whole": int((whole_steps - 1).sum()),
+            "render_volume_sharded_ms": rvs_ms,
+            "render_ert_false_ms": render_ms,
+            "render_views_b4_ms": views_ms, "render_4_views_ms": renders_ms}
+        par["times"] = times
+        for name, ms, b, err, key in (
+                ("march_segment_fwd", k1_ms, k1_b, seg_fwd_err, "k1"),
+                ("march_segment_bwd", k2_ms, k2_b, seg_bwd_err, "k2")):
+            plain = "plain_fwd_ms" if key == "k1" else "plain_bwd_ms"
+            kernels[name].update(
+                max_abs_err=err, ms=statistics.mean(ms),
+                bound_ms=statistics.mean(x[0] for x in b), bound_by=b[0][1],
+                ms_sum_k4=times[f"{key}_segment_ms_sum_k4"],
+                ms_whole_ert_false=times[f"{key}_whole_ert_false_ms"],
+                bound_ms_sum_k4=sum(x[0] for x in b),
+                plain_ms=statistics.mean(c[plain] for c in shard_128),
+                ms_128=statistics.mean(c[f"{key}_ms_128"]
+                                       for c in shard_128),
+                plain_ms_note="segment_march_plain (K2: its autograd) on "
+                              "one shard's 128^2 rays, host clock, beside "
+                              "ms_128, the kernel on those rays; ms and "
+                              "bound_ms per shard of 4 at 512^2")
+        kernels["march_segment_bwd"]["max_abs_err_is"] = \
+            "max |diff| / max |g| per gradient tensor"
+        del pads, fwd, accs, g_accs, whole_img, g_whole, c1, c2
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "parallel", "cases": par, "volume": res, "image": img,
+          "length": length, "tolerance_image": 2e-4,
+          "tolerance_grad": K2_GRAD_TOL,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     torch.cuda.empty_cache()
 
     # -- 10. kernels line and the contract line ---------------------------------

@@ -14,7 +14,11 @@ occupancy grid that ``cell_minmax`` (K6) and ``cell_distance`` (K7) build
 (:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows`` (K5), the
 box sums of the TPU DMA probe.  The shear-warp fast path
 (:func:`render_fast`, :meth:`Raycaster.raycast_fast`) classifies through K0
-and K0b.  ``RenderConfig(analytic_normals=True)`` takes each sample's
+and K0b.  :mod:`.parallel` spreads views, the fast path's intermediate rows
+or a volume sharded along X over the ranks of a ``torch.distributed``
+group; a shard marches its slab through the segment instantiations of K1
+and K2 (``march_segment_fwd``, ``march_segment_bwd``).
+``RenderConfig(analytic_normals=True)`` takes each sample's
 gradient from its 8 corners in K1, K2 and K3; a camera that requires grad
 gets its gradient through K2's camera instantiation
 (``march_diff_bwd.camera_launches`` counts it).  CPU tensors go to plain
@@ -25,7 +29,8 @@ from typing import Dict
 
 from .config import RenderConfig
 from .fastpath import (FastRenderOutput, choose_fast_params, render_fast,
-                       render_fast_auto, render_fast_plain)
+                       render_fast_auto, render_fast_plain,
+                       render_fast_sharded)
 from .geometry import (MarchParams, RayBundle, make_rays, march_params,
                        ray_aabb, ray_directions)
 from .interop import occupancy_from_numpy, state_from_numpy
@@ -37,6 +42,8 @@ from .ops import (brick_rows, brick_rows_reference, brick_sums,
                   cell_distance_reference, cell_minmax, cell_minmax_reference,
                   tf_lookup, tf_lookup_bwd, tf_lookup_bwd_reference,
                   tf_lookup_fwd, tf_lookup_reference)
+from . import parallel
+from .parallel.volume_sharding import march_segment_bwd, march_segment_fwd
 from .optim import (adamw_onecycle, nan_to_num_grads, project_nonneg,
                     project_unit, tf_momentum, value_and_clean_grad)
 from .raycaster import (Raycaster, tf_from_internal, tf_to_internal,
@@ -67,6 +74,8 @@ KERNEL_WRAPPERS = {
     "brick_rows": brick_rows,
     "cell_minmax": cell_minmax,
     "cell_distance": cell_distance,
+    "march_segment_fwd": march_segment_fwd,
+    "march_segment_bwd": march_segment_bwd,
 }
 
 
@@ -95,8 +104,9 @@ __all__ = [
     "render_jit", "render_nondiff_jit", "value_and_grad_render",
     "render_nondiff_strips", "render_strips", "render_depth_sorted",
     "choose_diff_renderer", "value_and_grad_blockwise", "render_fast",
-    "render_fast_plain", "choose_fast_params", "render_fast_auto",
-    "FastRenderOutput",
+    "render_fast_plain", "render_fast_sharded", "choose_fast_params",
+    "render_fast_auto", "FastRenderOutput", "parallel",
+    "march_segment_fwd", "march_segment_bwd",
     "premultiply_alpha", "mse_loss", "ssim", "dssim_mse_loss",
     "tf_momentum", "project_nonneg", "project_unit", "nan_to_num_grads",
     "value_and_clean_grad", "adamw_onecycle", "in_circles", "get_rand_pos",

@@ -59,7 +59,13 @@
 
 // At least 5 blocks of 128 threads per SM: at most 102 registers a thread
 // (nvcc's own choice is 113, 4 blocks, a little slower).
-template <bool kGlobalTf, bool kAnalytic>
+//
+// kSegment (parity only, no ERT): the march over one X-slab of a sharded
+// volume (parallel/volume_sharding.py::segment_march; JAX's
+// volume_sharding.py::segment_render).  The ray marches only its eligible
+// run of samples (segment_range in march_common.cuh) and writes that run's
+// premultiplied composite (r, g, b, 1 - T) and its length.
+template <bool kGlobalTf, bool kAnalytic, bool kSegment>
 __global__ void __launch_bounds__(128, 5)
     march_diff_fwd_kernel(MarchArgs a) {
   extern __shared__ float4 s_tf[];
@@ -74,14 +80,15 @@ __global__ void __launch_bounds__(128, 5)
               oz = __ldg(a.origin + 2);
   const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
   const float t0 = a.t0[p], dt = a.dt[p];
-  const int steps = min(a.n[p], a.max_steps);
+  int s0 = 0, steps = min(a.n[p], a.max_steps);
+  if constexpr (kSegment) segment_range(a, p, t0, dt, ox, dx, s0, steps);
   const bool zero_skip = zero_skip_exact(a);
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
-  int cnt = 1, skipped = 0, general = 0;
-  for (int s = 0; s < steps; ++s) {
-    if (a.ert && !(T > a.thr)) break;
-    const Sample q = march_sample<kGlobalTf, kAnalytic>(
+  int cnt = kSegment ? 0 : 1, skipped = 0, general = 0;
+  for (int s = s0; s < steps; ++s) {
+    if (!kSegment && a.ert && !(T > a.thr)) break;
+    const Sample q = march_sample<kGlobalTf, kAnalytic, kSegment>(
         a, tf, s, t0, dt, ox, oy, oz, dx, dy, dz, zero_skip);
     ++cnt;
     general += !q.compact;
@@ -263,7 +270,17 @@ template <bool kGlobalTf, bool kAnalytic>
 struct LaunchDiff {
   static void run(dim3 g, dim3 b, size_t smem, cudaStream_t s,
                   const MarchArgs& a) {
-    march_diff_fwd_kernel<kGlobalTf, kAnalytic><<<g, b, smem, s>>>(a);
+    march_diff_fwd_kernel<kGlobalTf, kAnalytic, false><<<g, b, smem, s>>>(a);
+  }
+};
+
+// The segment instantiation is parity only (JAX's segment takes the
+// central-difference stencil whatever analytic_normals says).
+template <bool kGlobalTf, bool kAnalytic>
+struct LaunchSegment {
+  static void run(dim3 g, dim3 b, size_t smem, cudaStream_t s,
+                  const MarchArgs& a) {
+    march_diff_fwd_kernel<kGlobalTf, false, true><<<g, b, smem, s>>>(a);
   }
 };
 
@@ -277,6 +294,7 @@ struct LaunchNondiff {
 
 extern "C" int dr_march_diff_fwd(const MarchArgs* a, int device,
                                  void* stream) {
+  if (a->s_lo) return launch<LaunchSegment>(a, device, stream);
   return launch<LaunchDiff>(a, device, stream);
 }
 

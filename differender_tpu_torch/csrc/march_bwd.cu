@@ -101,6 +101,7 @@ __device__ __forceinline__ float relu_slope(float x) {
 
 // The general branch's scatter of one point: 8 atomics, or none for dv = 0.
 // Returns the atomics issued.
+template <bool kSegment>
 __device__ __forceinline__ int trilinear_scatter(const MarchArgs& a,
                                                  float* dvol, float px,
                                                  float py, float pz,
@@ -111,6 +112,8 @@ __device__ __forceinline__ int trilinear_scatter(const MarchArgs& a,
   const float fy = voxel_axis(py, a.scale_y, a.Y, y0, y1);
   const float fz = voxel_axis(pz, a.scale_z, a.Z, z0, z1);
   const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  x0 = plane<kSegment>(a, x0);
+  x1 = plane<kSegment>(a, x1);
   const long long r00 = ((long long)x0 * a.Y + y0) * a.Z;
   const long long r10 = ((long long)x1 * a.Y + y0) * a.Z;
   const long long r01 = ((long long)x0 * a.Y + y1) * a.Z;
@@ -202,9 +205,10 @@ __device__ __forceinline__ int scatter_cell(const MarchArgs& a, float* dvol,
 // +-dg_axis at the +-delta points of each axis.  The compact branch merges
 // the 56 terms into one total per distinct voxel (sums of the same products
 // in another order) and adds each with one atomic; the general branch
-// scatters point by point.  kAnalytic: scatter_cell.  Returns the atomics
+// scatters point by point.  kAnalytic: scatter_cell.  kSegment: into the
+// shard's padded block (plane), halo planes included.  Returns the atomics
 // issued.
-template <bool kAnalytic>
+template <bool kAnalytic, bool kSegment = false>
 __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
                                               float* dvol, const Sample& q,
                                               float dv, float dgx, float dgy,
@@ -212,13 +216,13 @@ __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
   if constexpr (kAnalytic) return scatter_cell(a, dvol, q, dv, dgx, dgy, dgz);
   if (!q.compact) {
     const float d = a.delta;
-    return trilinear_scatter(a, dvol, q.px, q.py, q.pz, dv) +
-           trilinear_scatter(a, dvol, q.px + d, q.py, q.pz, dgx) +
-           trilinear_scatter(a, dvol, q.px - d, q.py, q.pz, -dgx) +
-           trilinear_scatter(a, dvol, q.px, q.py + d, q.pz, dgy) +
-           trilinear_scatter(a, dvol, q.px, q.py - d, q.pz, -dgy) +
-           trilinear_scatter(a, dvol, q.px, q.py, q.pz + d, dgz) +
-           trilinear_scatter(a, dvol, q.px, q.py, q.pz - d, -dgz);
+    return trilinear_scatter<kSegment>(a, dvol, q.px, q.py, q.pz, dv) +
+           trilinear_scatter<kSegment>(a, dvol, q.px + d, q.py, q.pz, dgx) +
+           trilinear_scatter<kSegment>(a, dvol, q.px - d, q.py, q.pz, -dgx) +
+           trilinear_scatter<kSegment>(a, dvol, q.px, q.py + d, q.pz, dgy) +
+           trilinear_scatter<kSegment>(a, dvol, q.px, q.py - d, q.pz, -dgy) +
+           trilinear_scatter<kSegment>(a, dvol, q.px, q.py, q.pz + d, dgz) +
+           trilinear_scatter<kSegment>(a, dvol, q.px, q.py, q.pz - d, -dgz);
   }
   // The axes again from the position, bitwise sample_centre's: cheaper
   // than keeping them in registers across the shading backward.
@@ -241,7 +245,8 @@ __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
       // The centre's cell on the line (lo_x + i, lo_y + j), and the extra z
       // layer there.
       const long long row =
-          ((long long)(X.lo + i) * a.Y + (Y.lo + j)) * a.Z;
+          ((long long)plane<kSegment>(a, X.lo + i) * a.Y + (Y.lo + j)) *
+          a.Z;
       const float xv = dv * wx[i] + ax[i];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
@@ -260,12 +265,16 @@ __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
     for (int l = 0; l < 2; ++l) {
       if (xs) {
         count += add_voxel(
-            dvol, ((long long)ex * a.Y + (Y.lo + l)) * a.Z + Z.lo + k,
+            dvol,
+            ((long long)plane<kSegment>(a, ex) * a.Y + (Y.lo + l)) * a.Z +
+                Z.lo + k,
             axe * (wy[l] * wz[k]));
       }
       if (ys) {
         count += add_voxel(
-            dvol, ((long long)(X.lo + l) * a.Y + ey) * a.Z + Z.lo + k,
+            dvol,
+            ((long long)plane<kSegment>(a, X.lo + l) * a.Y + ey) * a.Z +
+                Z.lo + k,
             aye * (wx[l] * wz[k]));
       }
     }
@@ -448,15 +457,15 @@ constexpr int kMarchTfMask = kGlobalTf ? kTfGradEveryT : kTfGradFracPositive;
 // transmittance from 1, under the same ERT gate on the real transmittance
 // (which starts at Tn).  Inlined: a call's saved registers cost K2 more
 // than the code size.
-template <bool kGlobalTf, bool kAnalytic>
+template <bool kGlobalTf, bool kAnalytic, bool kSegment = false>
 __device__ __forceinline__ float rest_of_ray(
     const MarchArgs& a, const float4* tf, int s, int steps, float Tn,
     float4 g, float t0, float dt, float ox, float oy, float oz, float dx,
     float dy, float dz, bool zero_skip) {
   float Ur = 0.0f, Tl = 1.0f, Tr = Tn;
   for (int s2 = s + 1; s2 < steps; ++s2) {
-    if (a.ert && !(Tr > a.thr)) break;
-    const Sample r = march_sample<kGlobalTf, kAnalytic>(
+    if (!kSegment && a.ert && !(Tr > a.thr)) break;
+    const Sample r = march_sample<kGlobalTf, kAnalytic, kSegment>(
         a, tf, s2, t0, dt, ox, oy, oz, dx, dy, dz, zero_skip);
     Ur += Tl * (g.x * r.sh.x + g.y * r.sh.y + g.z * r.sh.z);
     Tl *= 1.0f - r.sh.w;
@@ -470,7 +479,14 @@ __device__ __forceinline__ float rest_of_ray(
 // Left to itself nvcc gives K2 240 registers, 2 blocks per SM, too few
 // warps to hide its data-addressed loads and atomics.  The camera
 // instantiation: 3 blocks, 168 registers.
-template <bool kGlobalTf, bool kAnalytic, bool kCamera>
+//
+// kSegment (parity only, no ERT, no camera): the backward of K1's segment
+// instantiation.  It marches bitwise K1's eligible run (segment_range),
+// f.image holding that run's composite, scatters d_volume into the shard's
+// padded block (its halo planes included: the caller sends their cotangents
+// to the shards that own them) and takes the TF gradient of JAX's
+// apply_tf, autograd of the gather-lerp (kTfGradEveryT), for every R.
+template <bool kGlobalTf, bool kAnalytic, bool kCamera, bool kSegment>
 __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
     march_diff_bwd_kernel(MarchBwdArgs b) {
   extern __shared__ float4 s_tf[];
@@ -488,7 +504,8 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
                 oz = __ldg(a.origin + 2);
     const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
     const float t0 = a.t0[p], dt = a.dt[p];
-    const int steps = min(a.n[p], a.max_steps);
+    int s0 = 0, steps = min(a.n[p], a.max_steps);
+    if constexpr (kSegment) segment_range(a, p, t0, dt, ox, dx, s0, steps);
     const float4 g = reinterpret_cast<const float4*>(b.grad)[p];
     const float4 img = reinterpret_cast<const float4*>(a.image)[p];
     const bool zero_skip = zero_skip_exact(a);
@@ -507,38 +524,39 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
     float Tb = 1.0f, Tloc = 1.0f, P = 0.0f;
     float U = g.x * img.x + g.y * img.y + g.z * img.z - g.w * (1.0f - img.w);
     float T = 1.0f;
-    int cnt = 1, scattered = 0, quiet_light = 0, atomics = 0, general = 0;
+    int cnt = kSegment ? 0 : 1, scattered = 0, quiet_light = 0, atomics = 0,
+        general = 0;
     // kCamera: the per-ray sums P, S, L, V.
     float3 sum_p = make_float3(0.0f, 0.0f, 0.0f), sum_s = sum_p,
            sum_l = sum_p, sum_v = sum_p;
-    for (int s = 0; s < steps; ++s) {
-      if (a.ert && !(T > a.thr)) break;
+    for (int s = s0; s < steps; ++s) {
+      if (!kSegment && a.ert && !(T > a.thr)) break;
       if (T == 0.0f) {          // without ERT: nothing more to add
         cnt += steps - s;
         break;
       }
-      Sample q = sample_centre<kGlobalTf, kAnalytic>(a, tf, s, t0, dt, ox, oy,
-                                                     oz, dx, dy, dz,
-                                                     zero_skip);
+      Sample q = sample_centre<kGlobalTf, kAnalytic, kSegment>(
+          a, tf, s, t0, dt, ox, oy, oz, dx, dy, dz, zero_skip);
       const float4 d_sh = make_float4(T * g.x, T * g.y, T * g.z, 0.0f);
       const float d_la = d_sh.x * q.c.x * a.lc_r + d_sh.y * q.c.y * a.lc_g +
                          d_sh.z * q.c.z * a.lc_b;
       const bool light = !q.zero || d_la != 0.0f || light_always;
       general += !q.compact;
       if (light) {
-        sample_gradient<kAnalytic>(a, q);
+        sample_gradient<kAnalytic, kSegment>(a, q);
       } else {
         q.gx = q.gy = q.gz = 0.0f;
       }
       shade_sample(a, q, dx, dy, dz, ox, oy, oz);
       const float f = 1.0f - q.sh.w;
       const float Tn = T * f;
-      const bool last = s + 1 == steps || (a.ert && !(Tn > a.thr));
+      const bool last =
+          s + 1 == steps || (!kSegment && a.ert && !(Tn > a.thr));
       float d_a;
       if (last) {
         d_a = T * g.w;
       } else if (f < kRestartBelow) {
-        const float Ur = rest_of_ray<kGlobalTf, kAnalytic>(
+        const float Ur = rest_of_ray<kGlobalTf, kAnalytic, kSegment>(
             a, tf, s, steps, Tn, g, t0, dt, ox, oy, oz, dx, dy, dz,
             zero_skip);
         d_a = -T * Ur;
@@ -557,12 +575,13 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
           a, q.c, q.px, q.py, q.pz, q.gx, q.gy, q.gz, dx, dy, dz, ox, oy, oz,
           make_float4(d_sh.x, d_sh.y, d_sh.z, d_a), dgx, dgy, dgz, d_p,
           sum_v);
-      const float dv = tf_lerp_bwd<kMarchTfMask<kGlobalTf>, kGlobalTf>(
-          tf, a.R, q.v, d_c, acc);
+      const float dv =
+          tf_lerp_bwd<kSegment ? kTfGradEveryT : kMarchTfMask<kGlobalTf>,
+                      kGlobalTf>(tf, a.R, q.v, d_c, acc);
       if (dv != 0.0f || dgx != 0.0f || dgy != 0.0f || dgz != 0.0f) {
         ++scattered;
-        atomics += scatter_sample<kAnalytic>(a, b.d_volume, q, dv, dgx, dgy,
-                                             dgz);
+        atomics += scatter_sample<kAnalytic, kSegment>(a, b.d_volume, q, dv,
+                                                       dgx, dgy, dgz);
       } else {
         quiet_light += light;
       }
@@ -604,15 +623,15 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
   if (!kGlobalTf) flush_tf_grad(acc, a.R, b.d_tf);
 }
 
-template <bool kAnalytic, bool kCamera>
+template <bool kAnalytic, bool kCamera, bool kSegment = false>
 static void launch_bwd(const MarchBwdArgs& b, dim3 grid, dim3 block,
                        cudaStream_t s) {
   if (b.f.R <= kMaxSharedTexels) {
-    march_diff_bwd_kernel<false, kAnalytic, kCamera>
+    march_diff_bwd_kernel<false, kAnalytic, kCamera, kSegment>
         <<<grid, block, 2 * b.f.R * sizeof(float4), s>>>(b);
   } else {
-    march_diff_bwd_kernel<true, kAnalytic, kCamera><<<grid, block, 0, s>>>(
-        b);
+    march_diff_bwd_kernel<true, kAnalytic, kCamera, kSegment>
+        <<<grid, block, 0, s>>>(b);
   }
 }
 
@@ -627,7 +646,12 @@ extern "C" int dr_march_diff_bwd(const MarchBwdArgs* b, int device,
                   (a.H + block.y - 1) / block.y);
   cudaStream_t s = (cudaStream_t)stream;
   const bool camera = b->ray_sums != nullptr;
-  if (a.analytic) {
+  if (a.s_lo) {
+    // The segment instantiation: parity, no camera (the caller refuses
+    // both).
+    if (a.analytic || camera) return (int)cudaErrorInvalidValue;
+    launch_bwd<false, false, true>(*b, grid, block, s);
+  } else if (a.analytic) {
     if (camera) {
       launch_bwd<true, true>(*b, grid, block, s);
     } else {

@@ -50,17 +50,31 @@ struct MarchArgs {
   float sc_x, sc_y, sc_z;  // f32(delta) * scale: the analytic gradient's
                            // factor per axis
   int analytic;      // 1: the kAnalytic instantiation
+  // Segment instantiations (kSegment, parallel/volume_sharding.py): the
+  // march over one X-slab of a volume sharded along X.  volume holds the
+  // shard's padded block of Xp planes, global planes [x_start, x_start +
+  // Xp); X is the global size.  s_lo: per ray, the first step of its window
+  // of length steps; null outside a segment.  A sample is owned where its
+  // voxel coordinate c_x lies in [x_lo, x_hi).
+  const int* s_lo;
+  int length, x_start, Xp;
+  float x_lo, x_hi;
 };
 
 // Positions and voxel coordinates are rounded after every multiply and add
 // (__fmul_rn/__fadd_rn are never contracted into an FMA), as the plain
 // version rounds them: the TF's steep alpha ramps turn a one-ulp shift of
 // the position into a visible change of the sample's opacity.
+// The voxel coordinate clamp(0.5 p + 0.5, 0, 1) * scale of a position p.
+__device__ __forceinline__ float voxel_coord(float p, float scale) {
+  return __fmul_rn(
+      fminf(fmaxf(__fadd_rn(__fmul_rn(0.5f, p), 0.5f), 0.0f), 1.0f), scale);
+}
+
 // c: the voxel coordinate itself.
 __device__ __forceinline__ float voxel_axis(float p, float scale, int size,
                                             int& lo, int& hi, float& c) {
-  c = __fmul_rn(
-      fminf(fmaxf(__fadd_rn(__fmul_rn(0.5f, p), 0.5f), 0.0f), 1.0f), scale);
+  c = voxel_coord(p, scale);
   const float lo_f = floorf(c);
   lo = (int)lo_f;
   hi = min(lo + 1, size - 1);
@@ -75,6 +89,48 @@ __device__ __forceinline__ float voxel_axis(float p, float scale, int size,
 
 __device__ __forceinline__ float ray_coord(float o, float t, float d) {
   return __fadd_rn(o, __fmul_rn(t, d));
+}
+
+// The plane of the volume that holds the global x plane x: x itself, or in
+// a segment instantiation x - x_start, clamped into the padded block as
+// sampling.py::trilinear_shard clamps it.  The global clamp of voxel_axis
+// comes first, and an owned sample's stencil (delta below a voxel) stays
+// inside the block, so the outer shards' wrapped halos are never read.
+template <bool kSegment>
+__device__ __forceinline__ int plane(const MarchArgs& a, int x) {
+  if constexpr (kSegment) {
+    return min(max(x - a.x_start, 0), a.Xp - 1);
+  } else {
+    return x;
+  }
+}
+
+// kSegment: the eligible samples [s_begin, s_end) of ray p, s_end holding
+// min(n, max_steps) on entry.  The window is s = s_lo + j for j < length; a
+// sample is eligible where it is owned, x_lo <= c_x < x_hi on voxel_axis's
+// own c_x (the exact ownership test of every shard, so each sample of the
+// ray has one owner).  Every rounding from s to c_x is monotone, so c_x is
+// monotone in s and the eligible samples are one run: the scan takes
+// positions only and stops at the first sample past it.
+__device__ __forceinline__ void segment_range(const MarchArgs& a, long long p,
+                                              float t0, float dt, float ox,
+                                              float dx, int& s_begin,
+                                              int& s_end) {
+  const int lo = a.s_lo[p];
+  const int stop = min(lo + a.length, s_end);
+  int b = stop, e = stop;
+  for (int s = lo; s < stop; ++s) {
+    const float t = __fadd_rn(t0, __fmul_rn((float)s, dt));
+    const float c = voxel_coord(ray_coord(ox, t, dx), a.scale_x);
+    const bool own = c >= a.x_lo && c < a.x_hi;
+    if (own && b == stop) b = s;
+    if (!own && b != stop) {
+      e = s;
+      break;
+    }
+  }
+  s_begin = b;
+  s_end = e;
 }
 
 // Macrocell index of a position on one axis, as occupancy.py::jump_steps
@@ -119,7 +175,7 @@ __device__ __forceinline__ float add_product(float s, float x, float w) {
 // the fused sum (kExact false, the same two branches), which is faster and
 // holds to the plain march within the image limits; nothing there is
 // differentiated.
-template <bool kExact>
+template <bool kExact, bool kSegment = false>
 __device__ __forceinline__ float trilinear(const MarchArgs& a, float px,
                                            float py, float pz) {
   int x0, x1, y0, y1, z0, z1;
@@ -127,6 +183,8 @@ __device__ __forceinline__ float trilinear(const MarchArgs& a, float px,
   const float fy = voxel_axis(py, a.scale_y, a.Y, y0, y1);
   const float fz = voxel_axis(pz, a.scale_z, a.Z, z0, z1);
   const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  x0 = plane<kSegment>(a, x0);
+  x1 = plane<kSegment>(a, x1);
   // 64-bit flat offsets (x*Y + y)*Z + z.
   const long long r00 = ((long long)x0 * a.Y + y0) * a.Z;
   const long long r10 = ((long long)x1 * a.Y + y0) * a.Z;
@@ -243,10 +301,13 @@ __device__ __forceinline__ int extra_layer(const StencilAxis& s) {
   return s.m ? s.lo - 1 : s.lo + 2;
 }
 
-// The voxel (x, y, z): flat offset (x*Y + y)*Z + z, 64-bit.
+// The voxel (x, y, z): flat offset (x*Y + y)*Z + z, 64-bit, x the plane
+// that holds global plane x (plane).
+template <bool kSegment = false>
 __device__ __forceinline__ float voxel(const MarchArgs& a, int x, int y,
                                        int z) {
-  return __ldg(a.volume + ((long long)x * a.Y + y) * a.Z + z);
+  return __ldg(a.volume +
+               ((long long)plane<kSegment>(a, x) * a.Y + y) * a.Z + z);
 }
 
 // One trilinear point from its 8 corner values (corner order i + 2j + 4k,
@@ -348,7 +409,7 @@ struct Sample {
 // colour and opacity.  kAnalytic: the centre's 8 corners, the high indices
 // clamped, are always loaded (q.cell); only each axis's lo and f are set,
 // and the sample counts as compact.
-template <bool kGlobalTf, bool kAnalytic>
+template <bool kGlobalTf, bool kAnalytic, bool kSegment = false>
 __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
                                                 const float4* tf, int s,
                                                 float t0, float dt, float ox,
@@ -367,8 +428,8 @@ __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
     q.az.f = voxel_axis(q.pz, a.scale_z, a.Z, q.az.lo, hz);
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      q.cell[c] = voxel(a, c & 1 ? hx : q.ax.lo, c & 2 ? hy : q.ay.lo,
-                        c & 4 ? hz : q.az.lo);
+      q.cell[c] = voxel<kSegment>(a, c & 1 ? hx : q.ax.lo,
+                                  c & 2 ? hy : q.ay.lo, c & 4 ? hz : q.az.lo);
     }
     q.compact = true;
     q.v = point_sum<true>(q.cell, 1.0f - q.ax.f, q.ax.f, 1.0f - q.ay.f,
@@ -381,13 +442,14 @@ __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
     if (q.compact) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        q.cell[c] = voxel(a, q.ax.lo + (c & 1), q.ay.lo + ((c >> 1) & 1),
-                          q.az.lo + (c >> 2));
+        q.cell[c] = voxel<kSegment>(a, q.ax.lo + (c & 1),
+                                    q.ay.lo + ((c >> 1) & 1),
+                                    q.az.lo + (c >> 2));
       }
       q.v = point_sum<true>(q.cell, 1.0f - q.ax.f, q.ax.f, 1.0f - q.ay.f,
                             q.ay.f, 1.0f - q.az.f, q.az.f);
     } else {
-      q.v = trilinear<true>(a, q.px, q.py, q.pz);
+      q.v = trilinear<true, kSegment>(a, q.px, q.py, q.pz);
     }
   }
   q.c = tf_lerp<kGlobalTf, true>(tf, a.R, q.v);
@@ -402,19 +464,19 @@ __device__ __forceinline__ Sample sample_centre(const MarchArgs& a,
 // layers' voxels, 4 per axis that has one, then the six sums from registers
 // and the centre's cell c; else the general branch, 6 points of 8 loads.
 // Returns the voxels it loaded.
-template <bool kExact>
+template <bool kExact, bool kSegment = false>
 __device__ __forceinline__ int stencil_gradient(
     const MarchArgs& a, const StencilAxis& X, const StencilAxis& Y,
     const StencilAxis& Z, bool compact, const float (&c)[8], float px,
     float py, float pz, float& grad_x, float& grad_y, float& grad_z) {
   const float d = a.delta;
   if (!compact) {
-    grad_x = trilinear<kExact>(a, px + d, py, pz) -
-             trilinear<kExact>(a, px - d, py, pz);
-    grad_y = trilinear<kExact>(a, px, py + d, pz) -
-             trilinear<kExact>(a, px, py - d, pz);
-    grad_z = trilinear<kExact>(a, px, py, pz + d) -
-             trilinear<kExact>(a, px, py, pz - d);
+    grad_x = trilinear<kExact, kSegment>(a, px + d, py, pz) -
+             trilinear<kExact, kSegment>(a, px - d, py, pz);
+    grad_y = trilinear<kExact, kSegment>(a, px, py + d, pz) -
+             trilinear<kExact, kSegment>(a, px, py - d, pz);
+    grad_z = trilinear<kExact, kSegment>(a, px, py, pz + d) -
+             trilinear<kExact, kSegment>(a, px, py, pz - d);
     return 48;
   }
   // The extra x layer at (e, lo_y + j, lo_z + k) as j + 2k, the extra y
@@ -427,21 +489,21 @@ __device__ __forceinline__ int stencil_gradient(
     const int e = extra_layer(X);
 #pragma unroll
     for (int o = 0; o < 4; ++o)
-      xe[o] = voxel(a, e, Y.lo + (o & 1), Z.lo + (o >> 1));
+      xe[o] = voxel<kSegment>(a, e, Y.lo + (o & 1), Z.lo + (o >> 1));
     loads += 4;
   }
   if (Y.m || Y.pl) {
     const int e = extra_layer(Y);
 #pragma unroll
     for (int o = 0; o < 4; ++o)
-      ye[o] = voxel(a, X.lo + (o & 1), e, Z.lo + (o >> 1));
+      ye[o] = voxel<kSegment>(a, X.lo + (o & 1), e, Z.lo + (o >> 1));
     loads += 4;
   }
   if (Z.m || Z.pl) {
     const int e = extra_layer(Z);
 #pragma unroll
     for (int o = 0; o < 4; ++o)
-      ze[o] = voxel(a, X.lo + (o & 1), Y.lo + (o >> 1), e);
+      ze[o] = voxel<kSegment>(a, X.lo + (o & 1), Y.lo + (o >> 1), e);
     loads += 4;
   }
   const float gx = 1.0f - X.f, gy = 1.0f - Y.f, gz = 1.0f - Z.f;
@@ -481,14 +543,14 @@ __device__ __forceinline__ int stencil_gradient(
 
 // K1/K2: the gradient of a sample from sample_centre; kAnalytic loads
 // nothing.
-template <bool kAnalytic>
+template <bool kAnalytic, bool kSegment = false>
 __device__ __forceinline__ void sample_gradient(const MarchArgs& a,
                                                 Sample& q) {
   if constexpr (kAnalytic) {
     cell_gradient<true>(a, q.cell, q.ax.f, q.ay.f, q.az.f, q.gx, q.gy, q.gz);
   } else {
-    stencil_gradient<true>(a, q.ax, q.ay, q.az, q.compact, q.cell, q.px,
-                           q.py, q.pz, q.gx, q.gy, q.gz);
+    stencil_gradient<true, kSegment>(a, q.ax, q.ay, q.az, q.compact, q.cell,
+                                     q.px, q.py, q.pz, q.gx, q.gy, q.gz);
   }
 }
 
@@ -504,16 +566,16 @@ __device__ __forceinline__ void shade_sample(const MarchArgs& a, Sample& q,
 
 // One sample of the differentiable march, forward only: the centre, then
 // the gradient and the shading unless it is a zero sample.
-template <bool kGlobalTf, bool kAnalytic>
+template <bool kGlobalTf, bool kAnalytic, bool kSegment = false>
 __device__ __forceinline__ Sample march_sample(const MarchArgs& a,
                                                const float4* tf, int s,
                                                float t0, float dt, float ox,
                                                float oy, float oz, float dx,
                                                float dy, float dz,
                                                bool zero_skip) {
-  Sample q = sample_centre<kGlobalTf, kAnalytic>(a, tf, s, t0, dt, ox, oy,
-                                                 oz, dx, dy, dz, zero_skip);
-  if (!q.zero) sample_gradient<kAnalytic>(a, q);
+  Sample q = sample_centre<kGlobalTf, kAnalytic, kSegment>(
+      a, tf, s, t0, dt, ox, oy, oz, dx, dy, dz, zero_skip);
+  if (!q.zero) sample_gradient<kAnalytic, kSegment>(a, q);
   shade_sample(a, q, dx, dy, dz, ox, oy, oz);
   return q;
 }

@@ -212,13 +212,19 @@ def _slab_planes(n_planes: int, Z: int):
 
 
 def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
-          planes_per_voxel: float, slab_batch: int, classify):
+          planes_per_voxel: float, slab_batch: int, classify,
+          row_offset: int = 0, n_rows: Optional[int] = None):
     """The intermediate image with the LAST axis as principal and the camera
     on its negative side: ``channels`` (4, X, Y, Z) already permuted and
-    flipped, ``lf`` and ``light`` in that frame.  Returns the intermediate
-    RGBA ``(O, O, 4)`` and the grid's extents ``(x0, y0, dx, dy)``."""
+    flipped, ``lf`` and ``light`` in that frame.  Computes only the
+    intermediate rows ``[row_offset, row_offset + n_rows)`` (default all
+    O): each row's pixels are computed as in the whole image, so strips
+    join into it bit for bit (:func:`render_fast_sharded`).  Returns the
+    intermediate RGBA ``(n_rows, O, 4)`` and the grid's extents ``(x0, y0,
+    dx, dy)``."""
     C, X, Y, Z = channels.shape
     O = intermediate
+    rows = O if n_rows is None else n_rows
     dev = channels.device
     lx, ly, lz = lf.unbind(0)
 
@@ -233,9 +239,9 @@ def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
     y0, y1 = torch.min(ay) - 1e-3, torch.max(ay) + 1e-3
     dx = (x1 - x0) / (O - 1)
     dy = (y1 - y0) / (O - 1)
-    steps = torch.arange(O, dtype=torch.float32, device=dev)
-    ga = x0 + dx * steps
-    gb = y0 + dy * steps
+    ga = x0 + dx * torch.arange(row_offset, row_offset + rows,
+                                dtype=torch.float32, device=dev)
+    gb = y0 + dy * torch.arange(O, dtype=torch.float32, device=dev)
 
     # Per intermediate pixel, the opacity-correction exponent of its ray's
     # step between planes (the reference's density is vol_diag samples per
@@ -299,8 +305,8 @@ def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
 
     grad = torch.is_grad_enabled() and (channels.requires_grad
                                         or tf.requires_grad)
-    acc = torch.zeros((O, O, 3), dtype=torch.float32, device=dev)
-    T = torch.ones((O, O), dtype=torch.float32, device=dev)
+    acc = torch.zeros((rows, O, 3), dtype=torch.float32, device=dev)
+    T = torch.ones((rows, O), dtype=torch.float32, device=dev)
     for c, slab in enumerate(slabs.split(B)):
         if c and not bool((T > thr).any()):
             break
@@ -357,15 +363,12 @@ def _classify_kernel(tf, intensity):
     return tf_lookup(tf, intensity, mask="dot")
 
 
-def _render_fast_impl(volume, tf, look_from, config: RenderConfig,
-                      intermediate, planes_per_voxel, slab_batch,
-                      classify) -> FastRenderOutput:
-    volume = volume.to(torch.float32)
-    tf = tf.to(device=volume.device, dtype=torch.float32)
-    look_from = torch.as_tensor(look_from, dtype=torch.float32,
-                                device=volume.device).detach()
-    H, W = config.image_shape
-    O = intermediate or min(int(1.5 * max(H, W)), 1024)
+def _intermediate(volume, tf, look_from, config: RenderConfig, O: int,
+                  planes_per_voxel, slab_batch, classify, row_offset=0,
+                  n_rows=None):
+    """The intermediate image rows ``[row_offset, row_offset + n_rows)`` in
+    the frame of the view's principal axis (:func:`_core`), and what the
+    warp needs: ``(inter, extents, perm, sign)``."""
     channels = intensity_gradient_volume(volume)
 
     # The principal axis (the first of the largest |look_from|) and the side
@@ -388,7 +391,29 @@ def _render_fast_impl(volume, tf, look_from, config: RenderConfig,
     light_w = look_from + torch.tensor([0.0, 1.0, 0.0], device=volume.device)
     light_f = light_w[list(perm)] * flip_vec
     inter, ext = _core(ch, tf, lf_f, light_f, config, O, planes_per_voxel,
-                       slab_batch, classify)
+                       slab_batch, classify, row_offset, n_rows)
+    return inter, ext, perm, sign
+
+
+def _fast_inputs(volume, tf, look_from, config: RenderConfig, intermediate):
+    """f32 inputs on the volume's device (the camera held fixed) and O."""
+    volume = volume.to(torch.float32)
+    tf = tf.to(device=volume.device, dtype=torch.float32)
+    look_from = torch.as_tensor(look_from, dtype=torch.float32,
+                                device=volume.device).detach()
+    H, W = config.image_shape
+    O = intermediate or min(int(1.5 * max(H, W)), 1024)
+    return volume, tf, look_from, O
+
+
+def _render_fast_impl(volume, tf, look_from, config: RenderConfig,
+                      intermediate, planes_per_voxel, slab_batch,
+                      classify) -> FastRenderOutput:
+    volume, tf, look_from, O = _fast_inputs(volume, tf, look_from, config,
+                                            intermediate)
+    inter, ext, perm, sign = _intermediate(volume, tf, look_from, config, O,
+                                           planes_per_voxel, slab_batch,
+                                           classify)
     img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
     return FastRenderOutput(image=img, hit=hit)
 
@@ -419,6 +444,37 @@ def render_fast(volume: torch.Tensor, tf: torch.Tensor, look_from,
     """
     return _render_fast_impl(volume, tf, look_from, config, intermediate,
                              planes_per_voxel, slab_batch, _classify_kernel)
+
+
+def render_fast_sharded(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                        config: RenderConfig, group=None,
+                        intermediate: Optional[int] = None,
+                        planes_per_voxel: float = 1.0, precision=None,
+                        slab_batch: int = 32) -> FastRenderOutput:
+    """:func:`render_fast` over the ranks of a process group (``None``: the
+    default group; see ``parallel._collectives``): the intermediate image is
+    split by rows, each rank resampling, classifying (K0, K0b in the
+    backward), shading and compositing one strip of every slab, and one
+    all-gather of the (O, O, 4) intermediate image precedes the warp.  The
+    volume, the TF and the camera are replicated; every rank calls it with
+    the same inputs and gets :func:`render_fast`'s output bit for bit, and
+    the whole gradients in ``volume`` and ``tf``.  O must be a multiple of
+    the group size.  For a volume too large for one card, see
+    ``parallel.render_volume_sharded``."""
+    from .parallel._collectives import gather, group_rank, replicated
+    volume, tf, look_from, O = _fast_inputs(volume, tf, look_from, config,
+                                            intermediate)
+    k, n = group_rank(group, volume)
+    if O % n:
+        raise ValueError(f"intermediate size must divide the mesh axis: "
+                         f"O = {O} over {n} ranks")
+    strip, ext, perm, sign = _intermediate(
+        replicated(volume, group), replicated(tf, group), look_from, config,
+        O, planes_per_voxel, slab_batch, _classify_kernel, k * (O // n),
+        O // n)
+    inter = gather(strip, group, 0)
+    img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
+    return FastRenderOutput(image=img, hit=hit)
 
 
 def render_fast_plain(volume: torch.Tensor, tf: torch.Tensor, look_from,
@@ -490,4 +546,5 @@ def render_fast_auto(volume, tf, look_from, config: RenderConfig,
 
 
 __all__ = ["FastRenderOutput", "intensity_gradient_volume", "render_fast",
-           "render_fast_plain", "choose_fast_params", "render_fast_auto"]
+           "render_fast_sharded", "render_fast_plain", "choose_fast_params",
+           "render_fast_auto"]

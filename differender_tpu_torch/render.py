@@ -20,6 +20,10 @@ JAX's functional AD gives them): on CUDA through K2's per-ray position sums
 (its camera instantiation) and autograd of the ray setup, on the CPU
 through autograd of the plain march.
 
+K1 and K2 also march one X-slab of a sharded volume in their segment
+instantiations (a :class:`Segment` in ``MarchArgs``), which
+``parallel.volume_sharding`` launches.
+
 The JAX package's large-scale entry points run on the same kernels: row
 strips (:func:`render_strips`, :func:`render_nondiff_strips`) and rays
 sorted by predicted depth into chunks (:func:`render_depth_sorted`) are
@@ -335,7 +339,23 @@ class _MarchArgs(ctypes.Structure):
             "ambient", "diffuse", "specular", "shininess",
             "lc_r", "lc_g", "lc_b", "alpha_skip", "cell_world",
             "sc_x", "sc_y", "sc_z")]
-        + [("analytic", ctypes.c_int)])
+        + [("analytic", ctypes.c_int), ("s_lo", ctypes.c_void_p)]
+        + [(f, ctypes.c_int) for f in ("length", "x_start", "Xp")]
+        + [(f, ctypes.c_float) for f in ("x_lo", "x_hi")])
+
+
+class Segment(NamedTuple):
+    """The march over one X-slab of a volume sharded along X, the operands
+    of K1's and K2's segment instantiations (``MarchArgs.s_lo`` and after):
+    the volume is the shard's padded block, global x planes ``[x_start,
+    x_start + Xp)``; ray ``i`` marches the steps ``s_lo[i] + j`` for
+    ``j < length`` and composites those whose voxel coordinate ``c_x`` lies
+    in ``[x_lo, x_hi)`` (``parallel.volume_sharding``)."""
+    s_lo: torch.Tensor    # (H*W,) int32
+    length: int
+    x_start: int
+    x_lo: float
+    x_hi: float
 
 
 class _MarchBwdArgs(ctypes.Structure):
@@ -370,14 +390,27 @@ def _occupancy_args(occupancy, config, dev):
 
 
 def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
-                image, steps, shaded=None, occupancy=None, counts=None):
+                image, steps, shaded=None, occupancy=None, counts=None,
+                segment=None):
     """Validate the operands and fill ``MarchArgs`` for the rays ``soa``
-    (:class:`RaySoA`).  Returns the struct and the tensors it points into,
-    which the caller keeps referenced until the launch is enqueued (the
-    caching allocator keeps their memory for the stream after that)."""
+    (:class:`RaySoA`); with a :class:`Segment`, those of the segment
+    instantiations (``volume`` the shard's padded block; parity, no ERT).
+    Returns the struct and the tensors it points into, which the caller
+    keeps referenced until the launch is enqueued (the caching allocator
+    keeps their memory for the stream after that)."""
     dev = volume.device
     H, W = config.image_shape
-    volume = _checked("volume", volume, dev, config.volume_shape)
+    X, Y, Z = config.volume_shape
+    if segment is None:
+        volume = _checked("volume", volume, dev, config.volume_shape)
+        s_lo, seg = None, (0, 0, 0, 0.0, 0.0)
+    else:
+        Xp = volume.shape[0]
+        volume = _checked("padded volume", volume, dev, (Xp, Y, Z))
+        s_lo = _checked("s_lo", segment.s_lo, dev, (H * W,), torch.int32)
+        seg = (segment.length, segment.x_start, Xp, segment.x_lo,
+               segment.x_hi)
+        ert = False
     if tf.ndim != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
         raise ValueError(f"tf must be (R, 4); got {tuple(tf.shape)}")
     tf = _checked("tf", tf, dev)
@@ -394,7 +427,6 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
         image = image.clone()    # float4 loads need 16-byte alignment
     scale = voxel_scale(config.volume_shape)
     sc = np.float32(config.normal_delta) * scale
-    X, Y, Z = config.volume_shape
     lc = config.light_color
     dist, far, occ_ints, cell_world = _occupancy_args(occupancy, config,
                                                       dev)
@@ -413,9 +445,10 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
         _ert_threshold(config), config.ambient, config.diffuse,
         config.specular, config.shininess, lc[0], lc[1], lc[2],
         config.alpha_skip, cell_world, float(sc[0]), float(sc[1]),
-        float(sc[2]), int(config.analytic_normals))
+        float(sc[2]), int(config.analytic_normals and segment is None),
+        s_lo.data_ptr() if s_lo is not None else None, *seg)
     return args, (volume, tf, origin, dx, dy, dz, t0, dt, n, image, dist,
-                  far)
+                  far, s_lo)
 
 
 def _launch(entry, args, volume):
@@ -436,7 +469,8 @@ def _counts_out(name, counts, dev, shape, dtype=torch.int32):
 
 
 def _launch_march(entry, volume, tf, soa, config, sampling_rate, ert,
-                  max_steps, shaded=None, occupancy=None, counts=None):
+                  max_steps, shaded=None, occupancy=None, counts=None,
+                  segment=None):
     """Allocate the outputs and launch one forward march kernel; ``shaded``
     and ``counts`` (if given) receive its per-ray counts."""
     H, W = config.image_shape
@@ -445,7 +479,7 @@ def _launch_march(entry, volume, tf, soa, config, sampling_rate, ert,
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
     args, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
                              max_steps, image, steps, shaded, occupancy,
-                             counts)
+                             counts, segment)
     _launch(entry, args, keep[0])
     return image, steps
 
@@ -504,28 +538,39 @@ def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
     return d_v, d_t, steps
 
 
-def _k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-        counts=None, sums=None):
-    """One launch of K2, its camera instantiation where ``sums`` (an
-    (H, W, 12) f32 tensor) is given to receive the per-ray sums."""
+def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
+               counts=None, sums=None, segment=None):
+    """One launch of K2 (uncounted): its camera instantiation where
+    ``sums`` (an (H, W, 12) f32 tensor) is given to receive the per-ray
+    sums, its segment instantiation with a :class:`Segment` (``d_volume``
+    then has the padded block's shape)."""
     H, W = config.image_shape
     dev = volume.device
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
     fwd, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
-                            config.max_samples, image, steps, counts)
+                            config.max_samples, image, steps, counts,
+                            segment=segment)
     grad = _checked("image cotangent", grad, dev, (H, W, 4))
     if grad.data_ptr() % 16:
         grad = grad.clone()      # float4 loads need 16-byte alignment
-    d_volume = torch.zeros(config.volume_shape, dtype=torch.float32,
-                           device=dev)
+    d_volume = torch.zeros(keep[0].shape, dtype=torch.float32, device=dev)
     d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
     args = _MarchBwdArgs(fwd, grad.data_ptr(), d_volume.data_ptr(),
                          d_tf.data_ptr(),
                          sums.data_ptr() if sums is not None else None)
     _launch("dr_march_diff_bwd", args, keep[0])
+    return d_volume, d_tf, steps
+
+
+def _k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
+        counts=None, sums=None):
+    """One launch of K2, counted; its camera instantiation where ``sums``
+    is given (:func:`_launch_k2`)."""
+    out = _launch_k2(volume, tf, soa, config, sampling_rate, image, grad,
+                     ert, counts, sums)
     march_diff_bwd.launches += 1
     march_diff_bwd.camera_launches += sums is not None
-    return d_volume, d_tf, steps
+    return out
 
 
 def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,

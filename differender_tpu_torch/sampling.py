@@ -120,17 +120,53 @@ def sample_with_gradient_analytic(volume: torch.Tensor, pos: torch.Tensor,
     return intensity, grad
 
 
-def sample_with_gradient(volume: torch.Tensor, pos: torch.Tensor,
-                         delta: float = 1e-3):
-    """Intensity at ``pos`` and the unnormalized central-difference
-    gradient ``(v(+x) - v(-x), ...)``, ``(...)`` and ``(..., 3)``."""
+def _stencil_points(pos: torch.Tensor, delta: float) -> torch.Tensor:
+    """The 7 points ``(..., 7, 3)`` of each position's stencil."""
     offs = torch.as_tensor(_NORMAL_OFFSETS * np.float32(delta),
                            device=pos.device)
-    vals = trilinear(volume, pos[..., None, :] + offs)           # (..., 7)
+    return pos[..., None, :] + offs
+
+
+def _value_gradient(vals: torch.Tensor):
+    """The centre value and the central differences of the stencil's 7
+    values ``(..., 7)``."""
     grad = torch.stack([vals[..., 1] - vals[..., 2],
                         vals[..., 3] - vals[..., 4],
                         vals[..., 5] - vals[..., 6]], dim=-1)
     return vals[..., 0], grad
+
+
+def sample_with_gradient(volume: torch.Tensor, pos: torch.Tensor,
+                         delta: float = 1e-3):
+    """Intensity at ``pos`` and the unnormalized central-difference
+    gradient ``(v(+x) - v(-x), ...)``, ``(...)`` and ``(..., 3)``."""
+    return _value_gradient(trilinear(volume, _stencil_points(pos, delta)))
+
+
+def trilinear_shard(padded: torch.Tensor, pos: torch.Tensor, global_shape,
+                    x_start: int) -> torch.Tensor:
+    """Trilinear sample of an X-sharded volume block (the JAX package's
+    ``sampling.py::trilinear_shard``).  ``padded`` (Xp, Y, Z) holds the
+    global x planes ``[x_start, x_start + Xp)``.  Corner indices are taken
+    in global coordinates (``global_shape``), exactly as the unsharded
+    :func:`trilinear` takes them, and then localised,
+    ``lx = clamp(ix - x_start, 0, Xp - 1)``: a sample outside the block
+    (which the caller's ownership test masks) reads an edge plane."""
+    _, Y, Z = padded.shape
+    ix, iy, iz, w = corner_indices_weights(pos, global_shape)
+    lx = torch.clamp(ix - x_start, 0, padded.shape[0] - 1)
+    return _corner_sum(padded.reshape(-1)[(lx * Y + iy) * Z + iz] * w)
+
+
+def sample_with_gradient_shard(padded: torch.Tensor, pos: torch.Tensor,
+                               global_shape, x_start: int,
+                               delta: float = 1e-3):
+    """:func:`sample_with_gradient` against an X-sharded volume block
+    (:func:`trilinear_shard`): the same 7-point central-difference stencil,
+    which reaches at most 2 planes past the shard's own for ``delta`` below
+    a voxel (the halos of ``parallel.volume_sharding``)."""
+    return _value_gradient(trilinear_shard(
+        padded, _stencil_points(pos, delta), global_shape, x_start))
 
 
 # Each stencil point's share of (value, gx, gy, gz): the centre gives the
@@ -310,6 +346,7 @@ def march_tf(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["voxel_scale", "voxel_coords", "corner_indices_weights",
            "corner_flat_weights", "trilinear", "sample_with_gradient",
+           "trilinear_shard", "sample_with_gradient_shard",
            "sample_with_gradient_analytic", "Footprint", "stencil_footprint",
            "analytic_footprint",
            "apply_tf", "apply_tf_dot", "march_tf", "tf_lerp_bwd",

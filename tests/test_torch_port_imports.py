@@ -19,7 +19,9 @@ PKG = os.path.join(ROOT, "differender_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    # The parallel tests' rank processes import torch_port_ranks alone.
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_port_ranks.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -31,6 +33,11 @@ def test_import_leaves_jax_out():
             "import differender_tpu_torch.ops.bricks\n"
             "import differender_tpu_torch.ops.distance\n"
             "import differender_tpu_torch.fastpath\n"
+            "import differender_tpu_torch.parallel\n"
+            "import differender_tpu_torch.parallel.data_parallel\n"
+            "import differender_tpu_torch.parallel.train_step\n"
+            "import differender_tpu_torch.parallel.volume_sharding\n"
+            "import differender_tpu_torch.parallel._collectives\n"
             "assert differender_tpu_torch._build.library.cache_info()"
             ".currsize == 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -77,11 +84,18 @@ def test_cpu_tensors_never_launch():
                  torch.tensor([[0, 0, 0], [1, 0, 2]], dtype=torch.int32))
     P.brick_rows(vol, torch.zeros(2, dtype=torch.int32))
     P.cell_distance(*P.cell_minmax(vol, 2), tf.detach(), 0.0, 3)
+    rays = P.make_rays(lf, cfg, 1.0)
+    padded = P.parallel.pad_halos(vol, 0, 2)
+    acc, _ = P.parallel.segment_march(padded, tf, rays, cfg, 1.0, 0, 2, 8)
+    acc.sum().backward()
+    P.march_segment_bwd(padded, tf, rays, cfg, 1.0, 0, 2, 8, acc,
+                        torch.ones_like(acc))
     assert P.launch_counts() == {"tf_lookup_fwd": 0, "tf_lookup_bwd": 0,
                                  "march_diff_fwd": 0, "march_diff_bwd": 0,
                                  "march_nondiff": 0, "brick_sums": 0,
                                  "brick_rows": 0, "cell_minmax": 0,
-                                 "cell_distance": 0}
+                                 "cell_distance": 0, "march_segment_fwd": 0,
+                                 "march_segment_bwd": 0}
 
 
 @pytest.mark.parametrize("field", ["analytic_normals", "camera_grads"])
@@ -123,11 +137,16 @@ def test_march_args_mirror_the_c_struct():
     body = re.sub(r"//[^\n]*", "", body)
     c_fields = re.findall(r"(\w+)\s*[,;]", body)
     assert c_fields == [name for name, _ in _MarchArgs._fields_]
-    assert ctypes.sizeof(_MarchArgs) == 15 * 8 + 14 * 4 + 18 * 4
+    # 16 pointers, 17 ints and 20 floats, then 4 bytes of tail padding to
+    # the pointers' 8-byte alignment (as the C compiler lays it out).
+    assert ctypes.sizeof(_MarchArgs) == 16 * 8 + 17 * 4 + 20 * 4 + 4
     for name in ("occ", "occ_far", "counts", "nx", "ny", "nz", "cell",
                  "jump_every", "cell_world", "sc_x", "sc_y", "sc_z",
                  "analytic"):
         assert name in c_fields
+    # The segment instantiations' fields come last.
+    assert c_fields[-6:] == ["s_lo", "length", "x_start", "Xp", "x_lo",
+                             "x_hi"]
 
 
 def test_march_bwd_args_mirror_the_c_struct():
