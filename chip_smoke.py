@@ -9,7 +9,7 @@ Phases (one JSON line each):
      report of each kernel (the kernels are built here from ``csrc/``);
      resources: the registers, spills and shared memory of K4, K5, K6 and
      K0b, and of each instantiation of K1, K2 and K3 (parity and analytic,
-     K2's camera one, K1's and K2's segment ones).
+     K2's camera one, K1's and K2's segment ones, K2's segment camera one).
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
   2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
@@ -159,8 +159,34 @@ Phases (one JSON line each):
      ``render_fast`` and 4 row strips bitwise its intermediate image; the
      segment kernels per shard and summed over 4 beside K1 and K2 without
      ERT on the whole volume, the entry points' wall times beside
-     ``render``'s.
-  Each of 9d-9i prints its own seconds.
+     ``render``'s.  The camera gradient through the segments (K2's
+     segment camera instantiation): at 128^2 on noise (shards 0 and 1 of
+     4) and on the golden sphere (all 4 shards), rays on a shading kink
+     masked and counted, each shard's 12 per-ray sums against
+     ``segment_cotangents_plain`` (within CAMERA_SUM_TOL of each group's
+     largest), the cotangents of ``segment_march``'s ray tensors against
+     autograd of ``segment_march_plain`` in them (CAMERA_RAY_TOL), its
+     d_padded and d_tf against the default instantiation's; ``d_look_from``
+     of ``render_volume_sharded`` at world size 1 against the plain
+     segment's and against the 4 segments composed (CAMERA_TOL of its
+     norm); at 512^2 the step with and without the camera gradient, timed
+     in turn (one K1 segment, one K2 segment camera launch), the camera
+     instantiation timed beside the default one, its ``resources``.
+  9j. utilities: whether PIL and matplotlib import; ``io.load_raw_volume``
+     of a 256^3 uint8 file on the card bitwise numpy's / 255; a
+     ``profiling.trace`` around one ``render`` and one ``raycast_nondiff``
+     that names K1 and K3; a checkpoint round trip of a CUDA tensor, an
+     AdamW state and a CUDA generator's state; ``TorchRaycaster`` at the
+     bench (image bitwise ``Raycaster``'s with its draw, gradients within
+     K2_GRAD_TOL) and its ``raycast_fast`` at the viewer bitwise
+     ``Raycaster.raycast_fast``.
+  9k. examples: ``render_nondiff.run`` at its defaults (800^2, sampling
+     rate 16, 4 strips) bitwise ``render_nondiff``; ``optimize_tf.run
+     backward`` for 5 iterations at its default widths (the loss falls; one
+     K1 and one K2 a step); ``interactive_viewer.run`` for 3 frames without
+     its server; the examples' files written where PIL and matplotlib
+     import.
+  Each of 9d-9k prints its own seconds.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -702,6 +728,13 @@ def main() -> int:
             replaces="differender_tpu/parallel/volume_sharding.py:133",
             replaces_note=note, launches=0, max_abs_err=0.0,
             library_ms=None)
+    kernels["march_segment_bwd_camera"] = dict(
+        route="cuda", source="differender_tpu_torch/csrc/march_bwd.cu",
+        replaces="differender_tpu/parallel/volume_sharding.py:133",
+        replaces_note="JAX's AD of segment_render in look_from (the rays "
+                      "built outside the shard_map, volume_sharding.py:230): "
+                      "XLA, no Pallas kernel",
+        launches=0, max_abs_err=0.0, library_ms=None)
     kernels["cell_minmax"]["replaces_note"] = (
         "the reduce_window pair of _cell_minmax: XLA, no Pallas kernel")
     kernels["cell_distance"]["replaces_note"] = (
@@ -3387,12 +3420,475 @@ def main() -> int:
         kernels["march_segment_bwd"]["max_abs_err_is"] = \
             "max |diff| / max |g| per gradient tensor"
         del pads, fwd, accs, g_accs, whole_img, g_whole, c1, c2
+
+        # 6. The camera gradient through the segments (K2's segment camera
+        # instantiation): per shard its 12 per-ray sums and the ray tensors'
+        # cotangents against the plain segment march, at 128^2 on noise (an
+        # outer and an inner shard of 4) and on the golden sphere (all 4
+        # shards); d_look_from of render_volume_sharded at world size 1
+        # against the plain segment's and against the 4 segments composed;
+        # at 512^2 the step with and without the camera gradient.
+        t_cam = time.perf_counter()
+        from differender_tpu_torch.parallel.volume_sharding import \
+            segment_cotangents_plain
+        gen_s = torch.Generator(device=dev)     # this check's draws
+        gen_s.manual_seed(5)
+
+        def rel_max(got, want):
+            """max |got - want| and max |want|."""
+            return (float((got - want).abs().max()),
+                    float(want.abs().max()))
+
+        def segment_camera_case(vol_c, tf_c, cfg_c, lf_c, u_c, g_c, sr, n,
+                                shards, label):
+            """See 6. above.  Rays with a sample on a kink of the shading
+            (kink_free) get no cotangent.  Returns the case's record."""
+            H, W = cfg_c.image_shape
+            length_c = PV.segment_length(cfg_c, sr)[0]
+            rays_c = P.make_rays(lf_c, cfg_c, sr, u=u_c)
+            keep = kink_free(vol_c, tf_c, rays_c, cfg_c)
+            n_kink = int((~keep).sum())
+            require(n_kink <= 0.001 * H * W,
+                    f"{n_kink} rays on a kink of the shading on {label}")
+            g_m = g_c * keep[..., None]
+            rec = {"rays_on_shading_kinks": n_kink, "shards": []}
+            plain_ms = []
+            for k in shards:
+                pad = PV.pad_halos(vol_c, k, n)
+                acc, cnt = P.march_segment_fwd(pad, tf_c, rays_c, cfg_c, sr,
+                                               k, n, length_c)
+                sums = torch.zeros((H, W, 12), device=dev)
+                before = P.march_segment_bwd.camera_launches
+                d_p, d_t, _ = P.march_segment_bwd(
+                    pad, tf_c, rays_c, cfg_c, sr, k, n, length_c, acc, g_m,
+                    sums=sums)
+                require(P.march_segment_bwd.camera_launches == before + 1,
+                        f"{label} shard {k}: no camera launch")
+                d_p0, d_t0, _ = P.march_segment_bwd(
+                    pad, tf_c, rays_c, cfg_c, sr, k, n, length_c, acc, g_m)
+                same = []
+                for got_k, want_k, what in ((d_p, d_p0, "d_padded"),
+                                            (d_t, d_t0, "d_tf")):
+                    e, m = rel_max(got_k, want_k)
+                    require(e <= K2_GRAD_TOL * m,
+                            f"{label} shard {k}: K2 segment camera's {what} "
+                            f"against the default's, max |diff| {e} > "
+                            f"{K2_GRAD_TOL} * {m}")
+                    same.append(e / m if m > 0 else 0.0)
+                require(bool(torch.isfinite(sums).all()),
+                        f"{label} shard {k}: K2's sums not finite")
+                sync()
+                t0 = time.perf_counter()
+                ref = ray_sums(segment_cotangents_plain(
+                    pad, tf_c, rays_c, cfg_c, sr, k, n, length_c, g_m),
+                    (H, W))
+                sync()
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+                sum_errs = []
+                for i, what in enumerate("PSLV"):
+                    e, m = rel_max(sums[..., 3 * i:3 * i + 3],
+                                   ref[..., 3 * i:3 * i + 3])
+                    require(e <= CAMERA_SUM_TOL * m,
+                            f"{label} shard {k}: K2's {what} per ray, max "
+                            f"|diff| {e} > {CAMERA_SUM_TOL} * {m}")
+                    sum_errs.append(e / m if m > 0 else 0.0)
+                lv = leaves_of(rays_c)
+                acc_l, _ = PP.segment_march(pad, tf_c, with_leaves(rays_c, lv),
+                                            cfg_c, sr, k, n, length_c)
+                got = torch.autograd.grad(acc_l, lv, g_m)
+                lb = leaves_of(rays_c)
+                with torch.enable_grad():
+                    acc_p, _ = PV.segment_march_plain(
+                        pad, tf_c, with_leaves(rays_c, lb), cfg_c, sr, k, n,
+                        length_c)
+                want = torch.autograd.grad(acc_p, lb, g_m)
+                ray_errs = {}
+                for what, g_k, w_k in zip(("origin", "dirs", "entry",
+                                           "exit"), got, want):
+                    e, m = rel_max(g_k, w_k)
+                    require(bool(torch.isfinite(g_k).all())
+                            and e <= CAMERA_RAY_TOL * m,
+                            f"{label} shard {k}: the {what} cotangent, max "
+                            f"|diff| {e} > {CAMERA_RAY_TOL} * {m}")
+                    ray_errs[what] = e / m if m > 0 else 0.0
+                rec["shards"].append({
+                    "shard": k, "of": n, "samples": int(cnt.sum()),
+                    "rel_err_P_S_L_V": sum_errs,
+                    "rel_err_ray_tensors": ray_errs,
+                    "k2_camera_vs_default_rel_d_padded_d_tf": same,
+                    "plain_cotangents_ms": plain_ms[-1]})
+                del pad, acc, sums, d_p, d_t, d_p0, d_t0, ref, got, want
+            # d_look_from at world size 1, against the plain segment's and
+            # against the n segments composed.
+            lf_k = lf_c.clone().requires_grad_()
+            P.reset_launch_counts()
+            out_k = PP.render_volume_sharded(vol_c, tf_c, lf_k, cfg_c,
+                                             sampling_rate=sr, u=u_c)
+            torch.sum(out_k.image * g_m).backward()
+            sync()
+            c_k = dict(P.launch_counts(),
+                       camera=P.march_segment_bwd.camera_launches)
+            require(c_k["march_segment_fwd"] == 1
+                    and c_k["march_segment_bwd"] == 1 and c_k["camera"] == 1,
+                    f"{label}: the camera step launched {c_k}")
+            lf_p = lf_c.clone().requires_grad_()
+            rays_pl = P.make_rays(lf_p, cfg_c, sr, u=u_c)
+            acc_p, cnt_p = PV.segment_march_plain(
+                PV.pad_halos(vol_c, 0, 1), tf_c, rays_pl, cfg_c, sr, 0, 1,
+                length_c)
+            img_p, _ = PV.compose_segments(acc_p[None], cnt_p[None],
+                                           rays_pl.dirs[..., 0])
+            lf_plain, = torch.autograd.grad(torch.sum(img_p * g_m), lf_p)
+            lf_n = lf_c.clone().requires_grad_()
+            rays_n = P.make_rays(lf_n, cfg_c, sr, u=u_c)
+            outs = [PP.segment_march(PV.pad_halos(vol_c, k, n), tf_c, rays_n,
+                                     cfg_c, sr, k, n, length_c)
+                    for k in range(n)]
+            img_n, _ = PV.compose_segments(
+                torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]), rays_n.dirs[..., 0])
+            lf_segs, = torch.autograd.grad(torch.sum(img_n * g_m), lf_n)
+            norm = float(lf_plain.norm())
+            err = float((lf_k.grad - lf_plain).abs().max()) / norm
+            err_n = float((lf_segs - lf_k.grad).abs().max()) / norm
+            require(bool(torch.isfinite(lf_k.grad).all()) and norm > 0
+                    and err <= CAMERA_TOL and err_n <= CAMERA_TOL,
+                    f"{label}: d_look_from {lf_k.grad.tolist()}, plain "
+                    f"{lf_plain.tolist()}, {n} segments {lf_segs.tolist()}")
+            rec.update(launches=c_k, d_look_from=lf_k.grad.tolist(),
+                       d_look_from_plain=lf_plain.tolist(),
+                       d_look_from_rel_err=err,
+                       d_look_from_segments=lf_segs.tolist(),
+                       d_look_from_segments_rel_err=err_n,
+                       plain_ms=statistics.mean(plain_ms))
+            return rec
+
+        cam = {}
+        u_c = torch.rand((128, 128), generator=gen_s, device=dev)
+        g_c = torch.rand((128, 128, 4), generator=gen_s, device=dev) - 0.3
+        cam["noise_128"] = segment_camera_case(
+            vol_n, tf_i, cfg_s, lf, u_c, g_c, 1.0, 4, (0, 1),
+            "segment camera, noise 128^2")
+        g_sph = torch.rand((16, 16, 4), generator=gen_s, device=dev) - 0.3
+        cam["sphere"] = segment_camera_case(
+            sphere, gtf, gcfg, glf, None, g_sph, 0.8, 4, range(4),
+            "segment camera, sphere")
+        # At 512^2: the world-size-1 step with and without the camera
+        # gradient, called in turn; the main path's launches.
+        v_leaf = vol_n.clone().requires_grad_()
+        t_leaf = tf_i.clone().requires_grad_()
+        lf_leaf = lf.clone().requires_grad_()
+
+        def rvs_step(look_from):
+            v_leaf.grad = t_leaf.grad = lf_leaf.grad = None
+            PP.render_volume_sharded(v_leaf, t_leaf, look_from, cfg,
+                                     u=u_p).image.square().mean().backward()
+
+        P.reset_launch_counts()
+        rvs_step(lf_leaf)
+        sync()
+        c_cam = dict(P.launch_counts(),
+                     camera=P.march_segment_bwd.camera_launches)
+        require(c_cam["march_segment_fwd"] == 1
+                and c_cam["march_segment_bwd"] == 1 and c_cam["camera"] == 1
+                and sum(c_cam.values()) == 3
+                and bool(torch.isfinite(lf_leaf.grad).all()),
+                f"the sharded camera step launched {c_cam}")
+        for name in ("march_segment_fwd", "march_segment_bwd"):
+            kernels[name]["launches"] += c_cam[name]
+        kernels["march_segment_bwd_camera"]["launches"] += c_cam["camera"]
+        step_ms, step_ms_cam = host_ms_ab(lambda: rvs_step(lf),
+                                          lambda: rvs_step(lf_leaf), 5)
+        # K2's segment camera instantiation at the step's rays (one segment
+        # over the whole volume), timed beside the default one; its bound
+        # counts the camera's operations per scattering sample over the
+        # owned samples.
+        soa = _ray_soa(rays_p)
+        seg1 = PV._segment(rays_p, cfg, 0, 1, length)
+        pad1 = PV.pad_halos(vol_n, 0, 1)
+        acc1, cnt1 = PV._k1_segment(pad1, tf_i, soa, seg1, cfg, 1.0)
+        g1 = 2.0 * acc1 / acc1.numel()
+        sums1 = torch.empty((img, img, 12), device=dev)
+        k2_ms_def, k2_ms_cam = cuda_ms_ab(
+            lambda: PV._k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1),
+            lambda: PV._k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1,
+                                   sums=sums1), 10, warm=2)
+        cc = torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
+        PV._k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1, cc, sums1)
+        n_s = int(cnt1.sum())
+        n_sc, n_ql = int(cc[..., 0].sum()), int(cc[..., 1].sum())
+        b_cam = bound(3 * pad1.numel() * 4 + R * 32 + ray_bytes
+                      + img * img * (40 + 48),
+                      n_sc * (BWD_SAMPLE_OPS + CAMERA_POSITION_OPS)
+                      + (n_s - n_sc) * QUIET_SAMPLE_OPS + n_ql * QUIET_LIGHT_OPS
+                      + n_s * CAMERA_SUM_OPS)
+        res_cam = {k: v for k, v in ptxas_of(
+            "march_bwd.cu", ["march_diff_bwd_kernel"]).items()
+            if "Lb0ELb1ELb1EE" in k}
+        require(len(res_cam) == 2,
+                f"the segment camera instantiations' ptxas report: {res_cam}")
+        cam_errs = [max(max(s["rel_err_P_S_L_V"]),
+                        max(s["rel_err_ray_tensors"].values()))
+                    for c in cam.values() for s in c["shards"]]
+        cam.update(
+            step_launches=c_cam, grad_step_ms=step_ms,
+            grad_step_ms_camera=step_ms_cam, k2_segment_ms=k2_ms_def,
+            k2_segment_camera_ms=k2_ms_cam, samples_whole=n_s,
+            samples_scattering=n_sc, bound_ms_camera=b_cam[0],
+            bound_by_camera=b_cam[1], resources=res_cam,
+            seconds=time.perf_counter() - t_cam)
+        par["camera"] = cam
+        kernels["march_segment_bwd_camera"].update(
+            max_abs_err=max(cam_errs + [c["d_look_from_rel_err"]
+                                        for c in (cam["noise_128"],
+                                                  cam["sphere"])]),
+            ms=k2_ms_cam, ms_default=k2_ms_def, bound_ms=b_cam[0],
+            bound_by=b_cam[1], plain_ms=cam["noise_128"]["plain_ms"],
+            grad_step_ms_camera=step_ms_cam, grad_step_ms=step_ms,
+            resources=res_cam,
+            max_abs_err_is="max |diff| / max |plain| of the per-ray sums, "
+                           "the ray tensors' cotangents and d_look_from "
+                           "(its norm)",
+            plain_ms_note="segment_cotangents_plain on one shard's 128^2 "
+                          "rays (its taps and autograd), host clock; ms at "
+                          "the 512^2 step's rays, one segment")
+        del v_leaf, t_leaf, lf_leaf, pad1, acc1, g1, sums1, cc
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     emit({"phase": "parallel", "cases": par, "volume": res, "image": img,
           "length": length, "tolerance_image": 2e-4,
           "tolerance_grad": K2_GRAD_TOL,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+    # -- 9j. utilities: io, profiling, checkpoints, TorchRaycaster ----------
+    t_phase = time.perf_counter()
+    import importlib
+    import tempfile
+
+    from differender_tpu_torch import io as PIO
+    from differender_tpu_torch import profiling as PPR
+    libs = {}
+    for mod in ("PIL", "matplotlib"):
+        try:
+            importlib.import_module(mod)
+            libs[mod] = True
+        except ImportError:
+            libs[mod] = False
+    print(f"utilities: PIL imports {libs['PIL']}, matplotlib imports "
+          f"{libs['matplotlib']}", flush=True)
+    util = {"imports": libs}
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_util_")
+    try:
+        # load_raw_volume of a uint8 256^3 file (every byte value): on the
+        # card, bitwise numpy's f32 / 255 on the host.  A divisor given as
+        # a Python number is not: torch multiplies by its reciprocal there.
+        raw = np.random.default_rng(7).integers(0, 256, res ** 3,
+                                                dtype=np.uint8)
+        raw[:256] = np.arange(256, dtype=np.uint8)
+        raw_path = os.path.join(scratch, "volume.raw")
+        raw.tofile(raw_path)
+        v_raw = PIO.load_raw_volume(raw_path, (res, res, res))
+        want_raw = np.ascontiguousarray(np.swapaxes(
+            raw.reshape(res, res, res).astype(np.float32) / np.float32(255),
+            0, 1))
+        require(v_raw.is_cuda and np.array_equal(v_raw.cpu().numpy(),
+                                                 want_raw),
+                "load_raw_volume differs from numpy's / 255")
+        by_scalar = (torch.from_numpy(raw).to(dev).float() / 255).cpu()
+        util["load_raw_volume"] = {
+            "bitwise_numpy": True, "shape": list(v_raw.shape),
+            "scalar_divisor_bitwise": bool(np.array_equal(
+                by_scalar.numpy(), raw.astype(np.float32) / np.float32(255)))}
+        del raw, v_raw, want_raw, by_scalar
+        # A trace around one render and one raycast_nondiff names K1 and K3
+        # (the profiler's first trace of a process can miss launches: up
+        # to three tries).
+        vol_n = user_to_internal(scenes["noise"])
+        for attempt in range(1, 4):
+            trace_dir = os.path.join(scratch, f"trace{attempt}")
+            with PPR.trace(trace_dir):
+                with PPR.annotate("chip_smoke-render"):
+                    P.render(vol_n, tf_i, lf, cfg)
+                P.render_nondiff(vol_n, tf_i, lf, cfg)
+                sync()
+            text = "".join(open(os.path.join(trace_dir, f)).read()
+                           for f in os.listdir(trace_dir))
+            named = {k: k + "_kernel" in text
+                     for k in ("march_diff_fwd", "march_nondiff")}
+            if all(named.values()):
+                break
+        require(all(named.values()), f"the trace names {named}")
+        util["trace"] = {"names": named, "attempts": attempt,
+                         "bytes": len(text),
+                         "annotated": "chip_smoke-render" in text}
+        del text
+        # A checkpoint of a CUDA tensor, an AdamW state and a CUDA
+        # generator's state: restored, each continues as the original.
+        w = torch.rand((64, 64), generator=gen_b, device=dev)
+        w.requires_grad_()
+        opt_w = torch.optim.AdamW([w], lr=1e-2)
+        g_gen = torch.Generator(device=dev)
+        g_gen.manual_seed(11)
+        for _ in range(3):
+            w.grad = torch.rand(w.shape, generator=g_gen, device=dev)
+            opt_w.step()
+        ckpt = os.path.join(scratch, "ckpt.pkl")
+        PIO.save_checkpoint(ckpt, {"w": w, "opt": opt_w.state_dict(),
+                                   "gen": g_gen.get_state()}, step=3)
+        state, step_ck = PIO.load_checkpoint(ckpt)
+        w2 = PIO.checkpoint_tensors(state["w"], dev).requires_grad_()
+        opt_w2 = torch.optim.AdamW([w2], lr=1e-2)
+        opt_w2.load_state_dict(PIO.checkpoint_tensors(state["opt"]))
+        g_gen2 = torch.Generator(device=dev)
+        g_gen2.set_state(PIO.checkpoint_tensors(state["gen"]))
+        for _ in range(2):
+            gr = torch.rand(w.shape, generator=g_gen, device=dev)
+            require(torch.equal(gr, torch.rand(w.shape, generator=g_gen2,
+                                               device=dev)),
+                    "the restored generator draws otherwise")
+            w.grad, w2.grad = gr, gr.clone()
+            opt_w.step()
+            opt_w2.step()
+        require(step_ck == 3 and torch.equal(w, w2),
+                "the restored AdamW continues otherwise")
+        util["checkpoint"] = {"round_trip": True, "step": step_ck}
+        del w, w2, opt_w, opt_w2, state
+        # TorchRaycaster at the bench: forward bitwise Raycaster's with its
+        # draw (the same K1 launch), gradients within K2_GRAD_TOL (K2's f32
+        # atomics add in another order each launch); raycast_fast at the
+        # viewer bitwise Raycaster.raycast_fast, its K0 launches counted.
+        trc = P.TorchRaycaster((res, res, res), (img, img), R,
+                               sampling_rate=1.0, jitter=True,
+                               max_samples=512, seed=0)
+        vol_user = P.volume_from_internal(vol_n)[None]
+        v_t = vol_user.clone().requires_grad_()
+        t_t = tf_user.clone().requires_grad_()
+        P.reset_launch_counts()
+        img_t = trc(v_t, t_t, lf)
+        img_t.square().mean().backward()
+        sync()
+        c_trc = P.launch_counts()
+        require(c_trc["march_diff_fwd"] == 1 and c_trc["march_diff_bwd"] == 1,
+                f"TorchRaycaster's step launched {c_trc}")
+        kernels["march_diff_fwd"]["launches"] += 1
+        kernels["march_diff_bwd"]["launches"] += 1
+        v_r = vol_user.clone().requires_grad_()
+        t_r = tf_user.clone().requires_grad_()
+        img_r = rc(v_r, t_r, lf, u=trc._last_u)
+        img_r.square().mean().backward()
+        require(torch.equal(img_t, img_r),
+                "TorchRaycaster's image differs from Raycaster's")
+        util["torch_raycaster"] = {
+            "launches": c_trc, "image_bitwise_raycaster": True,
+            "grad_rel_err_d_volume_d_tf": grads_close(
+                (v_t.grad, t_t.grad), (v_r.grad, t_r.grad),
+                "TorchRaycaster against Raycaster")}
+        del v_t, t_t, v_r, t_r, img_t, img_r
+        syn = torch.from_numpy(P.synthetic_volume(res)).to(dev)[None]
+        trc_v = P.TorchRaycaster((res, res, res), (800, 800), R,
+                                 sampling_rate=16.0, jitter=False)
+        rc_v = P.Raycaster((res, res, res), (800, 800), R,
+                           sampling_rate=16.0, jitter=False)
+        lf_v = torch.tensor([0.0, 1.0, -2.3], device=dev)
+        P.reset_launch_counts()
+        fast_t = trc_v.raycast_fast(syn, tf_user, lf_v)
+        sync()
+        c_fast = P.launch_counts()
+        require(c_fast["tf_lookup_fwd"] > 0 and not fast_t.requires_grad
+                and torch.equal(fast_t, rc_v.raycast_fast(syn, tf_user,
+                                                          lf_v)),
+                f"TorchRaycaster.raycast_fast: {c_fast}")
+        kernels["tf_lookup_fwd"]["launches"] += c_fast["tf_lookup_fwd"]
+        util["torch_raycaster"].update(raycast_fast_bitwise=True,
+                                       raycast_fast_launches=c_fast)
+        del syn, fast_t, trc, trc_v, rc_v
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    emit({"phase": "utilities", "cases": util,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+    # -- 9k. examples: the port's example scripts on the card ----------------
+    t_phase = time.perf_counter()
+    from differender_tpu_torch.examples import interactive_viewer as ex_view
+    from differender_tpu_torch.examples import optimize_tf as ex_tf
+    from differender_tpu_torch.examples import render_nondiff as ex_rn
+    exs = {}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        # render_nondiff at its defaults (800^2, sampling rate 16, the 256^3
+        # synthetic volume, 4 strips): bitwise render_nondiff on its inputs.
+        a_rn = ex_rn.parser().parse_args(["--out", os.path.join(
+            out_dir, "render.png")])
+        P.reset_launch_counts()
+        o_rn = ex_rn.run(a_rn)
+        sync()
+        c_rn = P.launch_counts()
+        require(c_rn["march_nondiff"] == 4 and c_rn["cell_minmax"] == 1
+                and c_rn["cell_distance"] == 1,
+                f"render_nondiff.run launched {c_rn}")
+        add_launches(c_rn, ("march_nondiff", "cell_minmax", "cell_distance"))
+        vol_e, tf_e, lf_e, cfg_e = ex_rn.scene(a_rn)
+        require(torch.equal(o_rn["image"], P.render_nondiff(
+            vol_e, tf_e, lf_e, cfg_e, a_rn.sampling_rate).image),
+            "render_nondiff.run differs from render_nondiff")
+        exs["render_nondiff"] = {"launches": c_rn, "bitwise": True,
+                                 "image": list(o_rn["image"].shape),
+                                 "mean_alpha": float(
+                                     o_rn["image"][..., 3].mean())}
+        del vol_e
+        # optimize_tf backward for 5 iterations at its default widths: the
+        # loss falls; one K1 and one K2 a step, one K1 a logged render.
+        a_tf = ex_tf.parser().parse_args(["backward", "--iterations", "5",
+                                          "--results", out_dir])
+        P.reset_launch_counts()
+        t0 = time.perf_counter()
+        o_tf = ex_tf.run(a_tf)
+        sync()
+        tf_s = time.perf_counter() - t0
+        c_tf = P.launch_counts()
+        n_log = len(o_tf["logged"])
+        require(o_tf["losses"][-1] < o_tf["losses"][0]
+                and all(math.isfinite(x) for x in o_tf["losses"]),
+                f"optimize_tf: the loss did not fall: {o_tf['losses']}")
+        require(c_tf["march_diff_bwd"] == 5
+                and c_tf["march_diff_fwd"] == 5 + n_log
+                and c_tf["march_nondiff"] == 1,
+                f"optimize_tf.run launched {c_tf} with {n_log} logged")
+        add_launches(c_tf, ("march_diff_fwd", "march_diff_bwd",
+                            "march_nondiff", "cell_minmax", "cell_distance"))
+        exs["optimize_tf"] = {"launches": c_tf, "losses": o_tf["losses"],
+                              "logged": n_log, "seconds": tf_s,
+                              "tf_l1": o_tf["tf_l1"]}
+        # interactive_viewer, 3 frames without its server.
+        a_v = ex_view.parser().parse_args(["--frames", "3"])
+        P.reset_launch_counts()
+        o_v = ex_view.run(a_v)
+        sync()
+        c_v = P.launch_counts()
+        require(len(o_v["frames"]) == 3 and c_v["march_nondiff"] == 3
+                and c_v["cell_minmax"] == 1
+                and all(bool(torch.isfinite(f).all()) for f in o_v["frames"]),
+                f"interactive_viewer.run launched {c_v}")
+        add_launches(c_v, ("march_nondiff", "cell_minmax", "cell_distance"))
+        exs["interactive_viewer"] = {"frames": 3, "launches": c_v}
+        # The files, where PIL and matplotlib import.
+        written = []
+        if libs["PIL"] and libs["matplotlib"]:
+            ex_rn.write(a_rn, o_rn)
+            ex_tf.write(a_tf, o_tf)
+            written = sorted(os.listdir(out_dir))
+        if libs["PIL"]:
+            pngs = [ex_view.frame_png(f) for f in o_v["frames"]]
+            written.append(f"viewer: {len(pngs)} PNG frames, "
+                           f"{sum(map(len, pngs))} bytes")
+        exs["files_written"] = written
+        del o_rn, o_tf, o_v
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "examples", "cases": exs,
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     torch.cuda.empty_cache()
 

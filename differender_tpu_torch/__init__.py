@@ -21,9 +21,17 @@ and K2 (``march_segment_fwd``, ``march_segment_bwd``).
 ``RenderConfig(analytic_normals=True)`` takes each sample's
 gradient from its 8 corners in K1, K2 and K3; a camera that requires grad
 gets its gradient through K2's camera instantiation
-(``march_diff_bwd.camera_launches`` counts it).  CPU tensors go to plain
-torch versions of the same functions.  Importing the package needs neither
-a GPU nor ``nvcc``.
+(``march_diff_bwd.camera_launches`` counts it), also in a sharded render
+(``march_segment_bwd.camera_launches``).  CPU tensors go to plain torch
+versions of the same functions.  Importing the package needs neither a GPU
+nor ``nvcc``.
+
+Beside the renderer: :class:`TorchRaycaster` (the JAX package's torch
+bridge, over :class:`Raycaster`), :mod:`.io` (raw and NIfTI volumes,
+checkpoints), :mod:`.profiling` (``torch.profiler`` traces),
+:mod:`.video` (:class:`VideoWriter`, :func:`save_video`) and
+:mod:`.plotting`; the example scripts run as ``python -m
+differender_tpu_torch.examples.<name>``.
 """
 from typing import Dict
 
@@ -58,8 +66,10 @@ from .render import (RenderOutput, choose_diff_renderer, march_diff,
 from .shading import premultiply_alpha
 from .transfer import (get_tf, get_tf_torch_layout, random_peaks_tf,
                        tex_from_pts)
+from .torch_interop import TorchRaycaster
 from .utils.camera import get_rand_pos, in_circles
 from .utils.scenes import ct_phantom, noise_volume, synthetic_volume
+from .video import VideoWriter, save_video
 
 __version__ = "0.1.0"
 
@@ -85,11 +95,13 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zeroes every wrapper's count, and K2's count of its camera
-    instantiation (``march_diff_bwd.camera_launches``)."""
+    """Zeroes every wrapper's count, and K2's counts of its camera
+    instantiations (``march_diff_bwd.camera_launches``,
+    ``march_segment_bwd.camera_launches``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     march_diff_bwd.camera_launches = 0
+    march_segment_bwd.camera_launches = 0
 
 
 __all__ = [
@@ -118,4 +130,5 @@ __all__ = [
     "brick_sums_reference", "brick_rows_reference", "cell_minmax_reference",
     "cell_distance", "cell_distance_reference",
     "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
+    "TorchRaycaster", "VideoWriter", "save_video",
 ]

@@ -385,7 +385,12 @@ __device__ __forceinline__ float coord_slope(float p, float scale) {
 
 // Adds w times the position gradient of the trilinear interpolant at one
 // point to (o.x, o.y, o.z): its 8 corners loaded, the in-cell derivatives
-// times coord_slope.  No-op for w = 0.
+// times coord_slope.  No-op for w = 0.  kSegment: the corners' global x
+// indices are clamped to the volume first (voxel_axis, as
+// sampling.py::trilinear_shard takes them), then shifted into the shard's
+// padded block (voxel<kSegment>), so the slope at the volume's faces is the
+// global clamp's, not a clamp at the block's edges.
+template <bool kSegment>
 __device__ __forceinline__ void add_point_gradient(const MarchArgs& a,
                                                    float px, float py,
                                                    float pz, float w,
@@ -398,7 +403,7 @@ __device__ __forceinline__ void add_point_gradient(const MarchArgs& a,
   float v[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    v[c] = voxel(a, x[c & 1], y[(c >> 1) & 1], z[c >> 2]);
+    v[c] = voxel<kSegment>(a, x[c & 1], y[(c >> 1) & 1], z[c >> 2]);
   }
   float dx, dy, dz;
   cell_derivatives<false>(v, fx, fy, fz, dx, dy, dz);
@@ -412,8 +417,9 @@ __device__ __forceinline__ void add_point_gradient(const MarchArgs& a,
 // trilinear derivative and, per axis, the difference of the derivatives at
 // the +-delta points.  Analytic: from the centre's cell, the value's first
 // derivatives and the gradient's mixed second ones, d g_x / d f_y =
-// sc_x sum_c v_c (+-1)_x (+-1)_y w_z,c and so on.
-template <bool kAnalytic>
+// sc_x sum_c v_c (+-1)_x (+-1)_y w_z,c and so on.  kSegment (parity only):
+// the points read the shard's padded block (add_point_gradient).
+template <bool kAnalytic, bool kSegment = false>
 __device__ __forceinline__ void add_position_cotangent(
     const MarchArgs& a, const Sample& q, float dv, float dgx, float dgy,
     float dgz, float3& o) {
@@ -437,13 +443,13 @@ __device__ __forceinline__ void add_position_cotangent(
     o.z += coord_slope(q.pz, a.scale_z) * (dv * dz + ax * dxz + ay * dyz);
   } else {
     const float d = a.delta;
-    add_point_gradient(a, q.px, q.py, q.pz, dv, o);
-    add_point_gradient(a, q.px + d, q.py, q.pz, dgx, o);
-    add_point_gradient(a, q.px - d, q.py, q.pz, -dgx, o);
-    add_point_gradient(a, q.px, q.py + d, q.pz, dgy, o);
-    add_point_gradient(a, q.px, q.py - d, q.pz, -dgy, o);
-    add_point_gradient(a, q.px, q.py, q.pz + d, dgz, o);
-    add_point_gradient(a, q.px, q.py, q.pz - d, -dgz, o);
+    add_point_gradient<kSegment>(a, q.px, q.py, q.pz, dv, o);
+    add_point_gradient<kSegment>(a, q.px + d, q.py, q.pz, dgx, o);
+    add_point_gradient<kSegment>(a, q.px - d, q.py, q.pz, -dgx, o);
+    add_point_gradient<kSegment>(a, q.px, q.py + d, q.pz, dgy, o);
+    add_point_gradient<kSegment>(a, q.px, q.py - d, q.pz, -dgy, o);
+    add_point_gradient<kSegment>(a, q.px, q.py, q.pz + d, dgz, o);
+    add_point_gradient<kSegment>(a, q.px, q.py, q.pz - d, -dgz, o);
   }
 }
 
@@ -480,12 +486,15 @@ __device__ __forceinline__ float rest_of_ray(
 // warps to hide its data-addressed loads and atomics.  The camera
 // instantiation: 3 blocks, 168 registers.
 //
-// kSegment (parity only, no ERT, no camera): the backward of K1's segment
+// kSegment (parity only, no ERT): the backward of K1's segment
 // instantiation.  It marches bitwise K1's eligible run (segment_range),
 // f.image holding that run's composite, scatters d_volume into the shard's
 // padded block (its halo planes included: the caller sends their cotangents
 // to the shards that own them) and takes the TF gradient of JAX's
 // apply_tf, autograd of the gather-lerp (kTfGradEveryT), for every R.
+// kSegment with kCamera: the 12 per-ray sums over the owned run, with the
+// global sample index s, so the caller maps them through ray_cotangents
+// unchanged; the ranks' sums of one ray add up to the whole ray's.
 template <bool kGlobalTf, bool kAnalytic, bool kCamera, bool kSegment>
 __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
     march_diff_bwd_kernel(MarchBwdArgs b) {
@@ -590,7 +599,8 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
         sum_l.x += d_p.x;
         sum_l.y += d_p.y;
         sum_l.z += d_p.z;
-        add_position_cotangent<kAnalytic>(a, q, dv, dgx, dgy, dgz, d_p);
+        add_position_cotangent<kAnalytic, kSegment>(a, q, dv, dgx, dgy,
+                                                    dgz, d_p);
         const float sf = (float)s;
         sum_p.x += d_p.x;
         sum_p.y += d_p.y;
@@ -647,10 +657,14 @@ extern "C" int dr_march_diff_bwd(const MarchBwdArgs* b, int device,
   cudaStream_t s = (cudaStream_t)stream;
   const bool camera = b->ray_sums != nullptr;
   if (a.s_lo) {
-    // The segment instantiation: parity, no camera (the caller refuses
-    // both).
-    if (a.analytic || camera) return (int)cudaErrorInvalidValue;
-    launch_bwd<false, false, true>(*b, grid, block, s);
+    // The segment instantiations: parity only (the caller never asks for
+    // analytic normals in a segment, as JAX's segment ignores them).
+    if (a.analytic) return (int)cudaErrorInvalidValue;
+    if (camera) {
+      launch_bwd<false, true, true>(*b, grid, block, s);
+    } else {
+      launch_bwd<false, false, true>(*b, grid, block, s);
+    }
   } else if (a.analytic) {
     if (camera) {
       launch_bwd<true, true>(*b, grid, block, s);

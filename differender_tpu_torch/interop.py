@@ -1,7 +1,7 @@
 """Carry renderer state from the numpy arrays the JAX package works on into
-the port's tensors.  The renderer has no weights; its state is the volume,
-the transfer function and the camera, and for the inference march an
-occupancy grid."""
+the port's tensors, and tensors back to the host (:func:`to_numpy`).  The
+renderer has no weights; its state is the volume, the transfer function
+and the camera, and for the inference march an occupancy grid."""
 from __future__ import annotations
 
 import numpy as np
@@ -43,6 +43,14 @@ def state_from_numpy(volume, tf, look_from, *, layout: str = "internal",
                  for a in (vol, tf_, lf))
 
 
+def to_numpy(x) -> np.ndarray:
+    """``x`` on the host as a numpy array: a tensor on any device (detached
+    and copied to the host), or anything ``np.asarray`` takes."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def occupancy_from_numpy(dist, shape, cell, cell_world, *, device="cuda"):
     """An :class:`~differender_tpu_torch.occupancy.OccupancyGrid` on
     ``device`` from a grid's fields as numpy data (for instance a grid the
@@ -60,4 +68,4 @@ def occupancy_from_numpy(dist, shape, cell, cell_world, *, device="cuda"):
         cell_world=float(cell_world), far=torch.from_numpy(far).to(device))
 
 
-__all__ = ["state_from_numpy", "occupancy_from_numpy"]
+__all__ = ["state_from_numpy", "occupancy_from_numpy", "to_numpy"]

@@ -25,8 +25,12 @@ sequential across shards and is not applied, as in the JAX package.  The
 segment march takes the central-difference stencil and the TF of JAX's
 ``apply_tf`` whatever ``config.analytic_normals`` says, as JAX's segment
 does.  Gradients flow to the volume (each rank gets its own slab's, the
-halo cotangents sent home) and to the TF (whole on every rank), by the
-convention of :mod:`._collectives`; the camera is refused.
+halo cotangents sent home), to the TF and to a camera that requires grad
+(both whole on every rank), by the convention of :mod:`._collectives`:
+every rank builds the rays from the camera, as JAX builds them outside its
+``shard_map``, and its segment's cotangents of the ray tensors (kernel K2's
+segment camera instantiation on CUDA, autograd of the plain march on the
+CPU) cover its own samples; the ranks' parts are summed.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ import torch.distributed as dist
 from .. import _build
 from ..config import RenderConfig
 from ..geometry import RayBundle, make_rays, march_params
-from ..render import (RaySoA, RenderOutput, Segment, _inputs,
-                      _launch_k2, _launch_march, _ray_soa)
+from ..render import (RaySoA, RenderOutput, SampleCotangents, Segment,
+                      _counts_out, _inputs, _launch_k2, _launch_march,
+                      _ray_soa, _tap, ray_cotangents, tap_cotangents)
 from ..sampling import apply_tf, sample_with_gradient_shard, voxel_scale
 from ..shading import shade
 from ._collectives import all_gather, gather, group_rank, replicated
@@ -165,7 +170,7 @@ def _segment(rays: RayBundle, config: RenderConfig, k: int, n_shards: int,
 
 def segment_march_plain(padded: torch.Tensor, tf: torch.Tensor,
                         rays: RayBundle, config: RenderConfig, sampling_rate,
-                        k: int, n_shards: int, length: int):
+                        k: int, n_shards: int, length: int, taps=None):
     """Plain torch march of shard ``k``'s segment (the local part of the
     JAX package's ``segment_render``): over the window's steps, the samples
     that are in range (``s < min(n, max_samples)``) and owned; per sample
@@ -175,8 +180,9 @@ def segment_march_plain(padded: torch.Tensor, tf: torch.Tensor,
     and the composite, front to back without ERT.  Returns ``(acc (H, W, 4),
     cnt (H, W) int32)``: the premultiplied ``(r, g, b, 1 - T)`` of the
     owned samples and their count.  Differentiable by autograd in
-    ``padded`` and ``tf``; kernel K1's segment instantiation is held to
-    it."""
+    ``padded``, ``tf`` and the ray bundle's tensors; kernel K1's segment
+    instantiation is held to it.  ``taps`` (a list) receives the owned
+    samples' taps, as ``render._plain_march`` records them."""
     H, W = config.image_shape
     seg = _segment(rays, config, k, n_shards, length)
     origin, dirs, t0, dt, n = _ray_soa(rays)
@@ -184,7 +190,11 @@ def segment_march_plain(padded: torch.Tensor, tf: torch.Tensor,
     N = dirs.shape[0]
     limit = torch.clamp(n, max=config.max_samples)
     scale = torch.as_tensor(voxel_scale(config.volume_shape), device=dev)
-    T = torch.ones(N, dtype=torch.float32, device=dev)
+    # A zero in the graph of every input: a shard that owns no sample still
+    # returns a composite that autograd traces back to them, so that its
+    # rank's backward runs the same collectives as the others'.
+    zero = sum(x[:0].sum() for x in (padded, tf, origin, dirs, t0, dt))
+    T = torch.ones(N, dtype=torch.float32, device=dev) + zero
     rgb = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     cnt = torch.zeros(N, dtype=torch.int32, device=dev)
     for j in range(length):
@@ -199,17 +209,40 @@ def segment_march_plain(padded: torch.Tensor, tf: torch.Tensor,
         on, pos = idx[own], pos[own]
         if on.numel() == 0:
             continue
+        view = dirs[on]
+        if taps is not None:
+            pos, view, z = _tap(taps, on, s[on], pos, view)
         intensity, grad = sample_with_gradient_shard(
             padded, pos, config.volume_shape, seg.x_start,
             config.normal_delta)
-        shaded = shade(pos, grad, apply_tf(tf, intensity), dirs[on], origin,
-                       sampling_rate, config, clamp_light=True)
+        light_pos = pos
+        if taps is not None:
+            intensity, grad, light_pos = (intensity + z[0], grad + z[1],
+                                          pos + z[2])
+        shaded = shade(light_pos, grad, apply_tf(tf, intensity), view,
+                       origin, sampling_rate, config, clamp_light=True)
         Ti = T[on]
         rgb = rgb.index_add(0, on, Ti[:, None] * shaded[:, :3])
         T = T.index_copy(0, on, Ti * (1.0 - shaded[:, 3]))
         cnt[on] += 1
     acc = torch.cat([rgb, (1.0 - T)[:, None]], -1).reshape(H, W, 4)
     return acc, cnt.reshape(H, W)
+
+
+def segment_cotangents_plain(padded: torch.Tensor, tf: torch.Tensor,
+                             rays: RayBundle, config: RenderConfig,
+                             sampling_rate, k: int, n_shards: int,
+                             length: int, grad: torch.Tensor
+                             ) -> SampleCotangents:
+    """Autograd of :func:`segment_march_plain` for the cotangent ``grad``
+    (H, W, 4) of its composite, taken at each owned sample: the plain
+    version of K2's segment camera sums (``render.ray_sums``).  Not
+    exported: ``chip_smoke.py`` and the tests hold K2 to it."""
+    taps = []
+    with torch.enable_grad():
+        acc, _ = segment_march_plain(padded, tf, rays, config, sampling_rate,
+                                     k, n_shards, length, taps)
+        return tap_cotangents(acc.reshape(-1, 4), taps, grad)
 
 
 def march_segment_fwd(padded: torch.Tensor, tf: torch.Tensor,
@@ -241,14 +274,24 @@ def _k1_segment(padded, tf, soa, seg, config, sampling_rate, counts=None):
 def march_segment_bwd(padded: torch.Tensor, tf: torch.Tensor,
                       rays: RayBundle, config: RenderConfig, sampling_rate,
                       k: int, n_shards: int, length: int, acc: torch.Tensor,
-                      grad: torch.Tensor):
+                      grad: torch.Tensor, *,
+                      sums: Optional[torch.Tensor] = None):
     """Backward of shard ``k``'s segment for the cotangent ``grad``
     (H, W, 4) of its composite ``acc`` (:func:`march_segment_fwd`'s):
     kernel K2's segment instantiation on CUDA tensors (one launch, counted
     in ``march_segment_bwd.launches``), autograd of
     :func:`segment_march_plain` on CPU tensors.  Returns ``(d_padded,
-    d_tf, cnt)``; ``d_padded`` holds the halo planes' cotangents too."""
+    d_tf, cnt)``; ``d_padded`` holds the halo planes' cotangents too.
+    ``sums``, an (H, W, 12) f32 tensor beside the block, receives the
+    segment's per-ray position sums over its owned samples (K2's segment
+    camera instantiation, also counted in
+    ``march_segment_bwd.camera_launches``; ``render.ray_cotangents`` maps
+    them onto the ray tensors), the plain version of which is
+    :func:`segment_cotangents_plain`."""
     if _build.uses_plain(padded):
+        if sums is not None:
+            raise ValueError("sums are taken by kernel K2 only; the block "
+                             "is on the CPU")
         with torch.enable_grad():
             v = padded.detach().requires_grad_(True)
             t = tf.detach().requires_grad_(True)
@@ -258,25 +301,36 @@ def march_segment_bwd(padded: torch.Tensor, tf: torch.Tensor,
                                            allow_unused=True)
         return (torch.zeros_like(padded) if d_v is None else d_v,
                 torch.zeros_like(tf) if d_t is None else d_t, cnt)
+    H, W = config.image_shape
+    sums = _counts_out("sums", sums, padded.device, (H, W, 12),
+                       torch.float32)
     return _k2_segment(padded, tf, _ray_soa(rays),
                        _segment(rays, config, k, n_shards, length), config,
-                       sampling_rate, acc, grad)
+                       sampling_rate, acc, grad, sums=sums)
 
 
 march_segment_bwd.launches = 0
+march_segment_bwd.camera_launches = 0
 
 
 def _k2_segment(padded, tf, soa, seg, config, sampling_rate, acc, grad,
-                counts=None):
+                counts=None, sums=None):
+    """One launch of K2's segment instantiation, counted; its camera one
+    where ``sums`` is given."""
     out = _launch_k2(padded, tf, soa, config, sampling_rate, acc, grad,
-                     False, counts, segment=seg)
+                     False, counts, sums, segment=seg)
     march_segment_bwd.launches += 1
+    march_segment_bwd.camera_launches += sums is not None
     return out
 
 
 class _MarchSegment(torch.autograd.Function):
     """K1 segment forward, K2 segment backward, differentiable in the
-    padded block and the TF.  Saves the inputs and the composite."""
+    padded block, the TF and the ray tensors of :class:`RaySoA`.  Saves the
+    inputs and the composite.  Where a ray tensor needs a gradient, K2's
+    segment camera instantiation sums the owned samples' position
+    cotangents per ray, and :func:`~differender_tpu_torch.render.
+    ray_cotangents` maps them onto the ray tensors."""
 
     @staticmethod
     def forward(ctx, padded, tf, origin, dirs, t0, dt, n, s_lo, config,
@@ -293,12 +347,19 @@ class _MarchSegment(torch.autograd.Function):
     def backward(ctx, g_acc, _g_cnt):
         padded, tf, origin, dirs, t0, dt, n, s_lo, acc = ctx.saved_tensors
         config, sampling_rate, seg_args = ctx.march
+        need = ctx.needs_input_grad
+        camera = any(need[2:6])
+        sums = (torch.empty(config.image_shape + (12,), dtype=torch.float32,
+                            device=padded.device) if camera else None)
         d_padded, d_tf, _ = _k2_segment(
             padded, tf, RaySoA(origin, dirs, t0, dt, n),
-            Segment(s_lo, *seg_args), config, sampling_rate, acc, g_acc)
-        need = ctx.needs_input_grad
-        return ((d_padded if need[0] else None), (d_tf if need[1] else None)
-                ) + (None,) * 9
+            Segment(s_lo, *seg_args), config, sampling_rate, acc, g_acc,
+            sums=sums)
+        d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
+                  else (None,) * 4)
+        grads = (d_padded, d_tf) + d_rays
+        return tuple(g if k else None for g, k in zip(grads, need[:6])) + \
+            (None,) * 5
 
 
 def segment_march(padded: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
@@ -307,9 +368,10 @@ def segment_march(padded: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     """Shard ``k``'s segment of ``n_shards``, the local part of
     :func:`segment_render`: ``(acc (H, W, 4), cnt (H, W))``, differentiable
     in ``padded`` (the shard's block with its halos, :func:`pad_halos` or
-    :func:`_exchange_halos`) and ``tf``: kernels K1 and K2 in their segment
-    instantiations on CUDA tensors, :func:`segment_march_plain` (autograd)
-    on CPU tensors."""
+    :func:`_exchange_halos`), ``tf`` and the ray bundle (so in the camera
+    that built it): kernels K1 and K2 in their segment instantiations on
+    CUDA tensors, :func:`segment_march_plain` (autograd) on CPU tensors.
+    The ray tensors' cotangents cover this segment's samples only."""
     if _build.uses_plain(padded):
         return segment_march_plain(padded, tf, rays, config, sampling_rate,
                                    k, n_shards, length)
@@ -390,14 +452,11 @@ def render_volume_sharded(vol_local: torch.Tensor, tf: torch.Tensor,
     ``segment_max_samples`` bounds each shard's window (default: the whole
     step bound, always exact; smaller windows cost ~``max_samples / K``
     steps per shard and can miss samples of oblique rays).  Gradients: the
-    rank's slab's ``d_volume`` and the whole ``d_tf``; a ``look_from`` that
-    requires grad raises, since K2 has no segment form of its camera
-    instantiation."""
-    if torch.is_tensor(look_from) and look_from.requires_grad:
-        raise ValueError(
-            "render_volume_sharded has no camera gradient: K2's segment "
-            "instantiation does not sum the position cotangents; pass a "
-            "look_from that does not require grad")
+    rank's slab's ``d_volume``, the whole ``d_tf`` and, for a ``look_from``
+    that requires grad, the whole ``d_look_from``, the same on every rank
+    (the ranks' parts summed, as JAX's ``jax.grad`` sums them through its
+    ``shard_map``).  Every rank must pass a ``look_from`` that requires grad
+    or none does."""
     sr = config.sampling_rate if sampling_rate is None else sampling_rate
     k, n = group_rank(group, vol_local)
     X, Y, Z = config.volume_shape
@@ -407,7 +466,7 @@ def render_volume_sharded(vol_local: torch.Tensor, tf: torch.Tensor,
                          f"got {tuple(vol_local.shape)}")
     vol_local, tf, look_from = _inputs(vol_local, tf, look_from)
     length, block = segment_length(config, float(sr), segment_max_samples)
-    rays = make_rays(look_from, config, sr, u=u)
+    rays = make_rays(replicated(look_from, group), config, sr, u=u)
     image, valid = segment_render(vol_local, tf, rays, config, sr, group,
                                   length, block)
     return RenderOutput(image=image, valid_steps=valid,

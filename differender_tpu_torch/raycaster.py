@@ -87,6 +87,7 @@ class Raycaster(nn.Module):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._last_u = None     # the jitter draw of the last forward
 
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -157,6 +158,7 @@ class Raycaster(nn.Module):
         elif self.jitter:
             u = torch.rand(want_u, generator=self.generator,
                            dtype=torch.float32, device=self.device)
+        self._last_u = u        # the draw of this call (None: no jitter)
         if not batched:
             out = render(vol, tf_i, lf, self.config, sr, u=u)
             return out._replace(image=out.image.permute(2, 0, 1))

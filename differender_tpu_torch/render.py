@@ -179,17 +179,12 @@ def _plain_march(volume, tf, rays, config, sampling_rate, limit, ert,
         else:
             on, view = idx, dirs[idx]
             if taps is not None:
-                m = idx.numel()
-                z = [torch.zeros(shape, dtype=torch.float32, device=dev,
-                                 requires_grad=True)
-                     for shape in ((m, 3), (m,), (m, 3), (m, 3), (m, 3))]
-                taps.append((idx, s[idx].clone(), pos.detach(), z))
-                pos, view = pos + z[0], view + z[4]
+                pos, view, z = _tap(taps, idx, s[idx], pos, view)
             intensity, grad = sample(volume, pos, config.normal_delta)
             light_pos = pos
             if taps is not None:
-                intensity, grad, light_pos = (intensity + z[1], grad + z[2],
-                                              pos + z[3])
+                intensity, grad, light_pos = (intensity + z[0], grad + z[1],
+                                              pos + z[2])
             rgba = march_tf(tf, intensity)
         shaded = shade(light_pos, grad, rgba, view, origin, sampling_rate,
                        config, clamp_light=not nondiff)
@@ -251,18 +246,38 @@ def march_diff_cotangents_plain(volume: torch.Tensor, tf: torch.Tensor,
                                        sampling_rate, limit, ert,
                                        nondiff=False, taps=taps)
         image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1)
-        if not taps:          # no ray meets the volume
-            e = volume.new_zeros((0, 3))
-            return SampleCotangents(e[:, 0].long(), e[:, 0].int(), e, e,
-                                    e[:, 0], e, e, e)
-        leaves = [z for tap in taps for z in tap[3]]
-        got = torch.autograd.grad(image, leaves, grad.reshape(-1, 4),
-                                  allow_unused=True)
+        return tap_cotangents(image, taps, grad)
+
+
+def tap_cotangents(image: torch.Tensor, taps, grad: torch.Tensor
+                   ) -> SampleCotangents:
+    """The :class:`SampleCotangents` of a plain march's ``taps`` for the
+    cotangent ``grad`` of its flat composite ``image`` (N, 4)."""
+    if not taps:          # no ray meets the volume
+        e = image.new_zeros((0, 3))
+        return SampleCotangents(e[:, 0].long(), e[:, 0].int(), e, e,
+                                e[:, 0], e, e, e)
+    leaves = [z for tap in taps for z in tap[3]]
+    got = torch.autograd.grad(image, leaves, grad.reshape(-1, 4),
+                              allow_unused=True)
     cots = [torch.cat([torch.zeros_like(z) if g is None else g
                        for z, g in zip(leaves[k::5], got[k::5])])
             for k in range(5)]
     ray, s, pos = (torch.cat([tap[i] for tap in taps]) for i in range(3))
     return SampleCotangents(ray, s, pos, *cots)
+
+
+def _tap(taps, idx, s, pos, view):
+    """Records one step of a plain march in ``taps`` (see
+    :func:`_plain_march`) and returns its position and view direction with
+    their zero leaves added, and the leaves of the value, the gradient and
+    the light position."""
+    m = idx.numel()
+    z = [torch.zeros(shape, dtype=torch.float32, device=pos.device,
+                     requires_grad=True)
+         for shape in ((m, 3), (m,), (m, 3), (m, 3), (m, 3))]
+    taps.append((idx, s.clone(), pos.detach(), z))
+    return pos + z[0], view + z[4], z[1:4]
 
 
 def ray_sums(cot: SampleCotangents, image_shape) -> torch.Tensor:

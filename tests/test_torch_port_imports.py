@@ -38,6 +38,19 @@ def test_import_leaves_jax_out():
             "import differender_tpu_torch.parallel.train_step\n"
             "import differender_tpu_torch.parallel.volume_sharding\n"
             "import differender_tpu_torch.parallel._collectives\n"
+            "import differender_tpu_torch.io\n"
+            "import differender_tpu_torch.profiling\n"
+            "import differender_tpu_torch.video\n"
+            "import differender_tpu_torch.plotting\n"
+            "import differender_tpu_torch.torch_interop\n"
+            "import differender_tpu_torch.examples.render_nondiff\n"
+            "import differender_tpu_torch.examples.optimize_tf\n"
+            "import differender_tpu_torch.examples.optimize_tf_torch\n"
+            "import differender_tpu_torch.examples.optimize_volume\n"
+            "import differender_tpu_torch.examples.interactive_viewer\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'matplotlib')]\n"
+            "assert not bad, bad\n"
             "assert differender_tpu_torch._build.library.cache_info()"
             ".currsize == 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -84,10 +97,13 @@ def test_cpu_tensors_never_launch():
                  torch.tensor([[0, 0, 0], [1, 0, 2]], dtype=torch.int32))
     P.brick_rows(vol, torch.zeros(2, dtype=torch.int32))
     P.cell_distance(*P.cell_minmax(vol, 2), tf.detach(), 0.0, 3)
-    rays = P.make_rays(lf, cfg, 1.0)
+    lf_cam = lf.clone().requires_grad_(True)
+    P.render(vol, tf, lf_cam, cfg).image.sum().backward()
+    rays = P.make_rays(lf_cam, cfg, 1.0)
     padded = P.parallel.pad_halos(vol, 0, 2)
     acc, _ = P.parallel.segment_march(padded, tf, rays, cfg, 1.0, 0, 2, 8)
     acc.sum().backward()
+    assert lf_cam.grad is not None
     P.march_segment_bwd(padded, tf, rays, cfg, 1.0, 0, 2, 8, acc,
                         torch.ones_like(acc))
     assert P.launch_counts() == {"tf_lookup_fwd": 0, "tf_lookup_bwd": 0,
@@ -96,6 +112,8 @@ def test_cpu_tensors_never_launch():
                                  "brick_rows": 0, "cell_minmax": 0,
                                  "cell_distance": 0, "march_segment_fwd": 0,
                                  "march_segment_bwd": 0}
+    assert P.march_diff_bwd.camera_launches == 0
+    assert P.march_segment_bwd.camera_launches == 0
 
 
 @pytest.mark.parametrize("field", ["analytic_normals", "camera_grads"])

@@ -12,9 +12,19 @@ operations, the fold's association aside); images 1e-4 against JAX's
 ``render(ert=False)`` and its sharded render (JAX composites blocks in
 closed form, the port sample by sample), ``valid_steps`` equal; the golden
 ``sharded`` fixture 1e-4; gradients 2e-3 * max|g|, the port's CPU gradient
-limit.  The port's composed segments equal its own ``render(ert=False)``
-within 1e-6 in one process.
+limit; ``d_look_from`` 1e-3 of its norm against ``jax.grad`` of JAX's
+sharded render, off the poles (``test_torch_port_camera.py``'s
+``CAMERA_TOL``).  The port's composed segments equal its own
+``render(ert=False)`` within 1e-6 in one process.
+
+The sharded ``d_look_from`` is held to JAX's sharded render, not to its
+``render``: the segments take ``apply_tf``'s TF slope at every t, where
+``render`` takes none at an integer t, so the two part where a sample lands
+on one (``test_segment_tf_gradient_is_apply_tf``).  ``PYTHONPATH=.:tests
+python tests/test_torch_port_sharded.py`` prints how far JAX's sharded and
+unsharded ``d_look_from`` part at this module's cameras.
 """
+import functools
 import os
 
 import numpy as np
@@ -77,6 +87,10 @@ WORLD_CASES = {2: ["sharded"], 4: ["sharded", "axis", "jitter", "analytic",
 GRADS = {"cfg": dict(GRADS_CFG, volume_shape=VOL.shape),
          "lf": np.asarray(LF, np.float32), "sr": SR,
          "w": np.random.default_rng(0).random((5, 5, 4), np.float32)}
+# The cameras of the camera gradient, off the poles; "oblique" is GRADS's.
+CAMERA_CASES = {"oblique": np.asarray(LF, np.float32),
+                "behind": np.asarray((-2.0, 0.3, -0.4), np.float32)}
+CAMERA_TOL = 1e-3
 
 
 def _halo_cot(world):
@@ -88,13 +102,14 @@ def _halo_cot(world):
 def _inputs(world):
     inp = {"vol": VOL, "tf": TF, "tf1": np.array(j_get_tf("tf1", 32)),
            "sharded_cases": WORLD_CASES[world], "halo_cot": _halo_cot(world),
-           "grads": GRADS}
+           "grads": GRADS, "camera_cases": CAMERA_CASES}
     inp.update(CASES)
     return inp
 
 
-_SCENARIOS = {2: ["sharded", "halos"], 4: ["sharded", "halos", "grads"],
-              8: ["sharded"]}
+_SCENARIOS = {2: ["sharded", "halos", "camera"],
+              4: ["sharded", "halos", "grads", "camera"],
+              8: ["sharded", "camera"]}
 
 
 @pytest.fixture(scope="module")
@@ -236,6 +251,47 @@ def test_segments_compose_to_render(n):
     assert torch.equal(valid, want.valid_steps)
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_segment_cotangents_map_to_ray_tensors(k):
+    """The plain version of K2's segment camera sums: a shard's per-sample
+    cotangents (``segment_cotangents_plain``) summed per ray, mapped by
+    ``ray_cotangents`` onto (origin, dirs, t0, dt) and pulled through the
+    march parameters give autograd of ``segment_march_plain`` in the ray
+    bundle (origin, dirs, entry, exit), for two inner shards of 4: shard 2
+    holds all of the sphere that this camera's rays composite, shard 1
+    none (its cotangents are zeros, and still in the graph)."""
+    from differender_tpu_torch.render import (_ray_soa, ray_cotangents,
+                                              ray_sums)
+    tf = torch.from_numpy(TF)
+    cfg = P.RenderConfig(volume_shape=VOL.shape, **CFG)
+    g = torch.from_numpy(np.random.default_rng(k).random((6, 6, 4),
+                                                        np.float32) - 0.3)
+    rays = P.make_rays(torch.tensor(LF), cfg, SR)
+    length, _ = V.segment_length(cfg, SR)
+    pad = V.pad_halos(torch.from_numpy(VOL), k, 4)
+
+    def leaves():
+        lv = [x.detach().clone().requires_grad_(True)
+              for x in (rays.origin, rays.dirs, rays.entry, rays.exit)]
+        return lv, rays._replace(origin=lv[0], dirs=lv[1], entry=lv[2],
+                                 exit=lv[3])
+
+    lv, bundle = leaves()
+    acc, _ = V.segment_march_plain(pad, tf, bundle, cfg, SR, k, 4, length)
+    want = torch.autograd.grad((acc * g).sum(), lv)
+    sums = ray_sums(V.segment_cotangents_plain(
+        pad, tf, rays, cfg, SR, k, 4, length, g), (6, 6))
+    lv2, bundle2 = leaves()
+    soa = _ray_soa(bundle2)
+    got = torch.autograd.grad(
+        soa[:4], lv2, ray_cotangents(sums, soa.dirs.detach(),
+                                     soa.t0.detach(), soa.dt.detach()))
+    assert (float(want[0].abs().max()) > 0) == (k == 2)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()) + 1e-12)
+
+
 # -- gloo ranks ---------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -310,12 +366,12 @@ def test_golden_sharded(worlds):
     np.testing.assert_allclose(out["image"], golden, rtol=0, atol=IMG_TOL)
 
 
-def test_sharded_grads_match_jax(worlds):
-    """d_volume (the ranks' slabs joined) and d_tf (whole on each rank) of
-    sum(image * w) against jax.grad through JAX's sharded render."""
-    res = worlds(4)
+@functools.lru_cache(maxsize=None)
+def _jax_grads(n):
+    """jax.grad in (volume, tf) of sum(image * w) through JAX's sharded
+    render on n CPU devices, at GRADS's camera."""
     cfg = _jcfg(GRADS["cfg"])
-    mesh = _mesh(4)
+    mesh = _mesh(n)
     w = jnp.asarray(GRADS["w"])
 
     def loss(v, t):
@@ -325,7 +381,14 @@ def test_sharded_grads_match_jax(worlds):
 
     gv, gt = jax.grad(loss, argnums=(0, 1))(jnp.asarray(VOL),
                                             jnp.asarray(TF))
-    gv, gt = np.asarray(gv), np.asarray(gt)
+    return np.asarray(gv), np.asarray(gt)
+
+
+def test_sharded_grads_match_jax(worlds):
+    """d_volume (the ranks' slabs joined) and d_tf (whole on each rank) of
+    sum(image * w) against jax.grad through JAX's sharded render."""
+    res = worlds(4)
+    gv, gt = _jax_grads(4)
     got_v = np.concatenate([r["grads"]["d_local"] for r in res])
     np.testing.assert_allclose(got_v, gv, rtol=0,
                                atol=GRAD_TOL * np.abs(gv).max())
@@ -336,9 +399,69 @@ def test_sharded_grads_match_jax(worlds):
                                atol=GRAD_TOL * np.abs(gt).max())
 
 
-def test_sharded_camera_gradient_refused(worlds):
-    for r in worlds(4):
-        assert "no camera gradient" in r["grads"]["camera_refused"]
+@functools.lru_cache(maxsize=None)
+def _jax_camera_grad(cam, n):
+    """jax.grad in look_from of sum(image * w) through JAX's sharded render
+    on n CPU devices (n = 0: its unsharded render(ert=False))."""
+    cfg = _jcfg(GRADS["cfg"])
+    w = jnp.asarray(GRADS["w"])
+
+    def loss(lf):
+        if n == 0:
+            img = j_render(VOL, TF, lf, cfg, sampling_rate=SR,
+                           ert=False).image
+        else:
+            img = JV.render_volume_sharded(jnp.asarray(VOL), jnp.asarray(TF),
+                                           lf, cfg, _mesh(n),
+                                           sampling_rate=SR).image
+        return jnp.sum(img * w)
+
+    return np.asarray(jax.grad(loss)(jnp.asarray(CAMERA_CASES[cam])))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("cam", sorted(CAMERA_CASES))
+def test_sharded_camera_grads_match_jax(worlds, cam, n):
+    """d_look_from of render_volume_sharded, the same on every rank, within
+    CAMERA_TOL of its norm of jax.grad of JAX's sharded render on a mesh of
+    n CPU devices."""
+    res = worlds(n)
+    got = res[0]["camera"][cam]["d_look_from"]
+    for r in res[1:]:
+        np.testing.assert_array_equal(r["camera"][cam]["d_look_from"], got)
+    want = _jax_camera_grad(cam, n)
+    assert np.all(np.isfinite(got))
+    assert np.abs(got - want).max() <= CAMERA_TOL * np.linalg.norm(want), \
+        (got, want)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_camera_grads_keep_volume_and_tf_grads(worlds, n):
+    """Asking for d_look_from leaves d_volume and d_tf as they are: at 4
+    ranks equal to the step without the camera gradient, and at every world
+    size the slabs joined and d_tf against jax.grad of JAX's sharded render
+    (2e-3 * max|g|)."""
+    res = worlds(n)
+    if n == 4:
+        for r in res:
+            for what in ("d_local", "d_tf"):
+                np.testing.assert_array_equal(r["camera"]["oblique"][what],
+                                              r["grads"][what])
+    gv, gt = _jax_grads(n)
+    got_v = np.concatenate([r["camera"]["oblique"]["d_local"] for r in res])
+    np.testing.assert_allclose(got_v, gv, rtol=0,
+                               atol=GRAD_TOL * np.abs(gv).max())
+    np.testing.assert_allclose(res[0]["camera"]["oblique"]["d_tf"], gt,
+                               rtol=0, atol=GRAD_TOL * np.abs(gt).max())
+
+
+def _camera_readings():
+    """max |JAX's sharded d_look_from - its render(ert=False)'s| / |...|
+    at each camera and mesh size."""
+    return {(cam, n): float(np.abs(_jax_camera_grad(cam, n)
+                                   - _jax_camera_grad(cam, 0)).max()
+                            / np.linalg.norm(_jax_camera_grad(cam, 0)))
+            for cam in sorted(CAMERA_CASES) for n in (2, 4, 8)}
 
 
 def test_entry_points_need_a_process_group():
@@ -407,3 +530,36 @@ if __name__ == "__main__":
     with pytest.MonkeyPatch.context() as mp:
         print("d_volume, max |render - segments| / max |render|: dot form "
               "%.3g, apply_tf %.3g" % _tf_rule_readings(mp))
+    import tempfile
+    for (cam, n), r in _camera_readings().items():
+        print(f"d_look_from at {cam}, {n} devices: max |JAX sharded - JAX "
+              f"render(ert=False)| / |render's| {r:.3g}")
+    for n in (2, 4, 8):
+        with tempfile.TemporaryDirectory() as d:
+            got = ranks.run(n, ["camera"], _inputs(n), d)[0]["camera"]
+        for cam in sorted(CAMERA_CASES):
+            want = _jax_camera_grad(cam, n)
+            print(f"d_look_from at {cam}, {n} ranks: max |port - JAX "
+                  f"sharded| / |JAX's| "
+                  f"{np.abs(got[cam]['d_look_from'] - want).max() / np.linalg.norm(want):.3g}")
+    # The poles, off this module's cameras: with 6^2 rays, and with 5^2,
+    # whose centre ray runs along y.
+    poles = {"pole+y": (0.0, 2.5, 0.0), "pole-y": (0.0, -2.5, 0.0)}
+    for shape in ((6, 6), (5, 5)):
+        GRADS["cfg"] = dict(GRADS_CFG, volume_shape=VOL.shape,
+                            image_shape=shape)
+        GRADS["w"] = np.random.default_rng(0).random(shape + (4,),
+                                                     np.float32)
+        _jax_camera_grad.cache_clear()
+        for name, lf in poles.items():
+            CAMERA_CASES[name] = np.asarray(lf, np.float32)
+        for n in (2, 4):
+            inp = _inputs(n)
+            inp["camera_cases"] = {k: CAMERA_CASES[k] for k in poles}
+            with tempfile.TemporaryDirectory() as d:
+                got = ranks.run(n, ["camera"], inp, d)[0]["camera"]
+            for cam in poles:
+                want = _jax_camera_grad(cam, n)
+                print(f"d_look_from at {cam}, {shape} rays, {n} ranks: port "
+                      f"{got[cam]['d_look_from']}, JAX sharded {want}, JAX "
+                      f"render {_jax_camera_grad(cam, 0)}")

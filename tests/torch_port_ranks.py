@@ -75,21 +75,28 @@ def _halos(rank, world, inp):
     return {"padded": _np(padded), "d_local": _np(vol.grad)}
 
 
-def _grads(rank, world, inp):
-    """d_volume (the rank's slab) and d_tf of sum(image * w); a camera that
-    requires grad is refused."""
+def _grads(rank, world, inp, lf=None):
+    """d_volume (the rank's slab) and d_tf of sum(image * w), and
+    d_look_from where a camera ``lf`` that requires grad is given."""
     case = inp["grads"]
     cfg = _cfg(case["cfg"])
     vol = PP.shard_volume(_t(inp["vol"])).requires_grad_(True)
     tf = _t(inp["tf"]).requires_grad_(True)
-    img = PP.render_volume_sharded(vol, tf, _t(case["lf"]), cfg,
+    look_from = _t(case["lf"]) if lf is None else \
+        _t(lf).requires_grad_(True)
+    img = PP.render_volume_sharded(vol, tf, look_from, cfg,
                                    sampling_rate=case["sr"]).image
     (img * _t(case["w"])).sum().backward()
-    refused = _error(lambda: PP.render_volume_sharded(
-        vol, tf, _t(case["lf"]).requires_grad_(True), cfg,
-        sampling_rate=case["sr"]))
-    return {"d_local": _np(vol.grad), "d_tf": _np(tf.grad),
-            "camera_refused": refused}
+    out = {"d_local": _np(vol.grad), "d_tf": _np(tf.grad)}
+    if lf is not None:
+        out["d_look_from"] = _np(look_from.grad)
+    return out
+
+
+def _camera(rank, world, inp):
+    """_grads with each camera of ``camera_cases`` requiring grad."""
+    return {name: _grads(rank, world, inp, lf)
+            for name, lf in inp["camera_cases"].items()}
 
 
 def _views(rank, world, inp):
@@ -172,6 +179,7 @@ def _refusals(rank, world, inp):
 
 
 SCENARIOS = {"sharded": _sharded_cases, "halos": _halos, "grads": _grads,
+             "camera": _camera,
              "views": _views, "view_grads": _view_grads, "train": _train,
              "fast": _fast, "refusals": _refusals}
 
