@@ -170,12 +170,17 @@ Phases (one JSON line each):
      of ``render_volume_sharded`` at world size 1 against the plain
      segment's and against the 4 segments composed (CAMERA_TOL of its
      norm); at 512^2 the step with and without the camera gradient, timed
-     in turn (one K1 segment, one K2 segment camera launch), the camera
-     instantiation timed beside the default one, its ``resources``.
+     in turn (one K1 segment, one K2 segment camera launch), and held to
+     the plain segment march on the three tiles of 128^2 picked above on
+     noise (the cotangent 0 off them and on kink rays): K2's sums
+     (CAMERA_SUM_TOL), the ray tensors' cotangents (CAMERA_RAY_TOL, 0 off
+     the tiles) and the step's ``d_look_from`` (CAMERA_TOL of its norm);
+     the camera instantiation timed beside the default one, its
+     ``resources``.
   9j. utilities: whether PIL and matplotlib import; ``io.load_raw_volume``
      of a 256^3 uint8 file on the card bitwise numpy's / 255; a
      ``profiling.trace`` around one ``render`` and one ``raycast_nondiff``
-     that names K1 and K3; a checkpoint round trip of a CUDA tensor, an
+     that names K1, K3 and its annotation; a checkpoint round trip of a CUDA tensor, an
      AdamW state and a CUDA generator's state; ``TorchRaycaster`` at the
      bench (image bitwise ``Raycaster``'s with its draw, gradients within
      K2_GRAD_TOL) and its ``raycast_fast`` at the viewer bitwise
@@ -3622,6 +3627,113 @@ def main() -> int:
                       n_sc * (BWD_SAMPLE_OPS + CAMERA_POSITION_OPS)
                       + (n_s - n_sc) * QUIET_SAMPLE_OPS + n_ql * QUIET_LIGHT_OPS
                       + n_s * CAMERA_SUM_OPS)
+        # The same step held to the plain segment march on the three tiles
+        # of 128^2 that 1./2. picked on noise (a silhouette corner, a central
+        # tile, the parting tile), the step's cotangent 0 off them and on
+        # rays with a sample on a kink of the shading: K2's segment camera
+        # sums and the ray tensors' cotangents against the plain segment's
+        # on the tiles' rays (marched as one bundle of 3 * 128 x 128 rays),
+        # and the step's d_look_from against the plain one pulled through
+        # the ray setup.
+        t_tiles = time.perf_counter()
+        picks = [tuple(rc) for rc in
+                 par["noise_render_volume_sharded"]["tiles_vs_plain"]["tiles"]]
+        blocks = [(slice(r * 128, (r + 1) * 128),
+                   slice(c * 128, (c + 1) * 128)) for r, c in picks]
+
+        def on_blocks(x):
+            return torch.cat([x[blk] for blk in blocks])
+
+        def blocks_of(rays_f):
+            return rays_f._replace(
+                dirs=on_blocks(rays_f.dirs), entry=on_blocks(rays_f.entry),
+                exit=on_blocks(rays_f.exit),
+                n_samples=on_blocks(rays_f.n_samples))
+
+        rays_t = blocks_of(rays_p)
+        cfg_t = cfg.replace(image_shape=tuple(rays_t.n_samples.shape))
+        keep_t = kink_free(vol_n, tf_i, rays_t, cfg_t)
+        n_kink = int((~keep_t).sum())
+        require(n_kink <= 0.001 * keep_t.numel(),
+                f"{n_kink} rays on a kink of the shading on the camera "
+                f"step's tiles {picks}")
+        keep = torch.zeros((img, img), dtype=torch.bool, device=dev)
+        for i, blk in enumerate(blocks):
+            keep[blk] = keep_t[i * 128:(i + 1) * 128]
+        g_t = g1 * keep[..., None]
+        sums_t = torch.zeros((img, img, 12), device=dev)
+        P.march_segment_bwd(pad1, tf_i, rays_p, cfg, 1.0, 0, 1, length, acc1,
+                            g_t, sums=sums_t)
+        sync()
+        t0 = time.perf_counter()
+        ref = ray_sums(segment_cotangents_plain(
+            pad1, tf_i, rays_t, cfg_t, 1.0, 0, 1, length, on_blocks(g_t)),
+            cfg_t.image_shape)
+        sync()
+        tiles_plain_ms = (time.perf_counter() - t0) * 1e3
+        got_s = on_blocks(sums_t)
+        tile_sum_errs = []
+        for i, what in enumerate("PSLV"):
+            e, m = rel_max(got_s[..., 3 * i:3 * i + 3],
+                           ref[..., 3 * i:3 * i + 3])
+            require(m > 0 and e <= CAMERA_SUM_TOL * m,
+                    f"the camera step's tiles {picks}: K2's {what} per ray, "
+                    f"max |diff| {e} > {CAMERA_SUM_TOL} * {m}")
+            tile_sum_errs.append(e / m)
+        del ref, got_s, sums_t
+        lv = leaves_of(rays_p)
+        acc_l, _ = PP.segment_march(pad1, tf_i, with_leaves(rays_p, lv), cfg,
+                                    1.0, 0, 1, length)
+        got = torch.autograd.grad(acc_l, lv, g_t)
+        del acc_l
+        lf_p = lf.clone().requires_grad_()
+        rays_lf = blocks_of(P.make_rays(lf_p, cfg, 1.0, u=u_p))
+        lb = leaves_of(rays_lf)
+        with torch.enable_grad():
+            acc_p, _ = PV.segment_march_plain(
+                pad1, tf_i, with_leaves(rays_t, lb), cfg_t, 1.0, 0, 1,
+                length)
+        want = torch.autograd.grad(acc_p, lb, on_blocks(g_t))
+        del acc_p
+        tile_ray_errs = {}
+        for i, what in enumerate(("origin", "dirs", "entry", "exit")):
+            g_k = got[i] if i == 0 else on_blocks(got[i])
+            e, m = rel_max(g_k, want[i])
+            off = 0.0
+            if i > 0:
+                rest = got[i].clone()
+                for blk in blocks:
+                    rest[blk] = 0.0
+                off = float(rest.abs().max())
+            require(bool(torch.isfinite(got[i]).all()) and m > 0
+                    and e <= CAMERA_RAY_TOL * m and off == 0.0,
+                    f"the camera step's tiles {picks}: the {what} "
+                    f"cotangent, max |diff| {e} > {CAMERA_RAY_TOL} * {m}, "
+                    f"or {off} off the tiles")
+            tile_ray_errs[what] = e / m
+        lf_plain, = torch.autograd.grad(
+            (rays_lf.origin, rays_lf.dirs, rays_lf.entry, rays_lf.exit),
+            lf_p, want)
+        lf_k = lf.clone().requires_grad_()
+        PP.render_volume_sharded(vol_n, tf_i, lf_k, cfg,
+                                 u=u_p).image.backward(g_t)
+        norm = float(lf_plain.norm())
+        tile_lf_err = float((lf_k.grad - lf_plain).abs().max()) / norm
+        require(bool(torch.isfinite(lf_k.grad).all()) and norm > 0
+                and tile_lf_err <= CAMERA_TOL,
+                f"the camera step's d_look_from on the tiles {picks}: "
+                f"{lf_k.grad.tolist()} against the plain "
+                f"{lf_plain.tolist()}")
+        cam["step_512_tiles_vs_plain"] = {
+            "tiles": picks, "rays_on_shading_kinks": n_kink,
+            "rel_err_P_S_L_V": tile_sum_errs,
+            "rel_err_ray_tensors": tile_ray_errs,
+            "d_look_from": lf_k.grad.tolist(),
+            "d_look_from_plain": lf_plain.tolist(),
+            "d_look_from_rel_err": tile_lf_err,
+            "plain_cotangents_ms": tiles_plain_ms,
+            "seconds": time.perf_counter() - t_tiles}
+        del lv, got, lf_p, rays_lf, lb, want, lf_k, rays_t, keep_t, keep, g_t
         res_cam = {k: v for k, v in ptxas_of(
             "march_bwd.cu", ["march_diff_bwd_kernel"]).items()
             if "Lb0ELb1ELb1EE" in k}
@@ -3629,7 +3741,8 @@ def main() -> int:
                 f"the segment camera instantiations' ptxas report: {res_cam}")
         cam_errs = [max(max(s["rel_err_P_S_L_V"]),
                         max(s["rel_err_ray_tensors"].values()))
-                    for c in cam.values() for s in c["shards"]]
+                    for c in (cam["noise_128"], cam["sphere"])
+                    for s in c["shards"]]
         cam.update(
             step_launches=c_cam, grad_step_ms=step_ms,
             grad_step_ms_camera=step_ms_cam, k2_segment_ms=k2_ms_def,
@@ -3641,7 +3754,9 @@ def main() -> int:
         kernels["march_segment_bwd_camera"].update(
             max_abs_err=max(cam_errs + [c["d_look_from_rel_err"]
                                         for c in (cam["noise_128"],
-                                                  cam["sphere"])]),
+                                                  cam["sphere"])]
+                            + tile_sum_errs + list(tile_ray_errs.values())
+                            + [tile_lf_err]),
             ms=k2_ms_cam, ms_default=k2_ms_def, bound_ms=b_cam[0],
             bound_by=b_cam[1], plain_ms=cam["noise_128"]["plain_ms"],
             grad_step_ms_camera=step_ms_cam, grad_step_ms=step_ms,
@@ -3702,27 +3817,24 @@ def main() -> int:
             "scalar_divisor_bitwise": bool(np.array_equal(
                 by_scalar.numpy(), raw.astype(np.float32) / np.float32(255)))}
         del raw, v_raw, want_raw, by_scalar
-        # A trace around one render and one raycast_nondiff names K1 and K3
-        # (the profiler's first trace of a process can miss launches: up
-        # to three tries).
+        # One trace around one render and one raycast_nondiff names K1 and
+        # K3, and the annotation.
         vol_n = user_to_internal(scenes["noise"])
-        for attempt in range(1, 4):
-            trace_dir = os.path.join(scratch, f"trace{attempt}")
-            with PPR.trace(trace_dir):
-                with PPR.annotate("chip_smoke-render"):
-                    P.render(vol_n, tf_i, lf, cfg)
-                P.render_nondiff(vol_n, tf_i, lf, cfg)
-                sync()
-            text = "".join(open(os.path.join(trace_dir, f)).read()
-                           for f in os.listdir(trace_dir))
-            named = {k: k + "_kernel" in text
-                     for k in ("march_diff_fwd", "march_nondiff")}
-            if all(named.values()):
-                break
-        require(all(named.values()), f"the trace names {named}")
-        util["trace"] = {"names": named, "attempts": attempt,
-                         "bytes": len(text),
-                         "annotated": "chip_smoke-render" in text}
+        trace_dir = os.path.join(scratch, "trace")
+        with PPR.trace(trace_dir):
+            with PPR.annotate("chip_smoke-render"):
+                P.render(vol_n, tf_i, lf, cfg)
+            P.render_nondiff(vol_n, tf_i, lf, cfg)
+            sync()
+        text = "".join(open(os.path.join(trace_dir, f)).read()
+                       for f in os.listdir(trace_dir))
+        named = {k: k + "_kernel" in text
+                 for k in ("march_diff_fwd", "march_nondiff")}
+        annotated = "chip_smoke-render" in text
+        require(all(named.values()) and annotated,
+                f"the trace names {named}, the annotation {annotated}")
+        util["trace"] = {"names": named, "bytes": len(text),
+                         "annotated": annotated}
         del text
         # A checkpoint of a CUDA tensor, an AdamW state and a CUDA
         # generator's state: restored, each continues as the original.

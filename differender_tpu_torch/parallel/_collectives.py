@@ -44,6 +44,25 @@ def group_rank(group, like: torch.Tensor) -> Tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+def same_grad_flags(group, like: torch.Tensor, **tensors) -> None:
+    """Raise ``ValueError`` on every rank of ``group`` unless all ranks
+    agree on which of ``tensors`` (named) require grad: a backward whose
+    collectives only some ranks enter would hang.  One all-reduce of a flag
+    per tensor (it waits for it); none in a group of one."""
+    if dist.get_world_size(group) == 1:
+        return
+    flags = torch.tensor([int(t.requires_grad) for t in tensors.values()],
+                         dtype=torch.int32, device=like.device)
+    dist.all_reduce(flags, op=dist.ReduceOp.SUM, group=group)
+    n = dist.get_world_size(group)
+    mixed = [name for name, f in zip(tensors, flags.tolist())
+             if f not in (0, n)]
+    if mixed:
+        raise ValueError(
+            f"{', '.join(mixed)} requires grad on some ranks and not on "
+            f"others; every rank must ask for the same gradients")
+
+
 def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     """Every rank's ``t`` (all of one shape), in rank order."""
     t = t.contiguous()

@@ -48,7 +48,8 @@ from ..render import (RaySoA, RenderOutput, SampleCotangents, Segment,
                       _ray_soa, _tap, ray_cotangents, tap_cotangents)
 from ..sampling import apply_tf, sample_with_gradient_shard, voxel_scale
 from ..shading import shade
-from ._collectives import all_gather, gather, group_rank, replicated
+from ._collectives import (all_gather, gather, group_rank, replicated,
+                           same_grad_flags)
 
 HALO = 2   # planes: trilinear (+1) and the normal stencil (+-delta < 1 voxel)
 
@@ -455,8 +456,10 @@ def render_volume_sharded(vol_local: torch.Tensor, tf: torch.Tensor,
     rank's slab's ``d_volume``, the whole ``d_tf`` and, for a ``look_from``
     that requires grad, the whole ``d_look_from``, the same on every rank
     (the ranks' parts summed, as JAX's ``jax.grad`` sums them through its
-    ``shard_map``).  Every rank must pass a ``look_from`` that requires grad
-    or none does."""
+    ``shard_map``).  Every rank must ask for the same gradients: where
+    ``vol_local``, ``tf`` or ``look_from`` requires grad on some ranks and
+    not on others, every rank raises ``ValueError`` (a backward that only
+    some ranks entered would hang in its collectives)."""
     sr = config.sampling_rate if sampling_rate is None else sampling_rate
     k, n = group_rank(group, vol_local)
     X, Y, Z = config.volume_shape
@@ -465,6 +468,8 @@ def render_volume_sharded(vol_local: torch.Tensor, tf: torch.Tensor,
         raise ValueError(f"rank {k}'s slab must have shape {(xl, Y, Z)}; "
                          f"got {tuple(vol_local.shape)}")
     vol_local, tf, look_from = _inputs(vol_local, tf, look_from)
+    same_grad_flags(group, vol_local, vol_local=vol_local, tf=tf,
+                    look_from=look_from)
     length, block = segment_length(config, float(sr), segment_max_samples)
     rays = make_rays(replicated(look_from, group), config, sr, u=u)
     image, valid = segment_render(vol_local, tf, rays, config, sr, group,

@@ -89,17 +89,20 @@ class TorchRaycaster(nn.Module):
         self.volume_shape = self._rc.volume_shape
         self.output_shape = self._rc.output_shape
         self.tf_shape = tf_shape
-        self._last_u = None
+
+    @property
+    def _last_u(self) -> Optional[torch.Tensor]:
+        """The jitter draw of the last ``forward`` (the counterpart of the
+        JAX module's ``_last_key``), which its backward replays."""
+        return self._rc._last_u
 
     def forward(self, volume, tf, look_from,
                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Differentiable render: ``([BS,] 1, D, H, W) x ([BS,] 4, R) x
         ([BS,] 3) -> ([BS,] 4, H, W)``.  ``u`` ((H, W), or (BS, H, W) for a
         batch) is the jitter draw; by default the module draws one."""
-        img = self._rc(_scrubbed(volume), _scrubbed(tf), _scrubbed(look_from),
-                       u=u)
-        self._last_u = self._rc._last_u
-        return img.contiguous()
+        return self._rc(_scrubbed(volume), _scrubbed(tf),
+                        _scrubbed(look_from), u=u).contiguous()
 
     def raycast_nondiff(self, volume, tf, look_from,
                         sampling_rate: Optional[float] = None

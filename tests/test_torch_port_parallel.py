@@ -229,7 +229,9 @@ def test_views_need_a_process_group():
     ("render_volume_sharded_X", "volume X axis must divide the mesh axis"),
     ("render_fast_sharded_O", "intermediate size must divide the mesh axis"),
     ("render_views_B", "must divide the view batch 6"),
-    ("train_step_views_B", "must divide the view batch 6")])
+    ("train_step_views_B", "must divide the view batch 6"),
+    ("render_volume_sharded_grads",
+     "look_from requires grad on some ranks and not on others")])
 def test_refusals(worlds, what, match):
     for r in worlds(4):
         assert r["refusals"][what] is not None and \

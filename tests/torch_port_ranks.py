@@ -175,6 +175,10 @@ def _refusals(rank, world, inp):
         "train_step_views_B": _error(lambda: PP.train_step_views(
             P.mse_loss, vol, tf, lfs6, tgts6, cfg_ok,
             group=dist.group.WORLD)),
+        "render_volume_sharded_grads": _error(
+            lambda: PP.render_volume_sharded(
+                PP.shard_volume(vol), tf,
+                lf.clone().requires_grad_(rank == 0), cfg_ok)),
     }
 
 
