@@ -9,7 +9,8 @@ Phases (one JSON line each):
      report of each kernel (the kernels are built here from ``csrc/``);
      resources: the registers, spills and shared memory of K4, K5, K6 and
      K0b, and of each instantiation of K1, K2 and K3 (parity and analytic,
-     K2's camera one, K1's and K2's segment ones, K2's segment camera one).
+     K2's camera one, K1's and K2's segment ones, K2's segment camera one)
+     and of K8 and K9.
   2. tf_lookup_fwd (K0) through ``tf_lookup`` at 2^23 intensities, R = 128
      and 4096, against ``tf_lookup_reference``, timed beside ``grid_sample``.
   2b. tf_lookup_bwd (K0b) through ``tf_lookup`` and ``torch.autograd.grad``
@@ -121,15 +122,22 @@ Phases (one JSON line each):
      of 2 views, each view's image bitwise ``render`` on that view alone
      and its gradients within K2_GRAD_TOL.
   9h. fastpath: ``render_fast`` at 256^3, 512^2, O = 576, 2 planes per
-     voxel on noise and ct_phantom against ``render_fast_plain`` (image
-     within 1e-5, ``hit`` equal, gradients within K2_GRAD_TOL), one K0
-     launch per slab chunk forward, in the gradient step one K0b (``"dot"``
-     mask) per chunk and two K0; the image unchanged with TF32 allowed;
-     times (also at other slab batches) and the step's peak memory beside
-     K3's ``render_nondiff`` at the same view; SSIM against ``render`` and
-     ``choose_fast_params``' record; K0b's dot mask on quantised
-     intensities; ``Raycaster.raycast_fast`` at the viewer (O = 1024)
-     against ``raycast_nondiff`` (SSIM, times).
+     voxel on noise and ct_phantom: one K8 ``shear_warp_fwd`` launch per
+     forward and one K8 plus one K9 ``shear_warp_bwd`` per gradient step,
+     nothing else; against ``render_fast_plain`` (image within 1e-5,
+     ``hit`` equal, gradients within K2_GRAD_TOL); the image bitwise across
+     calls, at slab batches 32 and 2 and with TF32 allowed; rows [O/4,
+     O/2) marched as a strip bitwise the whole image's; at 64^3, O = 96 a
+     TF whose alpha reaches 1 and 4 planes per voxel, each against the
+     plain version with no NaN; forward and step times (the plain ones
+     beside) and the step's peak memory beside K3's ``render_nondiff`` at
+     the same view; K8 and K9 timed by CUDA events around their C entries
+     (K9 on the step's own cotangent), with their plain versions' times
+     and their bounds over the samples K8 marched; SSIM against
+     ``render`` and ``choose_fast_params``' record; K0b's dot mask on
+     quantised intensities; ``Raycaster.raycast_fast`` at the viewer (O =
+     1024, one K8) against ``raycast_nondiff`` (SSIM, times), K8 timed
+     there.
   9i. parallel: one NCCL rank (the card's machine has one card), backend
      and NCCL version printed; at the bench on noise and ct_phantom the K =
      4 shards' segments (``pad_halos``, K1's segment instantiation through
@@ -154,9 +162,10 @@ Phases (one JSON line each):
      autograd, and at K = 8 with a quarter-length window at JAX's side-on
      camera; at world size 1 ``render_views`` (each view bitwise
      ``render``'s), ``view_parallel_grads`` and ``train_step_views`` (both
-     modes, and the shear-warp renderer at 128^3 / 256^2) against the
-     serial mean-loss gradient, ``render_fast_sharded`` bitwise
-     ``render_fast`` and 4 row strips bitwise its intermediate image; the
+     modes, and the shear-warp renderer at 128^3 / 256^2: two K8 and two
+     K9) against the serial mean-loss gradient, ``render_fast_sharded``
+     (one K8) bitwise ``render_fast`` and 4 row strips bitwise its
+     intermediate image; the
      segment kernels per shard and summed over 4 beside K1 and K2 without
      ERT on the whole volume, the entry points' wall times beside
      ``render``'s.  The camera gradient through the segments (K2's
@@ -183,7 +192,7 @@ Phases (one JSON line each):
      that names K1, K3 and its annotation; a checkpoint round trip of a CUDA tensor, an
      AdamW state and a CUDA generator's state; ``TorchRaycaster`` at the
      bench (image bitwise ``Raycaster``'s with its draw, gradients within
-     K2_GRAD_TOL) and its ``raycast_fast`` at the viewer bitwise
+     K2_GRAD_TOL) and its ``raycast_fast`` at the viewer (one K8) bitwise
      ``Raycaster.raycast_fast``.
   9k. examples: ``render_nondiff.run`` at its defaults (800^2, sampling
      rate 16, 4 strips) bitwise ``render_nondiff``; ``optimize_tf.run
@@ -203,6 +212,7 @@ of f32 outside the tensor cores.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -315,6 +325,24 @@ CAMERA_SUM_OPS = 24 + 15
 CAMERA_SUM_TOL = 1e-3
 CAMERA_RAY_TOL = 1e-3
 CAMERA_TOL = 1e-4
+# K8 shear_warp_fwd, per marched sample: the plane's position, the ray's
+# crossing and the two source coordinates (11); the taps of each axis
+# (floor, frac, the inside test, the clamps, 1 - frac, two selects: 13 each);
+# three 4-channel lerps and the coverage (39); the TF lerp; the shading
+# (the unit normal 12, the light direction 14, n.l 5, diffuse 3, the
+# reflection 7, the view direction 14, r.v 6, the specular power 4, the
+# light and its clamp 3: 68); the opacity correction and the premultiplied
+# colour (11); the composite and the gate (9).
+SW_SHADE_OPS = 68
+SW_SAMPLE_OPS = 11 + 2 * 13 + 39 + TF_LERP_OPS + SW_SHADE_OPS + 11 + 9
+# K9, per marched sample: K8's sample again, the composite's backward
+# (COMPOSITE_BWD_OPS), the shading terms again, their backward (the colour
+# and alpha 26, the two powers' VJPs 17, the light clamp, r.v, the
+# reflection and n.l 26, the unit-normal VJP 22: 89), the TF lerp's
+# backward, and the scatter (the two lerps' weights 24, the merges 12 and up
+# to 16 atomic adds: 52).
+SW_BWD_SAMPLE_OPS = (SW_SAMPLE_OPS + COMPOSITE_BWD_OPS + SW_SHADE_OPS + 89
+                     + TF_LERP_BWD_OPS - 7 + 52)
 # K2 against autograd of the plain march, per gradient tensor, times its
 # max |g|.  Both run the same f32 arithmetic per sample (the kernels round
 # the trilinear sum and the TF lerp as the plain march does); only the order
@@ -556,6 +584,10 @@ def main() -> int:
           "march_nondiff": ptxas_of("march.cu", ["march_nondiff_kernel"]),
           "march_diff_bwd": ptxas_of("march_bwd.cu",
                                      ["march_diff_bwd_kernel"]),
+          "shear_warp_fwd": ptxas_of("shear_warp.cu",
+                                     ["shear_warp_fwd_kernel"]),
+          "shear_warp_bwd": ptxas_of("shear_warp.cu",
+                                     ["shear_warp_bwd_kernel"]),
           "ptxas_names": "template arguments <kGlobalTf, kAnalytic, "
                          "[kCamera, ]kSegment> as Lb0/Lb1",
           "nvidia_smi": smi})
@@ -2811,15 +2843,28 @@ def main() -> int:
     # -- 9h. fastpath: the shear-warp renderer --------------------------------
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    from differender_tpu_torch import fastpath as PF
+    from differender_tpu_torch.ops import shear_warp as SW
     O_fast, ppv = 576, 2.0
-    n_chunks = -(-int(round(ppv * res)) // 32)
     fast = {}
-    k0_fast, k0b_fast = 0, 0
+    for name in ("shear_warp_fwd", "shear_warp_bwd"):
+        kernels[name] = dict(
+            route="cuda", source="differender_tpu_torch/csrc/shear_warp.cu",
+            replaces="differender_tpu/fastpath.py:255",
+            replaces_note="the slab scan's step slab_fn (:255) with "
+                          "shade_slab (:171) under slab_step (:291)"
+                          + (", and JAX's AD of it" if name.endswith("bwd")
+                             else "") + ": XLA, no Pallas kernel",
+            launches=0, max_abs_err=0.0, library_ms=None,
+            resources=ptxas_of("shear_warp.cu", [name + "_kernel"]))
 
-    def fast_step(fn, vol_i, slab_batch=32):
+    def fast_step(fn, vol_i, slab_batch=32, tf_s=None, cfg_s=None, O_s=None,
+                  ppv_s=None):
         v = vol_i.clone().requires_grad_(True)
-        t = tf_i.clone().requires_grad_(True)
-        out = fn(v, t, lf, cfg, intermediate=O_fast, planes_per_voxel=ppv,
+        t = (tf_i if tf_s is None else tf_s).clone().requires_grad_(True)
+        out = fn(v, t, lf, cfg if cfg_s is None else cfg_s,
+                 intermediate=O_fast if O_s is None else O_s,
+                 planes_per_voxel=ppv if ppv_s is None else ppv_s,
                  slab_batch=slab_batch)
         torch.mean(out.image ** 2).backward()
         return out, v.grad, t.grad
@@ -2829,21 +2874,72 @@ def main() -> int:
             return fn(vol_i, tf_i, lf, cfg, intermediate=O_fast,
                       planes_per_voxel=ppv, slab_batch=slab_batch)
 
+    def march_args(vol_i):
+        """render_fast's slab stack, geometry and K8's argument struct at
+        the bench view, with K8's output, its per-pixel steps and the
+        cotangent of the intermediate image in mean(image^2)'s step."""
+        ch, lf_f, light_f, perm, sign = PF._frame(vol_i, lf)
+        slabs, geom, ext = PF._slab_inputs(ch, lf_f, light_f, cfg, O_fast,
+                                           ppv)
+        a = SW._args(slabs, tf_i, geom)
+        inter = torch.empty((O_fast, O_fast, 4), device=dev)
+        steps = torch.zeros((O_fast, O_fast), dtype=torch.int32, device=dev)
+        a.inter, a.steps = inter.data_ptr(), steps.data_ptr()
+        _build.check(_build.library().dr_shear_warp_fwd(
+            ctypes.byref(a), dev.index or 0, _build.stream_of(slabs)), "K8")
+        leaf = inter.clone().requires_grad_(True)
+        img_w, _ = PF._warp_to_image(leaf, ext, lf, cfg, perm, sign)
+        g_inter, = torch.autograd.grad(torch.mean(img_w ** 2), leaf)
+        return slabs, geom, a, inter, steps, g_inter.contiguous()
+
+    def texels_needed(geom, steps, X, Y):
+        """The (plane, texel) pairs whose slab values a march needs: the
+        taps of non-zero weight of every sample it takes (pixel (r, o)
+        marches planes [0, steps[r, o])), each counted once."""
+        lx, ly, lz = geom.lf.unbind(0)
+        n = 0
+        for s0 in range(0, int(steps.max()), 32):
+            zw = geom.zws[s0:s0 + 32]
+            B = zw.shape[0]
+            sz = (zw - lz) / (0.0 - lz)
+            tx = SW._lerp_taps(
+                (lx + sz[:, None] * (geom.ga[None] - lx) + 1.0) * geom.xsc, X)
+            ty = SW._lerp_taps(
+                (ly + sz[:, None] * (geom.gb[None] - ly) + 1.0) * geom.ysc, Y)
+            alive = steps[None] > torch.arange(s0, s0 + B, device=dev)[
+                :, None, None]
+            need = torch.zeros(B * X * Y, dtype=torch.bool, device=dev)
+            for ix, wx in ((tx[0], tx[2]), (tx[1], tx[3])):
+                for iy, wy in ((ty[0], ty[2]), (ty[1], ty[3])):
+                    b, r, o = (alive & (wx != 0)[:, :, None]
+                               & (wy != 0)[:, None, :]).nonzero(as_tuple=True)
+                    need[(b * X + ix[b, r]) * Y + iy[b, o]] = True
+            n += int(need.sum())
+        return n
+
     for scene in ("noise", "ct_phantom"):
         vol_i = user_to_internal(scenes[scene])
         P.reset_launch_counts()
         out = fast_fwd(P.render_fast, vol_i)
         sync()
         c_fwd = P.launch_counts()
-        k0 = c_fwd["tf_lookup_fwd"]
-        require(1 <= k0 <= n_chunks and sum(c_fwd.values()) == k0,
+        require(c_fwd["shear_warp_fwd"] == 1 and sum(c_fwd.values()) == 1,
                 f"render_fast's forward launched {c_fwd}")
+        kernels["shear_warp_fwd"]["launches"] += 1
         plain = fast_fwd(P.render_fast_plain, vol_i)
         sync()
         err = float((out.image - plain.image).abs().max())
         require(err <= 1e-5 and torch.equal(out.hit, plain.hit)
                 and bool(torch.isfinite(out.image).all()),
                 f"render_fast on {scene}: {err} from render_fast_plain")
+        kernels["shear_warp_fwd"]["max_abs_err"] = max(
+            kernels["shear_warp_fwd"]["max_abs_err"], err)
+        # K8 runs no atomics: bitwise across calls, and slab_batch (the
+        # plain march's chunk) is ignored on the card.
+        require(torch.equal(fast_fwd(P.render_fast, vol_i).image, out.image)
+                and torch.equal(fast_fwd(P.render_fast, vol_i, 2).image,
+                                out.image),
+                "render_fast's image differs across calls or slab batches")
         old = (torch.backends.cuda.matmul.allow_tf32,
                torch.get_float32_matmul_precision())
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -2859,11 +2955,12 @@ def main() -> int:
         sync()
         c_step = P.launch_counts()
         peak_f = torch.cuda.max_memory_allocated(dev)
-        require(c_step["tf_lookup_bwd"] == k0
-                and c_step["tf_lookup_fwd"] == 2 * k0,
-                f"render_fast's step launched {c_step} (forward: {k0} K0)")
-        k0_fast += k0 + c_step["tf_lookup_fwd"]
-        k0b_fast += c_step["tf_lookup_bwd"]
+        require(c_step["shear_warp_fwd"] == 1
+                and c_step["shear_warp_bwd"] == 1
+                and sum(c_step.values()) == 2,
+                f"render_fast's step launched {c_step}")
+        kernels["shear_warp_fwd"]["launches"] += 1
+        kernels["shear_warp_bwd"]["launches"] += 1
         # The plain gradient at chunks of 2 slabs (the gradient does not
         # depend on the batch): its d_tf is index_add_'s f32 sum, whose
         # rounding grows with the lookups a chunk adds onto each texel.
@@ -2871,28 +2968,86 @@ def main() -> int:
         sync()
         errs = grads_close((dv_k, dt_k), (dv_p, dt_p),
                            f"render_fast on {scene}")
+        kernels["shear_warp_bwd"]["max_abs_err"] = max(
+            kernels["shear_warp_bwd"]["max_abs_err"],
+            float((dv_k - dv_p).abs().max()),
+            float((dt_k - dt_p).abs().max()))
         del dv_k, dt_k, dv_p, dt_p, tf32_img
         fwd_ms, plain_fwd_ms = host_ms_ab(
             lambda: fast_fwd(P.render_fast, vol_i),
             lambda: fast_fwd(P.render_fast_plain, vol_i), 3)
-        step_ms = host_ms(lambda: fast_step(P.render_fast, vol_i), 2)
+        step_ms = host_ms(lambda: fast_step(P.render_fast, vol_i), 3)
+        plain_step_ms = host_ms(
+            lambda: fast_step(P.render_fast_plain, vol_i), 1)
         fast_ms, k3_ms = host_ms_ab(
             lambda: fast_fwd(P.render_fast, vol_i),
             lambda: P.render_nondiff(vol_i, tf_i, lf, cfg), 3)
-        # Smaller chunks (the JAX package's default is 2): more launches
-        # for the same image.
-        batch_ms = {f"slab_batch_{b}": host_ms(
-            lambda b=b: fast_fwd(P.render_fast, vol_i, b), 2)
-            for b in (2, 8)}
+        # K8 and K9 by CUDA events around their C entries at the bench
+        # view's inputs (K8 without its steps output, as its wrapper calls
+        # it), K9 with the step's own cotangent; the bounds count the
+        # samples K8 marched and the slab texels they need (for K9, those of
+        # pixels whose cotangent is not 0).
+        slabs, geom, a, inter, steps, g_inter = march_args(vol_i)
+        S, X, Y = slabs.shape[:3]
+        stream = _build.stream_of(slabs)
+        a.steps = None
+        k8_ms = launch_ms(lambda: _build.library().dr_shear_warp_fwd(
+            ctypes.byref(a), dev.index or 0, stream), reps=10, per_pair=10)
+        d_sl = torch.zeros_like(slabs)
+        d_tf = torch.zeros_like(tf_i)
+        a.grad, a.d_slabs, a.d_tf = (g_inter.data_ptr(), d_sl.data_ptr(),
+                                     d_tf.data_ptr())
+        k9_ms = launch_ms(lambda: _build.library().dr_shear_warp_bwd(
+            ctypes.byref(a), dev.index or 0, stream), reps=5, per_pair=4)
+        samples = int(steps.sum())
+        steps_bwd = torch.where((g_inter != 0).any(-1), steps, 0)
+        samples_bwd = int(steps_bwd.sum())
+        texels = texels_needed(geom, steps, X, Y)
+        texels_bwd = texels_needed(geom, steps_bwd, X, Y)
         with torch.no_grad():
+            k8_plain_ms = host_ms(
+                lambda: SW.shear_warp_march_plain(slabs, tf_i, geom), 1)
+        k9_plain_ms = host_ms(
+            lambda: SW.shear_warp_bwd_plain(slabs, tf_i, geom, g_inter), 1)
+        # Bytes: K8 reads the texels it needs, the exponent and the TF and
+        # writes the image; K9 also reads the image and its cotangent, and
+        # writes d_slabs once on its texels (zeroed before the launch) and
+        # d_tf.
+        b8 = bound(texels * 16 + O_fast * O_fast * (4 + 16) + R * 16,
+                   samples * SW_SAMPLE_OPS)
+        b9 = bound(texels_bwd * 2 * 16 + O_fast * O_fast * (4 + 2 * 16)
+                   + R * 32, samples_bwd * SW_BWD_SAMPLE_OPS)
+        del slabs, geom, a, inter, g_inter, d_sl, d_tf
+        # A strip of K8 (rows [O/4, O/2)) is the whole image's rows.
+        with torch.no_grad():
+            args = (vol_i, tf_i, lf, cfg, O_fast, ppv, 32,
+                    SW.shear_warp_march)
+            whole = PF._intermediate(*args)[0]
+            strip = PF._intermediate(*args, O_fast // 4, O_fast // 4)[0]
+            require(torch.equal(strip, whole[O_fast // 4:O_fast // 2]),
+                    "a strip of K8 differs from the whole image's rows")
             exact = P.render(vol_i, tf_i, lf, cfg, 1.0).image
+        del whole, strip
+        if scene == "noise":    # the bench scene is the one reported
+            kernels["shear_warp_fwd"].update(
+                ms=k8_ms, plain_ms=k8_plain_ms, bound_ms=b8[0],
+                bound_by=b8[1])
+            kernels["shear_warp_bwd"].update(
+                ms=k9_ms, plain_ms=k9_plain_ms, bound_ms=b9[0],
+                bound_by=b9[1])
         fast[scene] = {
-            "k0_launches_forward": k0, "chunks": n_chunks,
-            "launches_step": c_step, "max_abs_err_vs_plain": err,
+            "launches_forward": c_fwd, "launches_step": c_step,
+            "max_abs_err_vs_plain": err,
             "grad_rel_err_d_volume_d_tf": errs, "fwd_ms": fwd_ms,
-            "plain_fwd_ms": plain_fwd_ms, "fwd_ms_by_batch": batch_ms,
-            "grad_step_ms": step_ms,
-            "grad_peak_bytes": peak_f,
+            "plain_fwd_ms": plain_fwd_ms, "grad_step_ms": step_ms,
+            "plain_grad_step_ms": plain_step_ms, "grad_peak_bytes": peak_f,
+            "k8_ms": k8_ms, "k8_plain_ms": k8_plain_ms,
+            "k8_bound_ms": b8[0], "k8_bound_by": b8[1],
+            "k9_ms": k9_ms, "k9_plain_ms": k9_plain_ms,
+            "k9_bound_ms": b9[0], "k9_bound_by": b9[1],
+            "planes": S, "samples_marched": samples,
+            "samples_marched_bwd": samples_bwd, "texels_needed": texels,
+            "texels_needed_bwd": texels_bwd, "slab_stack_texels": S * X * Y,
             "vs_k3": {"render_fast_ms": fast_ms,
                       "render_nondiff_ms": k3_ms, "sampling_rate": 4.0},
             "ssim_vs_render": float(P.ssim(out.image.permute(2, 0, 1),
@@ -2900,8 +3055,36 @@ def main() -> int:
             "choose_fast_params": P.choose_fast_params(vol_i, tf_i, lf,
                                                        cfg)}
         del out, plain, exact
-    # K0b's dot mask at the fast path's lookups: quantised intensities on
-    # integer t keep no slope, the Pallas mask keeps it.
+    # Small cases at 64^3, O = 96, each against the plain version: a TF
+    # whose alpha reaches exactly 1 (f = 0 at the last sample of a pixel)
+    # and 4 planes per voxel (the opacity correction's exponent below 1).
+    vol64 = user_to_internal(lambda: P.noise_volume(64, seed=1))
+    cfg64 = cfg.replace(volume_shape=(64,) * 3, image_shape=(64, 64),
+                        tf_resolution=16)
+    tf_op = torch.zeros((16, 4), device=dev)
+    tf_op[:, :3] = torch.linspace(0.2, 0.9, 48, device=dev).reshape(16, 3)
+    tf_op[:, 3] = torch.clamp(torch.linspace(-0.5, 1.5, 16, device=dev),
+                              0.0, 1.0)
+    tf16 = P.tf_to_internal(P.get_tf_torch_layout("tf1", 16, device=dev))
+    for name, tf_s, ppv_s in (("opaque_tf", tf_op, 2.0),
+                              ("planes_per_voxel_4", tf16, 4.0)):
+        kw = dict(tf_s=tf_s, cfg_s=cfg64, O_s=96, ppv_s=ppv_s)
+        out_k, dv_k, dt_k = fast_step(P.render_fast, vol64, **kw)
+        out_p, dv_p, dt_p = fast_step(P.render_fast_plain, vol64,
+                                      slab_batch=2, **kw)
+        e_small = float((out_k.image - out_p.image).detach().abs().max())
+        require(e_small <= 1e-5 and torch.equal(out_k.hit, out_p.hit)
+                and not any(bool(torch.isnan(t).any())
+                            for t in (dv_k, dt_k, dv_p, dt_p)),
+                f"render_fast's {name} case: {e_small} from the plain")
+        fast[name] = {"max_abs_err_vs_plain": e_small,
+                      "grad_rel_err_d_volume_d_tf": grads_close(
+                          (dv_k, dt_k), (dv_p, dt_p), name),
+                      "tf_alpha_max": float(tf_s[:, 3].max())}
+    del vol64
+    # K0b's dot mask (still exported; the fast path no longer launches K0
+    # or K0b): quantised intensities on integer t keep no slope, the
+    # Pallas mask keeps it.
     x_q = (torch.randint(0, R, (1 << 20,), generator=gen_b, device=dev)
            .float() / (R - 1))
     g_q = torch.rand((1 << 20, 4), generator=gen_b, device=dev) - 0.5
@@ -2917,15 +3100,7 @@ def main() -> int:
             and float((d_tf_q - ref_tf_q).abs().max())
             <= 1e-4 * float(ref_tf_q.abs().max()),
             f"K0b's dot mask: d_intensity {mask_err} from its plain version")
-    # One slab chunk's classify at the default batch of 32 slabs.
-    x_fast = torch.rand((32, O_fast, O_fast), generator=gen_b, device=dev)
-    k0_fast_ms = cuda_ms(lambda: P.tf_lookup_fwd(tf_i, x_fast), 5,
-                         per_pair=20)
-    g_fast = torch.rand((32, O_fast, O_fast, 4), generator=gen_b,
-                        device=dev) - 0.5
-    k0b_fast_ms = cuda_ms(lambda: P.tf_lookup_bwd(tf_i, x_fast, g_fast,
-                                                  mask="dot"), 5, per_pair=20)
-    n_fast = x_fast.numel()
+    kernels["tf_lookup_bwd"]["mask_dot_max_abs_err"] = mask_err
     # The viewer through Raycaster.raycast_fast (O = 1024 by default).
     for scene, make in (("synthetic", lambda: P.synthetic_volume(res)),
                         ("ct_phantom", lambda: P.ct_phantom(res))):
@@ -2934,40 +3109,43 @@ def main() -> int:
         sw = rc_v.raycast_fast(vol_user, tf_user, lf_v)
         sync()
         c_v = P.launch_counts()
-        require(c_v["tf_lookup_fwd"] >= 1
+        require(c_v["shear_warp_fwd"] == 1 and sum(c_v.values()) == 1
                 and sw.shape == (4, v_img, v_img)
                 and bool(torch.isfinite(sw).all()),
                 f"raycast_fast at the viewer launched {c_v}")
-        k0_fast += c_v["tf_lookup_fwd"]
+        kernels["shear_warp_fwd"]["launches"] += 1
         exact = rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
                                      sampling_rate=v_sr)
         sw_ms, nd_ms = host_ms_ab(
             lambda: rc_v.raycast_fast(vol_user, tf_user, lf_v),
             lambda: rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
                                          sampling_rate=v_sr), 3)
+        # K8 alone at the viewer's intermediate image.
+        vol_v = P.volume_to_internal(vol_user[0]).contiguous()
+        ch, lf_f, light_f, _, _ = PF._frame(vol_v, lf_v)
+        slabs, geom, _ = PF._slab_inputs(ch, lf_f, light_f, rc_v.config,
+                                         1024, 2.0)
+        a = SW._args(slabs, tf_i, geom)
+        inter = torch.empty((1024, 1024, 4), device=dev)
+        a.inter = inter.data_ptr()
+        k8_v_ms = launch_ms(lambda: _build.library().dr_shear_warp_fwd(
+            ctypes.byref(a), dev.index or 0, _build.stream_of(slabs)),
+            reps=10, per_pair=10)
         fast[f"viewer_{scene}"] = {
-            "k0_launches": c_v["tf_lookup_fwd"], "intermediate": 1024,
-            "planes_per_voxel": 2.0,
+            "launches": c_v, "intermediate": 1024, "planes_per_voxel": 2.0,
             "ssim_vs_raycast_nondiff": float(P.ssim(sw, exact)),
-            "raycast_fast_ms": sw_ms, "raycast_nondiff_ms": nd_ms}
-        del sw, exact
-    kernels["tf_lookup_fwd"]["launches"] += k0_fast
-    kernels["tf_lookup_bwd"]["launches"] += k0b_fast
-    kernels["tf_lookup_fwd"].update(
-        fastpath_launches=k0_fast, fastpath_ms=k0_fast_ms,
-        fastpath_bound_ms=bound(n_fast * 20 + R * 16,
-                                n_fast * TF_LOOKUP_OPS)[0])
-    kernels["tf_lookup_bwd"].update(
-        fastpath_launches=k0b_fast, fastpath_ms=k0b_fast_ms,
-        fastpath_bound_ms=bound(n_fast * 24 + R * 32,
-                                n_fast * TF_LOOKUP_BWD_OPS)[0],
-        mask_dot_max_abs_err=mask_err)
+            "raycast_fast_ms": sw_ms, "raycast_nondiff_ms": nd_ms,
+            "k8_ms": k8_v_ms}
+        del sw, exact, slabs, geom, a, inter, ch
     emit({"phase": "fastpath", "cases": fast, "volume": res, "image": img,
           "intermediate": O_fast, "planes_per_voxel": ppv,
-          "k0_fast_shape_ms": k0_fast_ms, "k0b_fast_shape_ms": k0b_fast_ms,
           "k0b_dot_mask_max_abs_err": mask_err,
+          "resources": {n: kernels[n]["resources"]
+                        for n in ("shear_warp_fwd", "shear_warp_bwd")},
+          "device_ms_is": "CUDA events around back-to-back calls of the C "
+                          "entry, median",
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
-    del x_q, g_q, x_fast, g_fast
+    del x_q, g_q
     torch.cuda.empty_cache()
 
     # -- 9i. parallel: the parallel layer on one card -------------------------
@@ -2976,7 +3154,6 @@ def main() -> int:
     import tempfile
 
     import torch.distributed as dist
-    from differender_tpu_torch import fastpath as PF
     from differender_tpu_torch import parallel as PP
     from differender_tpu_torch.parallel import volume_sharding as PV
     from differender_tpu_torch.render import _ray_soa
@@ -3297,8 +3474,11 @@ def main() -> int:
             sampling_rate=1.0, mode="accum", renderer="shearwarp")
         sync()
         c_sw = P.launch_counts()
-        require(c_sw["tf_lookup_fwd"] > 0 and c_sw["tf_lookup_bwd"] > 0,
+        require(c_sw["shear_warp_fwd"] == 2 and c_sw["shear_warp_bwd"] == 2
+                and sum(c_sw.values()) == 4,
                 f"the shear-warp train step launched {c_sw}")
+        kernels["shear_warp_fwd"]["launches"] += 2
+        kernels["shear_warp_bwd"]["launches"] += 2
         v = vol_sw.clone().requires_grad_(True)
         t = tf_i.clone().requires_grad_(True)
         (sum(P.mse_loss(P.render_fast(v, t, lfs_sw[i], cfg_sw).image,
@@ -3311,22 +3491,30 @@ def main() -> int:
         # render_fast_sharded bitwise render_fast; 4 row strips joined
         # bitwise the whole intermediate image.
         with torch.no_grad():
+            P.reset_launch_counts()
             f_sh = P.render_fast_sharded(vol_n, tf_i, lf, cfg,
                                          intermediate=576,
                                          planes_per_voxel=2.0)
+            sync()
+            c_fsh = P.launch_counts()
+            require(c_fsh["shear_warp_fwd"] == 1 and sum(c_fsh.values()) == 1,
+                    f"render_fast_sharded launched {c_fsh}")
+            kernels["shear_warp_fwd"]["launches"] += 1
             f_mono = P.render_fast(vol_n, tf_i, lf, cfg, intermediate=576,
                                    planes_per_voxel=2.0)
             require(torch.equal(f_sh.image, f_mono.image)
                     and torch.equal(f_sh.hit, f_mono.hit),
                     "render_fast_sharded differs from render_fast")
-            args = (vol_n, tf_i, lf, cfg, 576, 2.0, 32, PF._classify_kernel)
+            args = (vol_n, tf_i, lf, cfg, 576, 2.0, 32,
+                    SW.shear_warp_march)
             whole = PF._intermediate(*args)[0]
             strips = torch.cat([PF._intermediate(*args, 144 * k, 144)[0]
                                 for k in range(4)])
             require(torch.equal(strips, whole),
                     "4 row strips differ from the whole intermediate image")
         par["render_fast_sharded"] = {"bitwise_render_fast": True,
-                                      "strips4_bitwise": True}
+                                      "strips4_bitwise": True,
+                                      "launches": c_fsh}
         del f_sh, f_mono, whole, strips
 
         # 5. Times: K1 and K2 segments per shard and summed over K = 4,
@@ -3908,11 +4096,12 @@ def main() -> int:
         fast_t = trc_v.raycast_fast(syn, tf_user, lf_v)
         sync()
         c_fast = P.launch_counts()
-        require(c_fast["tf_lookup_fwd"] > 0 and not fast_t.requires_grad
+        require(c_fast["shear_warp_fwd"] == 1 and sum(c_fast.values()) == 1
+                and not fast_t.requires_grad
                 and torch.equal(fast_t, rc_v.raycast_fast(syn, tf_user,
                                                           lf_v)),
                 f"TorchRaycaster.raycast_fast: {c_fast}")
-        kernels["tf_lookup_fwd"]["launches"] += c_fast["tf_lookup_fwd"]
+        kernels["shear_warp_fwd"]["launches"] += 1
         util["torch_raycaster"].update(raycast_fast_bitwise=True,
                                        raycast_fast_launches=c_fast)
         del syn, fast_t, trc, trc_v, rc_v

@@ -13,11 +13,13 @@ strips (:func:`render_strips`) or depth-sorted chunks
 occupancy grid that ``cell_minmax`` (K6) and ``cell_distance`` (K7) build
 (:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows`` (K5), the
 box sums of the TPU DMA probe.  The shear-warp fast path
-(:func:`render_fast`, :meth:`Raycaster.raycast_fast`) classifies through K0
-and K0b.  :mod:`.parallel` spreads views, the fast path's intermediate rows
-or a volume sharded along X over the ranks of a ``torch.distributed``
-group; a shard marches its slab through the segment instantiations of K1
-and K2 (``march_segment_fwd``, ``march_segment_bwd``).
+(:func:`render_fast`, :meth:`Raycaster.raycast_fast`) marches its slabs
+through ``shear_warp_fwd`` (K8) and ``shear_warp_bwd`` (K9)
+(:mod:`.ops.shear_warp`).  :mod:`.parallel` spreads views, the fast
+path's intermediate rows or a volume sharded along X over the ranks of a
+``torch.distributed`` group; a shard marches its slab through the segment
+instantiations of K1 and K2 (``march_segment_fwd``,
+``march_segment_bwd``).
 ``RenderConfig(analytic_normals=True)`` takes each sample's
 gradient from its 8 corners in K1, K2 and K3; a camera that requires grad
 gets its gradient through K2's camera instantiation
@@ -48,8 +50,9 @@ from .occupancy import (OccupancyGrid, build_occupancy, jump_steps,
 from .ops import (brick_rows, brick_rows_reference, brick_sums,
                   brick_sums_reference, cell_distance,
                   cell_distance_reference, cell_minmax, cell_minmax_reference,
-                  tf_lookup, tf_lookup_bwd, tf_lookup_bwd_reference,
-                  tf_lookup_fwd, tf_lookup_reference)
+                  shear_warp_bwd, shear_warp_fwd, tf_lookup, tf_lookup_bwd,
+                  tf_lookup_bwd_reference, tf_lookup_fwd,
+                  tf_lookup_reference)
 from . import parallel
 from .parallel.volume_sharding import march_segment_bwd, march_segment_fwd
 from .optim import (adamw_onecycle, nan_to_num_grads, project_nonneg,
@@ -86,6 +89,8 @@ KERNEL_WRAPPERS = {
     "cell_distance": cell_distance,
     "march_segment_fwd": march_segment_fwd,
     "march_segment_bwd": march_segment_bwd,
+    "shear_warp_fwd": shear_warp_fwd,
+    "shear_warp_bwd": shear_warp_bwd,
 }
 
 
@@ -130,5 +135,6 @@ __all__ = [
     "brick_sums_reference", "brick_rows_reference", "cell_minmax_reference",
     "cell_distance", "cell_distance_reference",
     "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
+    "shear_warp_fwd", "shear_warp_bwd",
     "TorchRaycaster", "VideoWriter", "save_video",
 ]

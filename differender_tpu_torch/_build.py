@@ -25,7 +25,7 @@ from typing import Dict, List, Tuple
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("tf_lookup.cu", "march.cu", "march_bwd.cu", "bricks.cu",
-            "distance.cu")
+            "distance.cu", "shear_warp.cu")
 _HEADERS = ("tf_lerp.cuh", "march_common.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_NAME = "libdifferender_kernels.so"
@@ -145,7 +145,8 @@ def library() -> ctypes.CDLL:
                                      i32, i32, i32, ptr]
     lib.dr_tf_lookup_bwd.restype = i32
     for name in ("dr_march_diff_fwd", "dr_march_diff_bwd",
-                 "dr_march_nondiff"):
+                 "dr_march_nondiff", "dr_shear_warp_fwd",
+                 "dr_shear_warp_bwd"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, i32, ptr]
         fn.restype = i32

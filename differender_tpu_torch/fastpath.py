@@ -14,12 +14,9 @@ Lacroute's perspective shear-warp factorization, as in the JAX package:
      each row of that matrix holds at most two non-zero weights, so here the
      two taps are gathered and weighed directly and no product is multiplied
      by zero;
-  3. each slab sample is classified through the TF (kernel K0
-     ``tf_lookup_fwd`` on CUDA tensors, its backward K0b ``tf_lookup_bwd``
-     with the dot-form mask: ``d_intensity`` only where the lerp's
-     ``frac > 0``, the VJP of the JAX package's ``apply_tf_dot``), shaded
-     with the headlight and composited front to back in intermediate space
-     with per-pixel opacity correction and the early-ray-termination gate;
+  3. each slab sample is classified through the TF, shaded with the
+     headlight and composited front to back in intermediate space with
+     per-pixel opacity correction and the early-ray-termination gate;
   4. one bilinear warp maps the intermediate image onto the final pixels.
 
 Semantics: a direct-volume renderer with the exact renderer's camera,
@@ -33,20 +30,21 @@ product goes through a matrix multiply or a convolution, so neither the
 ``precision`` argument (kept for the JAX package's signature) nor PyTorch's
 TF32 flags change the image.
 
-Slabs are processed ``slab_batch`` at a time ("chunks").  Each chunk is
-about a hundred small torch launches whatever its size, so on the card the
-chunk count sets the time: the port's default batch is 32 slabs, not the
-JAX package's 2 (its TPU sweep's winner).  Measured on an H100 80GB HBM3 at
-700 W, the forward at 256^3 -> 512^2, O = 576, 2 planes per voxel took 641,
-177 and 115 ms at batches 2, 8 and 32 on the noise scene (``chip_smoke.py``,
-phase ``fastpath``).  A chunk whose pixels have all terminated is an exact
-no-op, and since the transmittance only falls, the march stops at the first
-chunk where no pixel is alive.  That test is a host sync on the card; it
-is taken before every chunk after the first, as the JAX package takes it.
-Under autograd each chunk runs
-inside ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``):
-the backward recomputes one chunk at a time, so it holds only each chunk's
-inputs, O(O^2) per chunk, beside the slab stack.
+Where it runs.  Steps 1, 2's z-lerp of each plane from its two voxel layers
+(the slab stack, ``(S, X, Y, 4)`` channels last), the grid, the per-pixel
+exponent and step 4 are torch operations.  The march itself, steps 2 to 3
+per plane, is :func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march`:
+on CUDA tensors one launch of kernel K8 ``shear_warp_fwd``, one thread per
+intermediate pixel walking every plane and stopping at its own gate, and in
+the backward one launch of K9 ``shear_warp_bwd``, which marches again and
+keeps no tape, so no host sync runs inside the march and the backward
+holds the slab stack, the TF and the (O, O, 4) image.  On CPU tensors it is
+the plain version, the same arithmetic as chunks of ``slab_batch`` planes
+of torch operations (by default 32, where the JAX package takes 2: each
+chunk is about a hundred launches on the card, whatever its length): the
+march stops at the first chunk where no pixel is alive (a host sync), and
+under autograd each chunk runs inside ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint``).
 
 The two powers of the shading (the opacity correction's exponent, below 1
 at more than about 3.5 planes per voxel, and the specular shininess) have
@@ -55,10 +53,10 @@ cotangent is 0, so a pixel that the ERT gate or the footprint mask cuts off
 contributes no ``0 * inf``: the gradient equals the JAX package's wherever
 that is finite, and is NaN nowhere the JAX package's is not.
 
-:func:`render_fast_plain` is the same code with the plain classify
-(:func:`~differender_tpu_torch.sampling.apply_tf_dot`): the tests and
-``chip_smoke.py`` hold :func:`render_fast` against it; :func:`render_fast`
-never calls it.
+:func:`render_fast_plain` takes the plain march on any device, with the
+plain classify (:func:`~differender_tpu_torch.sampling.apply_tf_dot`): the
+tests and ``chip_smoke.py`` hold :func:`render_fast` against it;
+:func:`render_fast` never calls it.
 """
 from __future__ import annotations
 
@@ -66,13 +64,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .config import RenderConfig
 from .geometry import ray_aabb, ray_directions
-from .ops.tf_lookup import tf_lookup
+from .ops.shear_warp import (SlabGeometry, shear_warp_march,
+                             shear_warp_march_plain)
 from .sampling import apply_tf_dot
-from .shading import unit_normal
 
 # Axis permutations that bring the principal axis p to the last position.
 _PERMS = [(1, 2, 0), (2, 0, 1), (0, 1, 2)]
@@ -101,95 +98,6 @@ def intensity_gradient_volume(volume: torch.Tensor) -> torch.Tensor:
     return torch.stack([volume, cdiff(0), cdiff(1), cdiff(2)], 0)
 
 
-def _lerp_taps(src: torch.Tensor, size: int):
-    """The two taps of a 1-D linear resample at positions ``src`` (voxel
-    coordinates) along an axis of ``size`` voxels: indices ``lo``,
-    ``hi = min(lo + 1, size - 1)`` and weights ``1 - frac``, ``frac``, both
-    weights 0 where ``src`` lies outside ``[0, size - 1]`` (the rows of the
-    JAX package's ``_interp_matrix``)."""
-    lo_f = torch.floor(src)
-    frac = src - lo_f
-    inside = (src >= 0.0) & (src <= size - 1.0)
-    lo = torch.clamp(lo_f, 0.0, size - 1.0).to(torch.int64)
-    hi = torch.clamp(lo + 1, max=size - 1)
-    zero = src.new_zeros(())
-    return lo, hi, torch.where(inside, 1.0 - frac, zero), \
-        torch.where(inside, frac, zero)
-
-
-def _resample(slab: torch.Tensor, taps_x, taps_y) -> torch.Tensor:
-    """``(B, C, X, Y)`` slabs at the ``(B, R)`` x taps and the ``(B, O)`` y
-    taps: ``(B, C, R, O)``, along x first and then along y."""
-    B, C, X, Y = slab.shape
-    lo, hi, w_lo, w_hi = taps_x
-    R = lo.shape[1]
-    ix = (B, C, R, Y)
-    tmp = (torch.gather(slab, 2, lo[:, None, :, None].expand(ix))
-           * w_lo[:, None, :, None]
-           + torch.gather(slab, 2, hi[:, None, :, None].expand(ix))
-           * w_hi[:, None, :, None])
-    lo, hi, w_lo, w_hi = taps_y
-    iy = (B, C, R, lo.shape[1])
-    return (torch.gather(tmp, 3, lo[:, None, None, :].expand(iy))
-            * w_lo[:, None, None, :]
-            + torch.gather(tmp, 3, hi[:, None, None, :].expand(iy))
-            * w_hi[:, None, None, :])
-
-
-class _Pow(torch.autograd.Function):
-    """``x ** e`` for a constant exponent ``e``, with the VJP
-    ``g * (e * x ** (e - 1))`` (0 where ``e == 0``) taken as 0 wherever
-    ``g == 0``, so that an infinite slope meets a zero cotangent as 0."""
-
-    @staticmethod
-    def forward(ctx, x, e):
-        ctx.save_for_backward(x, e)
-        return torch.pow(x, e)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, e = ctx.saved_tensors
-        jac = torch.where(e == 0.0, torch.zeros_like(e),
-                          e * torch.pow(x, e - 1.0))
-        return torch.where(g == 0.0, torch.zeros_like(g), g * jac), None
-
-
-def _shade(rgba, g, px, py, pz, lf, light, exponent, shininess, coverage,
-           config: RenderConfig):
-    """Headlight shading and opacity correction of classified slab samples
-    ``rgba`` (..., 4) with gradients ``g`` (3, ...) at positions
-    ``(px, py, pz)``; returns the premultiplied colour and the alpha.
-    ``shininess`` is ``config.shininess`` as a 0-d tensor on the device."""
-    lx, ly, lz = lf
-    zero = px.new_zeros(())
-    gx, gy, gz = g
-    g2 = gx * gx + gy * gy + gz * gz
-    nx, ny, nz = unit_normal(torch.stack([gx, gy, gz], -1)).unbind(-1)
-    lxr, lyr, lzr = px - light[0], py - light[1], pz - light[2]
-    lm = torch.rsqrt(torch.clamp(lxr * lxr + lyr * lyr + lzr * lzr,
-                                 min=1e-30))
-    lxr, lyr, lzr = lxr * lm, lyr * lm, lzr * lm
-    ndl = torch.maximum(nx * lxr + ny * lyr + nz * lzr, zero)
-    has_n = g2 > 0
-    diffuse = config.diffuse * torch.where(has_n, ndl, zero)
-    dot2 = nx * lxr + ny * lyr + nz * lzr
-    rx = lxr - 2 * dot2 * nx
-    ry = lyr - 2 * dot2 * ny
-    rz = lzr - 2 * dot2 * nz
-    vx, vy, vz = px - lx, py - ly, pz - lz
-    vim = torch.rsqrt(torch.clamp(vx * vx + vy * vy + vz * vz, min=1e-30))
-    vdx, vdy, vdz = vx * vim, vy * vim, vz * vim
-    rdv = torch.maximum(-(rx * vdx + ry * vdy + rz * vdz), zero)
-    specular = config.specular * torch.where(
-        has_n, _Pow.apply(rdv, shininess), zero)
-    lightf = torch.minimum(diffuse + specular + config.ambient,
-                           px.new_ones(()))
-    alpha = (1.0 - _Pow.apply(torch.maximum(1.0 - rgba[..., 3], zero),
-                              exponent)) * coverage
-    rgb = lightf[..., None] * rgba[..., :3] * alpha[..., None]
-    return rgb, alpha
-
-
 def _slab_planes(n_planes: int, Z: int):
     """Host-side f32 plane positions ``zws`` in [-1, 1] and each plane's two
     z layers and lerp weight.  The positions follow ``jnp.linspace``'s f32
@@ -211,17 +119,17 @@ def _slab_planes(n_planes: int, Z: int):
     return zws, zlo, zhi, fz
 
 
-def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
-          planes_per_voxel: float, slab_batch: int, classify,
-          row_offset: int = 0, n_rows: Optional[int] = None):
-    """The intermediate image with the LAST axis as principal and the camera
-    on its negative side: ``channels`` (4, X, Y, Z) already permuted and
-    flipped, ``lf`` and ``light`` in that frame.  Computes only the
+def _slab_inputs(channels, lf, light, config: RenderConfig,
+                 intermediate: int, planes_per_voxel: float,
+                 row_offset: int = 0, n_rows: Optional[int] = None):
+    """The slab stack and the march's geometry with the LAST axis as
+    principal and the camera on its negative side: ``channels`` (4, X, Y,
+    Z) already permuted and flipped, ``lf`` and ``light`` in that frame.
+    Returns ``(slabs, geom, extents)``: the stack ``(S, X, Y, 4)`` (each
+    plane z-lerped from its two voxel layers, channels last), the
+    :class:`~differender_tpu_torch.ops.shear_warp.SlabGeometry` of the
     intermediate rows ``[row_offset, row_offset + n_rows)`` (default all
-    O): each row's pixels are computed as in the whole image, so strips
-    join into it bit for bit (:func:`render_fast_sharded`).  Returns the
-    intermediate RGBA ``(n_rows, O, 4)`` and the grid's extents ``(x0, y0,
-    dx, dy)``."""
+    O) and the grid's extents ``(x0, y0, dx, dy)``."""
     C, X, Y, Z = channels.shape
     O = intermediate
     rows = O if n_rows is None else n_rows
@@ -255,71 +163,42 @@ def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
 
     zws, zlo, zhi, fz = _slab_planes(n_planes, Z)
     fz_t = torch.from_numpy(fz).to(dev)[:, None, None, None]
-    lo_slabs = torch.index_select(channels, 3, torch.from_numpy(zlo).to(dev))
-    hi_slabs = torch.index_select(channels, 3, torch.from_numpy(zhi).to(dev))
-    slabs = (lo_slabs.permute(3, 0, 1, 2) * (1.0 - fz_t)
-             + hi_slabs.permute(3, 0, 1, 2) * fz_t).contiguous()  # (S,4,X,Y)
-    del lo_slabs, hi_slabs
+    layers = channels.permute(3, 1, 2, 0).contiguous()      # (Z, X, Y, 4)
+    slabs = (torch.index_select(layers, 0, torch.from_numpy(zlo).to(dev))
+             * (1.0 - fz_t)
+             + torch.index_select(layers, 0, torch.from_numpy(zhi).to(dev))
+             * fz_t)                                       # (S, X, Y, 4)
+    geom = SlabGeometry(
+        ga=ga, gb=gb, zws=torch.from_numpy(zws).to(dev), exponent=exponent,
+        lf=lf, light=light, xsc=float(np.float32(0.5 * (X - 1))),
+        ysc=float(np.float32(0.5 * (Y - 1))),
+        thr=float(np.float32(1.0 - config.ert_threshold)),
+        ambient=config.ambient, diffuse=config.diffuse,
+        specular=config.specular, shininess=config.shininess)
+    return slabs, geom, (x0, y0, dx, dy)
 
-    B = max(1, int(slab_batch))
-    S = n_planes
-    n_chunks = -(-S // B)
-    pad = n_chunks * B - S
-    zws_c = torch.from_numpy(np.concatenate(
-        [zws, np.ones(pad, np.float32)])).to(dev).reshape(n_chunks, B)
-    valid_c = torch.from_numpy(np.concatenate(
-        [np.ones(S, np.float32), np.zeros(pad, np.float32)])).to(
-            dev).reshape(n_chunks, B)
-    # Made once: a host-to-device copy waits for the stream.
-    shininess = torch.tensor(float(config.shininess), device=dev)
-    xsc = float(np.float32(0.5 * (X - 1)))
-    ysc = float(np.float32(0.5 * (Y - 1)))
-    thr = float(np.float32(1.0 - config.ert_threshold))
 
-    def chunk(acc, T, slab, zw, vmask):
-        sz = (zw - lz) / (0.0 - lz)                             # (B,)
-        src_x = (lx + sz[:, None] * (ga[None] - lx) + 1.0) * xsc
-        src_y = (ly + sz[:, None] * (gb[None] - ly) + 1.0) * ysc
-        taps_x = _lerp_taps(src_x, X)
-        taps_y = _lerp_taps(src_y, Y)
-        res = _resample(slab, taps_x, taps_y)                   # (B, 4, O, O)
-        # In-footprint coverage: each axis's two weights sum to 1 inside
-        # [0, size - 1] and to 0 outside, and the resample is separable.
-        coverage = ((taps_x[2] + taps_x[3])[:, :, None]
-                    * (taps_y[2] + taps_y[3])[:, None, :]) \
-            * vmask[:, None, None]
-        rgba = classify(tf, res[:, 0])                          # (B, O, O, 4)
-        px = lx + sz[:, None, None] * (ga[None, :, None] - lx)
-        py = ly + sz[:, None, None] * (gb[None, None, :] - ly)
-        shape = coverage.shape
-        rgb, alpha = _shade(
-            rgba, res[:, 1:4].unbind(1), px.expand(shape), py.expand(shape),
-            zw[:, None, None].expand(shape), (lx, ly, lz), light, exponent,
-            shininess, coverage, config)
-        for m in range(zw.shape[0]):
-            active = T > thr
-            acc = acc + torch.where(active, T, T.new_zeros(()))[..., None] \
-                * rgb[m]
-            T = torch.where(active, T * (1.0 - alpha[m]), T)
-        return acc, T
+def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
+          planes_per_voxel: float, slab_batch: int, march,
+          row_offset: int = 0, n_rows: Optional[int] = None):
+    """The intermediate rows ``[row_offset, row_offset + n_rows)`` (default
+    all O) of the slab frame (:func:`_slab_inputs`): each row's pixels are
+    computed as in the whole image, so strips join into it bit for bit
+    (:func:`render_fast_sharded`).  ``march(slabs, tf, geom, slab_batch)``
+    is :func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march` (K8
+    and K9 on CUDA tensors) or :func:`_march_plain`.  Returns the
+    intermediate RGBA
+    ``(n_rows, O, 4)`` and the grid's extents ``(x0, y0, dx, dy)``."""
+    slabs, geom, extents = _slab_inputs(channels, lf, light, config,
+                                        intermediate, planes_per_voxel,
+                                        row_offset, n_rows)
+    return march(slabs, tf, geom, slab_batch), extents
 
-    grad = torch.is_grad_enabled() and (channels.requires_grad
-                                        or tf.requires_grad)
-    acc = torch.zeros((rows, O, 3), dtype=torch.float32, device=dev)
-    T = torch.ones((rows, O), dtype=torch.float32, device=dev)
-    for c, slab in enumerate(slabs.split(B)):
-        if c and not bool((T > thr).any()):
-            break
-        if slab.shape[0] < B:
-            slab = torch.cat([slab, slab.new_zeros(
-                (B - slab.shape[0],) + tuple(slab.shape[1:]))])
-        if grad:
-            acc, T = checkpoint(chunk, acc, T, slab, zws_c[c], valid_c[c],
-                                use_reentrant=False)
-        else:
-            acc, T = chunk(acc, T, slab, zws_c[c], valid_c[c])
-    inter = torch.cat([acc, (1.0 - T)[..., None]], -1)
-    return inter, (x0, y0, dx, dy)
+
+def _march_plain(slabs, tf, geom: SlabGeometry, slab_batch: int):
+    """:func:`render_fast_plain`'s march: the plain chunk loop, classified
+    by :func:`~differender_tpu_torch.sampling.apply_tf_dot`."""
+    return shear_warp_march_plain(slabs, tf, geom, apply_tf_dot, slab_batch)
 
 
 def _warp_to_image(inter, extents, look_from, config: RenderConfig, perm,
@@ -359,20 +238,14 @@ def _warp_to_image(inter, extents, look_from, config: RenderConfig, perm,
     return img, hit
 
 
-def _classify_kernel(tf, intensity):
-    return tf_lookup(tf, intensity, mask="dot")
-
-
-def _intermediate(volume, tf, look_from, config: RenderConfig, O: int,
-                  planes_per_voxel, slab_batch, classify, row_offset=0,
-                  n_rows=None):
-    """The intermediate image rows ``[row_offset, row_offset + n_rows)`` in
-    the frame of the view's principal axis (:func:`_core`), and what the
-    warp needs: ``(inter, extents, perm, sign)``."""
+def _frame(volume, look_from):
+    """The view's slab frame: ``(channels, lf, light, perm, sign)``, the
+    intensity-gradient channels (:func:`intensity_gradient_volume`) with
+    the principal axis (the first of the largest |look_from|, decided on
+    the host) last and flipped so that the camera sits on its negative
+    side, the camera and the headlight in that frame, the axis permutation
+    and the flip's sign."""
     channels = intensity_gradient_volume(volume)
-
-    # The principal axis (the first of the largest |look_from|) and the side
-    # of the camera, decided on the host.
     lf_host = look_from.cpu().tolist()
     p = max(range(3), key=lambda i: abs(lf_host[i]))
     perm = _PERMS[p]
@@ -390,8 +263,18 @@ def _intermediate(volume, tf, look_from, config: RenderConfig, O: int,
     # Headlight at look_from + (0, 1, 0) in world coordinates.
     light_w = look_from + torch.tensor([0.0, 1.0, 0.0], device=volume.device)
     light_f = light_w[list(perm)] * flip_vec
+    return ch, lf_f, light_f, perm, sign
+
+
+def _intermediate(volume, tf, look_from, config: RenderConfig, O: int,
+                  planes_per_voxel, slab_batch, march, row_offset=0,
+                  n_rows=None):
+    """The intermediate image rows ``[row_offset, row_offset + n_rows)`` in
+    the frame of the view's principal axis (:func:`_frame`, :func:`_core`),
+    and what the warp needs: ``(inter, extents, perm, sign)``."""
+    ch, lf_f, light_f, perm, sign = _frame(volume, look_from)
     inter, ext = _core(ch, tf, lf_f, light_f, config, O, planes_per_voxel,
-                       slab_batch, classify, row_offset, n_rows)
+                       slab_batch, march, row_offset, n_rows)
     return inter, ext, perm, sign
 
 
@@ -408,12 +291,12 @@ def _fast_inputs(volume, tf, look_from, config: RenderConfig, intermediate):
 
 def _render_fast_impl(volume, tf, look_from, config: RenderConfig,
                       intermediate, planes_per_voxel, slab_batch,
-                      classify) -> FastRenderOutput:
+                      march) -> FastRenderOutput:
     volume, tf, look_from, O = _fast_inputs(volume, tf, look_from, config,
                                             intermediate)
     inter, ext, perm, sign = _intermediate(volume, tf, look_from, config, O,
                                            planes_per_voxel, slab_batch,
-                                           classify)
+                                           march)
     img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
     return FastRenderOutput(image=img, hit=hit)
 
@@ -434,16 +317,21 @@ def render_fast(volume: torch.Tensor, tf: torch.Tensor, look_from,
             axis (the fast path's sampling rate).
         precision: accepted for the JAX package's signature; the port
             computes in f32 whatever it is.
-        slab_batch: slabs per chunk (a chunk is one classify launch, one
-            checkpoint under autograd and the unit of the alive test); the
-            image does not depend on it.
-    Runs where ``volume`` lives: the classify is kernel K0 (forward) and
-    K0b (backward, dot-form mask) on CUDA tensors, their plain versions on
-    CPU tensors; the resample, shading and compositing are torch operations
-    on the same device.  Differentiable in ``volume`` and ``tf``.
+        slab_batch: slabs per chunk of the plain march on CPU tensors (a
+            chunk is one batch of torch operations, one checkpoint under
+            autograd and the unit of the alive test).  Accepted and ignored
+            on CUDA tensors, where the march is one kernel, as the JAX
+            package's TPU-only knobs are; the image does not depend on it.
+    Runs where ``volume`` lives.  On CUDA tensors the slab march is one
+    launch of kernel K8 ``shear_warp_fwd`` and its gradient one launch of
+    K9 ``shear_warp_bwd``, with no host sync inside the march; the gradient
+    volume, the slab stack's z-lerp, the grid and the warp are torch
+    operations.  On CPU tensors the march is the plain chunk loop, which
+    classifies through ``tf_lookup(mask="dot")``'s plain versions.
+    Differentiable in ``volume`` and ``tf``.
     """
     return _render_fast_impl(volume, tf, look_from, config, intermediate,
-                             planes_per_voxel, slab_batch, _classify_kernel)
+                             planes_per_voxel, slab_batch, shear_warp_march)
 
 
 def render_fast_sharded(volume: torch.Tensor, tf: torch.Tensor, look_from,
@@ -453,13 +341,13 @@ def render_fast_sharded(volume: torch.Tensor, tf: torch.Tensor, look_from,
                         slab_batch: int = 32) -> FastRenderOutput:
     """:func:`render_fast` over the ranks of a process group (``None``: the
     default group; see ``parallel._collectives``): the intermediate image is
-    split by rows, each rank resampling, classifying (K0, K0b in the
-    backward), shading and compositing one strip of every slab, and one
-    all-gather of the (O, O, 4) intermediate image precedes the warp.  The
-    volume, the TF and the camera are replicated; every rank calls it with
-    the same inputs and gets :func:`render_fast`'s output bit for bit, and
-    the whole gradients in ``volume`` and ``tf``.  O must be a multiple of
-    the group size.  For a volume too large for one card, see
+    split by rows, each rank marching one strip of every slab (K8 through
+    ``row_offset``/``n_rows``, K9 in the backward), and one all-gather of
+    the (O, O, 4) intermediate image precedes the warp.  The volume, the TF
+    and the camera are replicated; every rank calls it with the same inputs
+    and gets :func:`render_fast`'s output bit for bit, and the whole
+    gradients in ``volume`` and ``tf``.  O must be a multiple of the group
+    size.  For a volume too large for one card, see
     ``parallel.render_volume_sharded``."""
     from .parallel._collectives import gather, group_rank, replicated
     volume, tf, look_from, O = _fast_inputs(volume, tf, look_from, config,
@@ -470,7 +358,7 @@ def render_fast_sharded(volume: torch.Tensor, tf: torch.Tensor, look_from,
                          f"O = {O} over {n} ranks")
     strip, ext, perm, sign = _intermediate(
         replicated(volume, group), replicated(tf, group), look_from, config,
-        O, planes_per_voxel, slab_batch, _classify_kernel, k * (O // n),
+        O, planes_per_voxel, slab_batch, shear_warp_march, k * (O // n),
         O // n)
     inter = gather(strip, group, 0)
     img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
@@ -482,11 +370,12 @@ def render_fast_plain(volume: torch.Tensor, tf: torch.Tensor, look_from,
                       intermediate: Optional[int] = None,
                       planes_per_voxel: float = 1.0, precision=None,
                       slab_batch: int = 32) -> FastRenderOutput:
-    """:func:`render_fast` with the plain classify
-    (:func:`~differender_tpu_torch.sampling.apply_tf_dot`) on any device:
-    the version that :func:`render_fast` is held against."""
+    """:func:`render_fast` through the plain march
+    (:func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march_plain`,
+    classified by :func:`~differender_tpu_torch.sampling.apply_tf_dot`) on
+    any device: the version that :func:`render_fast` is held against."""
     return _render_fast_impl(volume, tf, look_from, config, intermediate,
-                             planes_per_voxel, slab_batch, apply_tf_dot)
+                             planes_per_voxel, slab_batch, _march_plain)
 
 
 def choose_fast_params(volume, tf, look_from, config: RenderConfig,

@@ -118,7 +118,7 @@ def test_row_strips_join_into_render_fast():
     from differender_tpu_torch import fastpath as F
     vol, tf, lf = _port(VOL), _port(TF), _port(LFS[0])
     cfg = P.RenderConfig(**CFG)
-    args = (vol, tf, lf, cfg, 16, 1.0, 4, F.apply_tf_dot)
+    args = (vol, tf, lf, cfg, 16, 1.0, 4, F._march_plain)
     whole = F._intermediate(*args)[0]
     strips = torch.cat([F._intermediate(*args, 4 * k, 4)[0]
                         for k in range(4)])

@@ -32,6 +32,7 @@ def test_import_leaves_jax_out():
             "import differender_tpu_torch.occupancy\n"
             "import differender_tpu_torch.ops.bricks\n"
             "import differender_tpu_torch.ops.distance\n"
+            "import differender_tpu_torch.ops.shear_warp\n"
             "import differender_tpu_torch.fastpath\n"
             "import differender_tpu_torch.parallel\n"
             "import differender_tpu_torch.parallel.data_parallel\n"
@@ -106,12 +107,15 @@ def test_cpu_tensors_never_launch():
     assert lf_cam.grad is not None
     P.march_segment_bwd(padded, tf, rays, cfg, 1.0, 0, 2, 8, acc,
                         torch.ones_like(acc))
+    P.render_fast(vol, tf, lf, cfg, intermediate=6,
+                  planes_per_voxel=1.0).image.sum().backward()
     assert P.launch_counts() == {"tf_lookup_fwd": 0, "tf_lookup_bwd": 0,
                                  "march_diff_fwd": 0, "march_diff_bwd": 0,
                                  "march_nondiff": 0, "brick_sums": 0,
                                  "brick_rows": 0, "cell_minmax": 0,
                                  "cell_distance": 0, "march_segment_fwd": 0,
-                                 "march_segment_bwd": 0}
+                                 "march_segment_bwd": 0, "shear_warp_fwd": 0,
+                                 "shear_warp_bwd": 0}
     assert P.march_diff_bwd.camera_launches == 0
     assert P.march_segment_bwd.camera_launches == 0
 
@@ -186,7 +190,7 @@ def test_build_is_lazy_and_keyed_on_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library.cache_info().currsize == 0
     for name in ("march_bwd.cu", "march_common.cuh", "bricks.cu",
-                 "distance.cu"):
+                 "distance.cu", "shear_warp.cu"):
         assert name in _build._SOURCES + _build._HEADERS
 
 
