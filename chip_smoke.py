@@ -127,17 +127,21 @@ Phases (one JSON line each):
      nothing else; against ``render_fast_plain`` (image within 1e-5,
      ``hit`` equal, gradients within K2_GRAD_TOL); the image bitwise across
      calls, at slab batches 32 and 2 and with TF32 allowed; rows [O/4,
-     O/2) marched as a strip bitwise the whole image's; at 64^3, O = 96 a
-     TF whose alpha reaches 1 and 4 planes per voxel, each against the
-     plain version with no NaN; forward and step times (the plain ones
-     beside) and the step's peak memory beside K3's ``render_nondiff`` at
-     the same view; K8 and K9 timed by CUDA events around their C entries
-     (K9 on the step's own cotangent), with their plain versions' times
-     and their bounds over the samples K8 marched; SSIM against
+     O/2) marched as a strip bitwise the whole image's; at O = 128 (few
+     pixels per texel), and at 64^3, O = 96 with a TF whose alpha reaches 1
+     and with 4 planes per voxel, each against the plain version with no
+     NaN; forward and step times (the plain ones beside) and the step's
+     own peak memory beside K3's ``render_nondiff`` at the same view; K8
+     and K9 timed by CUDA events around their C entries (K9 on the step's
+     own cotangent), with their plain versions' times; K8's per-pixel
+     samples taken equal to the in-footprint samples before each pixel's
+     stop plane, counted from the geometry, and K9's restarts; the bounds
+     over those samples and the layer texels they need; SSIM against
      ``render`` and ``choose_fast_params``' record; K0b's dot mask on
      quantised intensities; ``Raycaster.raycast_fast`` at the viewer (O =
      1024, one K8) against ``raycast_nondiff`` (SSIM, times), K8 timed
-     there.
+     there beside its plain version and its bound, its samples taken
+     checked as at the bench.
   9i. parallel: one NCCL rank (the card's machine has one card), backend
      and NCCL version printed; at the bench on noise and ct_phantom the K =
      4 shards' segments (``pad_halos``, K1's segment instantiation through
@@ -325,7 +329,7 @@ CAMERA_SUM_OPS = 24 + 15
 CAMERA_SUM_TOL = 1e-3
 CAMERA_RAY_TOL = 1e-3
 CAMERA_TOL = 1e-4
-# K8 shear_warp_fwd, per marched sample: the plane's position, the ray's
+# K8 shear_warp_fwd, per in-footprint sample: the plane's position, the ray's
 # crossing and the two source coordinates (11); the taps of each axis
 # (floor, frac, the inside test, the clamps, 1 - frac, two selects: 13 each);
 # three 4-channel lerps and the coverage (39); the TF lerp; the shading
@@ -335,7 +339,7 @@ CAMERA_TOL = 1e-4
 # colour (11); the composite and the gate (9).
 SW_SHADE_OPS = 68
 SW_SAMPLE_OPS = 11 + 2 * 13 + 39 + TF_LERP_OPS + SW_SHADE_OPS + 11 + 9
-# K9, per marched sample: K8's sample again, the composite's backward
+# K9, per in-footprint sample: K8's sample again, the composite's backward
 # (COMPOSITE_BWD_OPS), the shading terms again, their backward (the colour
 # and alpha 26, the two powers' VJPs 17, the light clamp, r.v, the
 # reflection and n.l 26, the unit-normal VJP 22: 89), the TF lerp's
@@ -343,6 +347,9 @@ SW_SAMPLE_OPS = 11 + 2 * 13 + 39 + TF_LERP_OPS + SW_SHADE_OPS + 11 + 9
 # to 16 atomic adds: 52).
 SW_BWD_SAMPLE_OPS = (SW_SAMPLE_OPS + COMPOSITE_BWD_OPS + SW_SHADE_OPS + 89
                      + TF_LERP_BWD_OPS - 7 + 52)
+# The z-lerp of a slab texel from its two voxel layers (K8 and K9 form
+# each needed one): 4 channels, two products and a sum each.
+SW_ZLERP_OPS = 12
 # K2 against autograd of the plain march, per gradient tensor, times its
 # max |g|.  Both run the same f32 arithmetic per sample (the kernels round
 # the trilinear sum and the TF lerp as the plain march does); only the order
@@ -2851,8 +2858,9 @@ def main() -> int:
         kernels[name] = dict(
             route="cuda", source="differender_tpu_torch/csrc/shear_warp.cu",
             replaces="differender_tpu/fastpath.py:255",
-            replaces_note="the slab scan's step slab_fn (:255) with "
-                          "shade_slab (:171) under slab_step (:291)"
+            replaces_note="the z-lerp (:216-229) and the slab scan's step "
+                          "slab_fn (:255) with shade_slab (:171) under "
+                          "slab_step (:291)"
                           + (", and JAX's AD of it" if name.endswith("bwd")
                              else "") + ": XLA, no Pallas kernel",
             launches=0, max_abs_err=0.0, library_ms=None,
@@ -2874,48 +2882,102 @@ def main() -> int:
             return fn(vol_i, tf_i, lf, cfg, intermediate=O_fast,
                       planes_per_voxel=ppv, slab_batch=slab_batch)
 
-    def march_args(vol_i):
-        """render_fast's slab stack, geometry and K8's argument struct at
-        the bench view, with K8's output, its per-pixel steps and the
-        cotangent of the intermediate image in mean(image^2)'s step."""
-        ch, lf_f, light_f, perm, sign = PF._frame(vol_i, lf)
-        slabs, geom, ext = PF._slab_inputs(ch, lf_f, light_f, cfg, O_fast,
-                                           ppv)
-        a = SW._args(slabs, tf_i, geom)
-        inter = torch.empty((O_fast, O_fast, 4), device=dev)
-        steps = torch.zeros((O_fast, O_fast), dtype=torch.int32, device=dev)
-        a.inter, a.steps = inter.data_ptr(), steps.data_ptr()
+    def march_args(vol_i, O_s=O_fast, lf_s=None, cfg_s=None, tf_s=None):
+        """render_fast's voxel layers, geometry and K8's argument struct
+        at a view (by default the bench's), with K8's output, its per-pixel
+        stop planes and samples taken, and the cotangent of the
+        intermediate image in mean(image^2)'s step."""
+        lf_s = lf if lf_s is None else lf_s
+        cfg_s = cfg if cfg_s is None else cfg_s
+        tf_s = tf_i if tf_s is None else tf_s
+        ch, lf_f, light_f, perm, sign = PF._frame(vol_i, lf_s)
+        layers, geom, ext = PF._slab_inputs(ch, lf_f, light_f, cfg_s, O_s,
+                                            ppv)
+        del ch
+        a = SW._args(layers, tf_s, geom)
+        inter = torch.empty((O_s, O_s, 4), device=dev)
+        steps = torch.zeros((O_s, O_s), dtype=torch.int32, device=dev)
+        taken = torch.zeros_like(steps)
+        a.inter, a.steps, a.taken = (inter.data_ptr(), steps.data_ptr(),
+                                     taken.data_ptr())
         _build.check(_build.library().dr_shear_warp_fwd(
-            ctypes.byref(a), dev.index or 0, _build.stream_of(slabs)), "K8")
+            ctypes.byref(a), dev.index or 0, _build.stream_of(layers)), "K8")
         leaf = inter.clone().requires_grad_(True)
-        img_w, _ = PF._warp_to_image(leaf, ext, lf, cfg, perm, sign)
+        img_w, _ = PF._warp_to_image(leaf, ext, lf_s, cfg_s, perm, sign)
         g_inter, = torch.autograd.grad(torch.mean(img_w ** 2), leaf)
-        return slabs, geom, a, inter, steps, g_inter.contiguous()
+        a.steps = a.taken = None
+        return layers, geom, a, inter, steps, taken, g_inter.contiguous()
 
-    def texels_needed(geom, steps, X, Y):
-        """The (plane, texel) pairs whose slab values a march needs: the
-        taps of non-zero weight of every sample it takes (pixel (r, o)
-        marches planes [0, steps[r, o])), each counted once."""
-        lx, ly, lz = geom.lf.unbind(0)
-        n = 0
-        for s0 in range(0, int(steps.max()), 32):
-            zw = geom.zws[s0:s0 + 32]
-            B = zw.shape[0]
-            sz = (zw - lz) / (0.0 - lz)
-            tx = SW._lerp_taps(
-                (lx + sz[:, None] * (geom.ga[None] - lx) + 1.0) * geom.xsc, X)
-            ty = SW._lerp_taps(
-                (ly + sz[:, None] * (geom.gb[None] - ly) + 1.0) * geom.ysc, Y)
-            alive = steps[None] > torch.arange(s0, s0 + B, device=dev)[
-                :, None, None]
-            need = torch.zeros(B * X * Y, dtype=torch.bool, device=dev)
-            for ix, wx in ((tx[0], tx[2]), (tx[1], tx[3])):
-                for iy, wy in ((ty[0], ty[2]), (ty[1], ty[3])):
-                    b, r, o = (alive & (wx != 0)[:, :, None]
-                               & (wy != 0)[:, None, :]).nonzero(as_tuple=True)
-                    need[(b * X + ix[b, r]) * Y + iy[b, o]] = True
-            n += int(need.sum())
-        return n
+    def march_work(geom, stop, X, Y, Z):
+        """What a march that stops at the planes ``stop`` needs, from the
+        geometry alone (never from a kernel's counter): per pixel, its
+        in-footprint samples (plane s where both crossings lie inside and
+        s < stop); the slab texels their taps of non-zero weight read and
+        the voxel-layer texels those are z-lerped from (weight not 0), each
+        counted once.  Returns (samples per pixel, slab texels, layer
+        texels)."""
+        x_in, y_in = SW.footprint(geom, X, Y)
+        _, src_x, src_y = SW._sources(geom, geom.zws)
+        tx, ty = SW._lerp_taps(src_x, X), SW._lerp_taps(src_y, Y)
+        zlo, zhi = geom.zlo.tolist(), geom.zhi.tolist()
+        fz = geom.fz.tolist()
+        per_pixel = torch.zeros(stop.shape, dtype=torch.int64, device=dev)
+        layer = torch.zeros((Z, X * Y), dtype=torch.bool, device=dev)
+        slab_texels = 0
+
+        def taps_matrix(t, n, size):
+            """(B, n, size): 1 where a row (column) reads a texel with a
+            weight that is not 0."""
+            m = torch.zeros((t[0].shape[0], n, size), device=dev)
+            m.scatter_add_(2, t[0][..., None], (t[2] != 0).float()[..., None])
+            m.scatter_add_(2, t[1][..., None], (t[3] != 0).float()[..., None])
+            return (m > 0).float()
+
+        for s0 in range(0, int(stop.max()), 16):
+            sl = slice(s0, min(s0 + 16, geom.zws.numel()))
+            B = sl.stop - s0
+            live = ((stop[None] > torch.arange(s0, sl.stop, device=dev)[
+                :, None, None]) & x_in[sl][:, :, None] & y_in[sl][:, None, :])
+            per_pixel += live.sum(0)
+            ax = taps_matrix([t[sl] for t in tx], stop.shape[0], X)
+            ay = taps_matrix([t[sl] for t in ty], stop.shape[1], Y)
+            need = torch.bmm(torch.bmm(ax.transpose(1, 2), live.float()),
+                             ay).reshape(B, X * Y) > 0
+            slab_texels += int(need.sum())
+            for j in range(B):
+                layer[zlo[s0 + j]] |= need[j]
+                if fz[s0 + j] != 0.0:
+                    layer[zhi[s0 + j]] |= need[j]
+        return per_pixel, slab_texels, int(layer.sum())
+
+    def k8_k9_bounds(geom, steps, g_inter, X, Y, Z, O_s):
+        """K8's and K9's bounds at a view: operations over the in-footprint
+        samples before each pixel's stop plane (K9: of the pixels whose
+        cotangent is not 0) and the z-lerp of each needed slab texel; bytes
+        of the layer texels those need, each read once (K9 also writes
+        d_layers once on them), the exponent, the TF and the image (K9 also
+        its cotangent)."""
+        per_px, slab_tx, layer_tx = march_work(geom, steps, X, Y, Z)
+        live_g = (g_inter != 0).any(-1)
+        per_px_b, slab_tx_b, layer_tx_b = march_work(
+            geom, torch.where(live_g, steps, 0), X, Y, Z)
+        samples, samples_b = int(per_px.sum()), int(per_px_b.sum())
+        b8 = bound(layer_tx * 16 + O_s * O_s * (4 + 16) + R * 16,
+                   samples * SW_SAMPLE_OPS + slab_tx * SW_ZLERP_OPS)
+        b9 = bound(layer_tx_b * 2 * 16 + O_s * O_s * (4 + 2 * 16) + R * 32,
+                   samples_b * SW_BWD_SAMPLE_OPS + slab_tx_b * SW_ZLERP_OPS)
+        work = {"samples_in_footprint": samples,
+                "samples_in_footprint_bwd": samples_b,
+                "slab_texels_needed": slab_tx,
+                "slab_texels_needed_bwd": slab_tx_b,
+                "layer_texels_needed": layer_tx,
+                "layer_texels_needed_bwd": layer_tx_b,
+                # Every plane before the stop plane, in the footprint
+                # or not.
+                "samples_before_stop": int(steps.sum()),
+                "samples_before_stop_bwd": int(
+                    torch.where(live_g, steps, 0).sum())}
+        return b8, b9, per_px, work
 
     for scene in ("noise", "ct_phantom"):
         vol_i = user_to_internal(scenes[scene])
@@ -2949,6 +3011,9 @@ def main() -> int:
         torch.set_float32_matmul_precision(old[1])
         require(torch.equal(tf32_img, out.image),
                 "render_fast's image changes with TF32 allowed")
+        # The step's own peak: what it allocates above what lies allocated
+        # before it (the scenes, earlier phases' caches).
+        base_f = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         P.reset_launch_counts()
         _, dv_k, dt_k = fast_step(P.render_fast, vol_i)
@@ -2983,41 +3048,42 @@ def main() -> int:
             lambda: fast_fwd(P.render_fast, vol_i),
             lambda: P.render_nondiff(vol_i, tf_i, lf, cfg), 3)
         # K8 and K9 by CUDA events around their C entries at the bench
-        # view's inputs (K8 without its steps output, as its wrapper calls
-        # it), K9 with the step's own cotangent; the bounds count the
-        # samples K8 marched and the slab texels they need (for K9, those of
-        # pixels whose cotangent is not 0).
-        slabs, geom, a, inter, steps, g_inter = march_args(vol_i)
-        S, X, Y = slabs.shape[:3]
-        stream = _build.stream_of(slabs)
-        a.steps = None
+        # view's inputs (without the counters, as the wrappers call them),
+        # K9 with the step's own cotangent; K8's samples taken equal the
+        # in-footprint samples before each pixel's stop plane, counted from
+        # the geometry; K9's restarts.
+        layers, geom, a, inter, steps, taken, g_inter = march_args(vol_i)
+        Z, X, Y = layers.shape[:3]
+        S = geom.zws.numel()
+        stream = _build.stream_of(layers)
         k8_ms = launch_ms(lambda: _build.library().dr_shear_warp_fwd(
             ctypes.byref(a), dev.index or 0, stream), reps=10, per_pair=10)
-        d_sl = torch.zeros_like(slabs)
+        d_L = torch.zeros_like(layers)
         d_tf = torch.zeros_like(tf_i)
-        a.grad, a.d_slabs, a.d_tf = (g_inter.data_ptr(), d_sl.data_ptr(),
-                                     d_tf.data_ptr())
+        restarts = torch.zeros((O_fast, O_fast), dtype=torch.int32,
+                               device=dev)
+        a.grad, a.d_layers, a.d_tf, a.restarts = (
+            g_inter.data_ptr(), d_L.data_ptr(), d_tf.data_ptr(),
+            restarts.data_ptr())
+        _build.check(_build.library().dr_shear_warp_bwd(
+            ctypes.byref(a), dev.index or 0, stream), "K9")
+        sync()
+        n_restarts = int(restarts.sum())
+        a.restarts = None
         k9_ms = launch_ms(lambda: _build.library().dr_shear_warp_bwd(
             ctypes.byref(a), dev.index or 0, stream), reps=5, per_pair=4)
-        samples = int(steps.sum())
-        steps_bwd = torch.where((g_inter != 0).any(-1), steps, 0)
-        samples_bwd = int(steps_bwd.sum())
-        texels = texels_needed(geom, steps, X, Y)
-        texels_bwd = texels_needed(geom, steps_bwd, X, Y)
+        b8, b9, per_px, work = k8_k9_bounds(geom, steps, g_inter, X, Y, Z,
+                                            O_fast)
+        require(torch.equal(taken.long(), per_px),
+                f"K8's samples taken on {scene}: {int(taken.sum())}, the "
+                f"in-footprint samples before the stop planes "
+                f"{int(per_px.sum())}")
         with torch.no_grad():
             k8_plain_ms = host_ms(
-                lambda: SW.shear_warp_march_plain(slabs, tf_i, geom), 1)
+                lambda: SW.shear_warp_march_plain(layers, tf_i, geom), 1)
         k9_plain_ms = host_ms(
-            lambda: SW.shear_warp_bwd_plain(slabs, tf_i, geom, g_inter), 1)
-        # Bytes: K8 reads the texels it needs, the exponent and the TF and
-        # writes the image; K9 also reads the image and its cotangent, and
-        # writes d_slabs once on its texels (zeroed before the launch) and
-        # d_tf.
-        b8 = bound(texels * 16 + O_fast * O_fast * (4 + 16) + R * 16,
-                   samples * SW_SAMPLE_OPS)
-        b9 = bound(texels_bwd * 2 * 16 + O_fast * O_fast * (4 + 2 * 16)
-                   + R * 32, samples_bwd * SW_BWD_SAMPLE_OPS)
-        del slabs, geom, a, inter, g_inter, d_sl, d_tf
+            lambda: SW.shear_warp_bwd_plain(layers, tf_i, geom, g_inter), 1)
+        del layers, geom, a, inter, g_inter, d_L, d_tf, restarts, per_px
         # A strip of K8 (rows [O/4, O/2)) is the whole image's rows.
         with torch.no_grad():
             args = (vol_i, tf_i, lf, cfg, O_fast, ppv, 32,
@@ -3041,20 +3107,39 @@ def main() -> int:
             "grad_rel_err_d_volume_d_tf": errs, "fwd_ms": fwd_ms,
             "plain_fwd_ms": plain_fwd_ms, "grad_step_ms": step_ms,
             "plain_grad_step_ms": plain_step_ms, "grad_peak_bytes": peak_f,
+            "grad_step_own_peak_bytes": peak_f - base_f,
             "k8_ms": k8_ms, "k8_plain_ms": k8_plain_ms,
             "k8_bound_ms": b8[0], "k8_bound_by": b8[1],
             "k9_ms": k9_ms, "k9_plain_ms": k9_plain_ms,
             "k9_bound_ms": b9[0], "k9_bound_by": b9[1],
-            "planes": S, "samples_marched": samples,
-            "samples_marched_bwd": samples_bwd, "texels_needed": texels,
-            "texels_needed_bwd": texels_bwd, "slab_stack_texels": S * X * Y,
+            "planes": S, "k8_taken": int(taken.sum()),
+            "k8_taken_equals_footprint": True, "k9_restarts": n_restarts,
+            "samples_all_planes": S * O_fast * O_fast, **work,
+            "layer_texels": Z * X * Y,
             "vs_k3": {"render_fast_ms": fast_ms,
                       "render_nondiff_ms": k3_ms, "sampling_rate": 4.0},
             "ssim_vs_render": float(P.ssim(out.image.permute(2, 0, 1),
                                            exact.permute(2, 0, 1))),
             "choose_fast_params": P.choose_fast_params(vol_i, tf_i, lf,
                                                        cfg)}
-        del out, plain, exact
+        del out, plain, exact, steps, taken
+    # Few pixels per texel (O = 128 against X = 256: a warp's taps spread
+    # over 4 texels a pixel): the forward and the step against the plain
+    # version.
+    vol_i = user_to_internal(scenes["noise"])
+    out_k, dv_k, dt_k = fast_step(P.render_fast, vol_i, O_s=128)
+    out_p, dv_p, dt_p = fast_step(P.render_fast_plain, vol_i, slab_batch=2,
+                                  O_s=128)
+    e_small_o = float((out_k.image - out_p.image).detach().abs().max())
+    require(e_small_o <= 1e-5 and torch.equal(out_k.hit, out_p.hit),
+            f"render_fast at O = 128: {e_small_o} from the plain")
+    fast["intermediate_128"] = {
+        "max_abs_err_vs_plain": e_small_o,
+        "grad_rel_err_d_volume_d_tf": grads_close(
+            (dv_k, dt_k), (dv_p, dt_p), "render_fast at O = 128")}
+    kernels["shear_warp_fwd"]["max_abs_err"] = max(
+        kernels["shear_warp_fwd"]["max_abs_err"], e_small_o)
+    del vol_i, out_k, dv_k, dt_k, out_p, dv_p, dt_p
     # Small cases at 64^3, O = 96, each against the plain version: a TF
     # whose alpha reaches exactly 1 (f = 0 at the last sample of a pixel)
     # and 4 planes per voxel (the opacity correction's exponent below 1).
@@ -3120,23 +3205,34 @@ def main() -> int:
             lambda: rc_v.raycast_fast(vol_user, tf_user, lf_v),
             lambda: rc_v.raycast_nondiff(vol_user, tf_user, lf_v,
                                          sampling_rate=v_sr), 3)
-        # K8 alone at the viewer's intermediate image.
+        # K8 alone at the viewer's intermediate image: its samples taken
+        # against the footprint, its bound and the plain march's time.
         vol_v = P.volume_to_internal(vol_user[0]).contiguous()
-        ch, lf_f, light_f, _, _ = PF._frame(vol_v, lf_v)
-        slabs, geom, _ = PF._slab_inputs(ch, lf_f, light_f, rc_v.config,
-                                         1024, 2.0)
-        a = SW._args(slabs, tf_i, geom)
-        inter = torch.empty((1024, 1024, 4), device=dev)
-        a.inter = inter.data_ptr()
+        layers, geom, a, inter, steps, taken, g_v = march_args(
+            vol_v, 1024, lf_v, rc_v.config, tf_i)
+        Z, X, Y = layers.shape[:3]
         k8_v_ms = launch_ms(lambda: _build.library().dr_shear_warp_fwd(
-            ctypes.byref(a), dev.index or 0, _build.stream_of(slabs)),
+            ctypes.byref(a), dev.index or 0, _build.stream_of(layers)),
             reps=10, per_pair=10)
+        b8_v, _, per_px, work_v = k8_k9_bounds(geom, steps, g_v, X, Y, Z,
+                                               1024)
+        require(torch.equal(taken.long(), per_px),
+                f"K8's samples taken at the viewer on {scene}: "
+                f"{int(taken.sum())}, the in-footprint samples before the "
+                f"stop planes {int(per_px.sum())}")
+        with torch.no_grad():
+            k8_v_plain_ms = host_ms(
+                lambda: SW.shear_warp_march_plain(layers, tf_i, geom), 1)
         fast[f"viewer_{scene}"] = {
             "launches": c_v, "intermediate": 1024, "planes_per_voxel": 2.0,
             "ssim_vs_raycast_nondiff": float(P.ssim(sw, exact)),
             "raycast_fast_ms": sw_ms, "raycast_nondiff_ms": nd_ms,
-            "k8_ms": k8_v_ms}
-        del sw, exact, slabs, geom, a, inter, ch
+            "k8_ms": k8_v_ms, "k8_plain_ms": k8_v_plain_ms,
+            "k8_bound_ms": b8_v[0], "k8_bound_by": b8_v[1],
+            "k8_taken": int(taken.sum()), "k8_taken_equals_footprint": True,
+            "samples_all_planes": geom.zws.numel() * 1024 * 1024,
+            **{k: v for k, v in work_v.items() if not k.endswith("_bwd")}}
+        del sw, exact, layers, geom, a, inter, steps, taken, g_v, per_px
     emit({"phase": "fastpath", "cases": fast, "volume": res, "image": img,
           "intermediate": O_fast, "planes_per_voxel": ppv,
           "k0b_dot_mask_max_abs_err": mask_err,

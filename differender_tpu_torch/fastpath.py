@@ -30,21 +30,27 @@ product goes through a matrix multiply or a convolution, so neither the
 ``precision`` argument (kept for the JAX package's signature) nor PyTorch's
 TF32 flags change the image.
 
-Where it runs.  Steps 1, 2's z-lerp of each plane from its two voxel layers
-(the slab stack, ``(S, X, Y, 4)`` channels last), the grid, the per-pixel
-exponent and step 4 are torch operations.  The march itself, steps 2 to 3
-per plane, is :func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march`:
-on CUDA tensors one launch of kernel K8 ``shear_warp_fwd``, one thread per
-intermediate pixel walking every plane and stopping at its own gate, and in
-the backward one launch of K9 ``shear_warp_bwd``, which marches again and
-keeps no tape, so no host sync runs inside the march and the backward
-holds the slab stack, the TF and the (O, O, 4) image.  On CPU tensors it is
+Where it runs.  Steps 1, the grid, the per-pixel exponent, the voxel
+layers (the channels permuted to ``(Z, X, Y, 4)``, channels last) and step
+4 are torch operations.  The march itself, steps 2 to 3 per plane with
+the z-lerp of each plane from its two voxel layers, is
+:func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march`: on CUDA
+tensors one launch of kernel K8 ``shear_warp_fwd`` and, in the backward,
+one launch of K9 ``shear_warp_bwd``, which marches again, keeps no tape
+and returns the layers' gradient.  Both kernels lerp each plane from the
+layers themselves, so no ``(S, X, Y, 4)`` slab stack (537 MB at 256^3
+and 512 planes) is built or differentiated; each pixel marches only the
+planes where its ray crosses the volume's footprint (a sample outside it
+has coverage 0 and is an exact no-op), up to its own gate.  No host sync
+runs inside the march, and the backward holds the layers, the TF and the
+(O, O, 4) image.  On CPU tensors it is
 the plain version, the same arithmetic as chunks of ``slab_batch`` planes
-of torch operations (by default 32, where the JAX package takes 2: each
-chunk is about a hundred launches on the card, whatever its length): the
-march stops at the first chunk where no pixel is alive (a host sync), and
-under autograd each chunk runs inside ``torch.utils.checkpoint`` (the JAX
-package's ``jax.checkpoint``).
+of torch operations over every plane (by default 32, where the JAX
+package takes 2: each chunk is about a hundred launches on the card,
+whatever its length): the march stops at the first chunk where no pixel
+is alive (a host sync), and under autograd each chunk, z-lerp included,
+runs inside ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint``).
 
 The two powers of the shading (the opacity correction's exponent, below 1
 at more than about 3.5 planes per voxel, and the specular shininess) have
@@ -122,11 +128,11 @@ def _slab_planes(n_planes: int, Z: int):
 def _slab_inputs(channels, lf, light, config: RenderConfig,
                  intermediate: int, planes_per_voxel: float,
                  row_offset: int = 0, n_rows: Optional[int] = None):
-    """The slab stack and the march's geometry with the LAST axis as
+    """The voxel layers and the march's geometry with the LAST axis as
     principal and the camera on its negative side: ``channels`` (4, X, Y,
     Z) already permuted and flipped, ``lf`` and ``light`` in that frame.
-    Returns ``(slabs, geom, extents)``: the stack ``(S, X, Y, 4)`` (each
-    plane z-lerped from its two voxel layers, channels last), the
+    Returns ``(layers, geom, extents)``: the layers ``(Z, X, Y, 4)``
+    (channels last; the march z-lerps each plane from two of them), the
     :class:`~differender_tpu_torch.ops.shear_warp.SlabGeometry` of the
     intermediate rows ``[row_offset, row_offset + n_rows)`` (default all
     O) and the grid's extents ``(x0, y0, dx, dy)``."""
@@ -162,20 +168,20 @@ def _slab_inputs(channels, lf, light, config: RenderConfig,
                 * float(np.float32(config.vol_diag)))
 
     zws, zlo, zhi, fz = _slab_planes(n_planes, Z)
-    fz_t = torch.from_numpy(fz).to(dev)[:, None, None, None]
     layers = channels.permute(3, 1, 2, 0).contiguous()      # (Z, X, Y, 4)
-    slabs = (torch.index_select(layers, 0, torch.from_numpy(zlo).to(dev))
-             * (1.0 - fz_t)
-             + torch.index_select(layers, 0, torch.from_numpy(zhi).to(dev))
-             * fz_t)                                       # (S, X, Y, 4)
+
+    def dev_t(a):
+        return torch.from_numpy(a).to(dev)
+
     geom = SlabGeometry(
-        ga=ga, gb=gb, zws=torch.from_numpy(zws).to(dev), exponent=exponent,
+        ga=ga, gb=gb, zws=dev_t(zws), zlo=dev_t(zlo.astype(np.int32)),
+        zhi=dev_t(zhi.astype(np.int32)), fz=dev_t(fz), exponent=exponent,
         lf=lf, light=light, xsc=float(np.float32(0.5 * (X - 1))),
         ysc=float(np.float32(0.5 * (Y - 1))),
         thr=float(np.float32(1.0 - config.ert_threshold)),
         ambient=config.ambient, diffuse=config.diffuse,
         specular=config.specular, shininess=config.shininess)
-    return slabs, geom, (x0, y0, dx, dy)
+    return layers, geom, (x0, y0, dx, dy)
 
 
 def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
@@ -184,21 +190,22 @@ def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
     """The intermediate rows ``[row_offset, row_offset + n_rows)`` (default
     all O) of the slab frame (:func:`_slab_inputs`): each row's pixels are
     computed as in the whole image, so strips join into it bit for bit
-    (:func:`render_fast_sharded`).  ``march(slabs, tf, geom, slab_batch)``
+    (:func:`render_fast_sharded`).  ``march(layers, tf, geom, slab_batch)``
     is :func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march` (K8
     and K9 on CUDA tensors) or :func:`_march_plain`.  Returns the
     intermediate RGBA
     ``(n_rows, O, 4)`` and the grid's extents ``(x0, y0, dx, dy)``."""
-    slabs, geom, extents = _slab_inputs(channels, lf, light, config,
-                                        intermediate, planes_per_voxel,
-                                        row_offset, n_rows)
-    return march(slabs, tf, geom, slab_batch), extents
+    layers, geom, extents = _slab_inputs(channels, lf, light, config,
+                                         intermediate, planes_per_voxel,
+                                         row_offset, n_rows)
+    return march(layers, tf, geom, slab_batch), extents
 
 
-def _march_plain(slabs, tf, geom: SlabGeometry, slab_batch: int):
+def _march_plain(layers, tf, geom: SlabGeometry, slab_batch: int):
     """:func:`render_fast_plain`'s march: the plain chunk loop, classified
     by :func:`~differender_tpu_torch.sampling.apply_tf_dot`."""
-    return shear_warp_march_plain(slabs, tf, geom, apply_tf_dot, slab_batch)
+    return shear_warp_march_plain(layers, tf, geom, apply_tf_dot,
+                                  slab_batch)
 
 
 def _warp_to_image(inter, extents, look_from, config: RenderConfig, perm,
@@ -324,8 +331,9 @@ def render_fast(volume: torch.Tensor, tf: torch.Tensor, look_from,
             package's TPU-only knobs are; the image does not depend on it.
     Runs where ``volume`` lives.  On CUDA tensors the slab march is one
     launch of kernel K8 ``shear_warp_fwd`` and its gradient one launch of
-    K9 ``shear_warp_bwd``, with no host sync inside the march; the gradient
-    volume, the slab stack's z-lerp, the grid and the warp are torch
+    K9 ``shear_warp_bwd``, with no host sync inside the march (the z-lerp
+    of each plane from two voxel layers is inside both); the gradient
+    volume, the layers' permute, the grid and the warp are torch
     operations.  On CPU tensors the march is the plain chunk loop, which
     classifies through ``tf_lookup(mask="dot")``'s plain versions.
     Differentiable in ``volume`` and ``tf``.

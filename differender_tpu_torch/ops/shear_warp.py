@@ -2,18 +2,21 @@
 ``shear_warp_bwd`` in ``csrc/shear_warp.cu`` (counterpart of the slab scan
 in ``differender_tpu/fastpath.py::_core``).
 
-The march takes the z-lerped slab stack ``(S, X, Y, 4)`` (each plane's
-intensity and gradient, channels last) and the TF, with the geometry of
-:class:`SlabGeometry`, and returns the intermediate image ``(rows, O, 4)``:
-per pixel, front to back over the planes, the separable 2-tap resample,
-the TF lookup, the headlight shading with the per-pixel opacity correction,
-the footprint coverage and the composite under the early-ray-termination
-gate.  :func:`shear_warp_march` is differentiable in the slab stack and
-the TF (the geometry is the camera's, held fixed).  On CUDA tensors its
-forward is one K8 launch and its backward one K9 launch, which recomputes
-the march and keeps no tape; on CPU tensors it is
-:func:`shear_warp_march_plain`, the same arithmetic as chunks of torch
-operations, under autograd.
+The march takes the volume's voxel layers ``(Z, X, Y, 4)`` along the
+principal axis (intensity and gradient, channels last) and the TF, with the
+geometry of :class:`SlabGeometry`, and returns the intermediate image
+``(rows, O, 4)``: per pixel, front to back over the planes, the plane's
+z-lerp of its two layers, the separable 2-tap resample, the TF lookup, the
+headlight shading with the per-pixel opacity correction, the footprint
+coverage and the composite under the early-ray-termination gate.
+:func:`shear_warp_march` is differentiable in the layers and the TF (the
+geometry is the camera's, held fixed).  On CUDA tensors its forward is one
+K8 launch and its backward one K9 launch, which recomputes the march, keeps
+no tape and returns the layers' gradient directly; both march only the
+planes where each pixel's ray crosses the volume's footprint
+(:func:`footprint`).  On CPU tensors it is :func:`shear_warp_march_plain`,
+the same arithmetic as chunks of torch operations over every plane, under
+autograd.
 """
 from __future__ import annotations
 
@@ -31,10 +34,14 @@ from .tf_lookup import tf_lookup
 
 class SlabGeometry(NamedTuple):
     """The march's geometry in the slab frame (the camera on the negative
-    side of the last axis), none of it differentiated."""
+    side of the last axis), none of it differentiated.  Plane ``s`` is the
+    lerp ``layers[zlo[s]] * (1 - fz[s]) + layers[zhi[s]] * fz[s]``."""
     ga: torch.Tensor        # (rows,) the intermediate grid's x of each row
     gb: torch.Tensor        # (O,) its y of each column
     zws: torch.Tensor       # (S,) each plane's z
+    zlo: torch.Tensor       # (S,) int32: each plane's lower voxel layer
+    zhi: torch.Tensor       # (S,) int32: its upper layer, min(zlo + 1, Z - 1)
+    fz: torch.Tensor        # (S,) the upper layer's lerp weight
     exponent: torch.Tensor  # (rows, O) the opacity correction's exponent
     lf: torch.Tensor        # (3,) the camera
     light: torch.Tensor     # (3,) the headlight
@@ -47,6 +54,34 @@ class SlabGeometry(NamedTuple):
     shininess: float
 
 
+def _sources(geom: SlabGeometry, zw: torch.Tensor):
+    """The planes ``zw`` ``(B,)``: their scale about the camera ``sz`` and
+    the voxel coordinates of each row's and each column's crossing,
+    ``(B, rows)`` and ``(B, O)``, each operation rounded once as the
+    kernels round it."""
+    lx, ly, lz = geom.lf.unbind(0)
+    sz = (zw - lz) / (0.0 - lz)
+    src_x = (lx + sz[:, None] * (geom.ga[None] - lx) + 1.0) * geom.xsc
+    src_y = (ly + sz[:, None] * (geom.gb[None] - ly) + 1.0) * geom.ysc
+    return sz, src_x, src_y
+
+
+def _inside(src: torch.Tensor, size: int) -> torch.Tensor:
+    return (src >= 0.0) & (src <= size - 1.0)
+
+
+def footprint(geom: SlabGeometry, X: int, Y: int):
+    """Where the samples have coverage: ``(x_in (S, rows), y_in (S, O))``,
+    bool, each row's and each column's crossing of each plane inside ``[0,
+    X - 1]`` and ``[0, Y - 1]`` (the weights of :func:`_lerp_taps` not 0).
+    Pixel ``(r, o)`` has a non-zero coverage on plane ``s`` exactly where
+    ``x_in[s, r] & y_in[s, o]``; every other sample is an exact no-op.
+    Each column of ``x_in`` and ``y_in`` is one run of planes, which the
+    kernels find by binary search."""
+    _, src_x, src_y = _sources(geom, geom.zws)
+    return _inside(src_x, X), _inside(src_y, Y)
+
+
 def _lerp_taps(src: torch.Tensor, size: int):
     """The two taps of a 1-D linear resample at positions ``src`` (voxel
     coordinates) along an axis of ``size`` voxels: indices ``lo``,
@@ -55,7 +90,7 @@ def _lerp_taps(src: torch.Tensor, size: int):
     JAX package's ``_interp_matrix``)."""
     lo_f = torch.floor(src)
     frac = src - lo_f
-    inside = (src >= 0.0) & (src <= size - 1.0)
+    inside = _inside(src, size)
     lo = torch.clamp(lo_f, 0.0, size - 1.0).to(torch.int64)
     hi = torch.clamp(lo + 1, max=size - 1)
     zero = src.new_zeros(())
@@ -136,40 +171,48 @@ def _shade(rgba, g, px, py, pz, lf, light, exponent, shininess, coverage,
     return rgb, alpha
 
 
-def shear_warp_march_plain(slabs: torch.Tensor, tf: torch.Tensor,
+def shear_warp_march_plain(layers: torch.Tensor, tf: torch.Tensor,
                            geom: SlabGeometry, classify=apply_tf_dot,
                            slab_batch: int = 32) -> torch.Tensor:
     """Plain torch version of K8 (and, under autograd, of K9): the
-    intermediate image ``(rows, O, 4)`` of the slab stack ``slabs``
-    ``(S, X, Y, 4)``, classified by ``classify(tf, intensity)``.
+    intermediate image ``(rows, O, 4)`` of the voxel layers ``layers``
+    ``(Z, X, Y, 4)``, classified by ``classify(tf, intensity)``.
 
     The planes go ``slab_batch`` at a time ("chunks"): per chunk the
-    resample, classify and shading are batched torch operations and the
-    composite a loop over the chunk's planes.  The march stops at the first
-    chunk where no pixel passes the gate (a host sync on the card).  Under
-    autograd each chunk runs inside ``torch.utils.checkpoint``, so the
-    backward holds one chunk's tensors at a time.  The image does not
-    depend on ``slab_batch``."""
-    S, X, Y, _ = slabs.shape
-    dev = slabs.device
+    z-lerp of each plane from its two layers, the resample, classify and
+    shading are batched torch operations and the composite a loop over the
+    chunk's planes; it marches every plane, in the footprint or not.  The
+    march stops at the first chunk where no pixel passes the gate (a host
+    sync on the card).  Under autograd each chunk runs inside
+    ``torch.utils.checkpoint``, z-lerp included, so the backward holds one
+    chunk's tensors at a time.  The image does not depend on
+    ``slab_batch``."""
+    _, X, Y, _ = layers.shape
+    S = geom.zws.numel()
+    dev = layers.device
     lx, ly, lz = geom.lf.unbind(0)
     ga, gb, exponent = geom.ga, geom.gb, geom.exponent
     rows, O = ga.shape[0], gb.shape[0]
     B = max(1, int(slab_batch))
     n_chunks = -(-S // B)
     pad = n_chunks * B - S
-    zws_c = torch.cat([geom.zws, geom.zws.new_ones(pad)]).reshape(n_chunks,
-                                                                  B)
-    valid_c = torch.cat([geom.zws.new_ones(S),
-                         geom.zws.new_zeros(pad)]).reshape(n_chunks, B)
+
+    def chunks(t, fill):
+        return torch.cat([t, t.new_full((pad,), fill)]).reshape(n_chunks, B)
+
+    # The padding planes take layer 0 and a coverage of 0: no-ops.
+    zws_c, zlo_c, zhi_c, fz_c = (chunks(geom.zws, 1.0), chunks(geom.zlo, 0),
+                                 chunks(geom.zhi, 0), chunks(geom.fz, 0.0))
+    valid_c = chunks(geom.zws.new_ones(S), 0.0)
     # Made once: a host-to-device copy waits for the stream.
     shininess = torch.tensor(float(geom.shininess), device=dev)
     thr = geom.thr
 
-    def chunk(acc, T, slab, zw, vmask):
-        sz = (zw - lz) / (0.0 - lz)                             # (B,)
-        src_x = (lx + sz[:, None] * (ga[None] - lx) + 1.0) * geom.xsc
-        src_y = (ly + sz[:, None] * (gb[None] - ly) + 1.0) * geom.ysc
+    def chunk(acc, T, layers, zlo, zhi, fz, zw, vmask):
+        fz4 = fz[:, None, None, None]
+        slab = (torch.index_select(layers, 0, zlo) * (1.0 - fz4)
+                + torch.index_select(layers, 0, zhi) * fz4)    # (B, X, Y, 4)
+        sz, src_x, src_y = _sources(geom, zw)
         taps_x = _lerp_taps(src_x, X)
         taps_y = _lerp_taps(src_y, Y)
         res = _resample(slab.permute(0, 3, 1, 2), taps_x, taps_y)
@@ -193,34 +236,32 @@ def shear_warp_march_plain(slabs: torch.Tensor, tf: torch.Tensor,
             T = torch.where(active, T * (1.0 - alpha[m]), T)
         return acc, T
 
-    grad = torch.is_grad_enabled() and (slabs.requires_grad
+    grad = torch.is_grad_enabled() and (layers.requires_grad
                                         or tf.requires_grad)
     acc = torch.zeros((rows, O, 3), dtype=torch.float32, device=dev)
     T = torch.ones((rows, O), dtype=torch.float32, device=dev)
-    for c, slab in enumerate(slabs.split(B)):
+    for c in range(n_chunks):
         if c and not bool((T > thr).any()):
             break
-        if slab.shape[0] < B:
-            slab = torch.cat([slab, slab.new_zeros(
-                (B - slab.shape[0],) + tuple(slab.shape[1:]))])
+        args = (acc, T, layers, zlo_c[c], zhi_c[c], fz_c[c], zws_c[c],
+                valid_c[c])
         if grad:
-            acc, T = checkpoint(chunk, acc, T, slab, zws_c[c], valid_c[c],
-                                use_reentrant=False)
+            acc, T = checkpoint(chunk, *args, use_reentrant=False)
         else:
-            acc, T = chunk(acc, T, slab, zws_c[c], valid_c[c])
+            acc, T = chunk(*args)
     return torch.cat([acc, (1.0 - T)[..., None]], -1)
 
 
-def shear_warp_bwd_plain(slabs: torch.Tensor, tf: torch.Tensor,
+def shear_warp_bwd_plain(layers: torch.Tensor, tf: torch.Tensor,
                          geom: SlabGeometry, grad: torch.Tensor,
                          classify=apply_tf_dot):
-    """Plain torch version of K9: ``(d_slabs, d_tf)``, autograd of
+    """Plain torch version of K9: ``(d_layers, d_tf)``, autograd of
     :func:`shear_warp_march_plain` for the image cotangent ``grad``."""
     with torch.enable_grad():
-        s = slabs.detach().requires_grad_(True)
+        lay = layers.detach().requires_grad_(True)
         t = tf.detach().requires_grad_(True)
-        inter = shear_warp_march_plain(s, t, geom, classify)
-        return torch.autograd.grad(inter, (s, t), grad, allow_unused=True)
+        inter = shear_warp_march_plain(lay, t, geom, classify)
+        return torch.autograd.grad(inter, (lay, t), grad, allow_unused=True)
 
 
 def _classify_dot(tf, intensity):
@@ -232,17 +273,18 @@ def _classify_dot(tf, intensity):
 class _ShearWarpArgs(ctypes.Structure):
     """Mirror of ``struct ShearWarpArgs`` in ``csrc/shear_warp.cu``."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "slabs", "tf", "ga", "gb", "zws", "exponent", "lf", "light", "inter",
-        "steps", "grad", "d_slabs", "d_tf")]
+        "layers", "tf", "ga", "gb", "zws", "zlo", "zhi", "fz", "exponent",
+        "lf", "light", "inter", "steps", "taken", "restarts", "grad",
+        "d_layers", "d_tf")]
         + [(f, ctypes.c_int) for f in ("S", "X", "Y", "rows", "O", "R")]
         + [(f, ctypes.c_float) for f in (
             "xsc", "ysc", "thr", "ambient", "diffuse", "specular",
             "shininess")])
 
 
-def _f32_on(name, t, dev, shape, aligned=False):
-    if t.device != dev or t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 on {dev}; got {t.dtype} on "
+def _on(name, t, dev, shape, dtype=torch.float32, aligned=False):
+    if t.device != dev or t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} on {dev}; got {t.dtype} on "
                         f"{t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}; got "
@@ -254,24 +296,34 @@ def _f32_on(name, t, dev, shape, aligned=False):
     return t.detach()
 
 
-def _args(slabs, tf, geom: SlabGeometry) -> _ShearWarpArgs:
+def _args(layers, tf, geom: SlabGeometry) -> _ShearWarpArgs:
     """The kernels' argument struct, after the wrapper's checks."""
-    dev = slabs.device
-    if slabs.ndim != 4 or slabs.shape[3] != 4 or slabs.shape[0] < 1:
-        raise ValueError(f"slabs must be (S, X, Y, 4); got "
-                         f"{tuple(slabs.shape)}")
+    dev = layers.device
+    if layers.ndim != 4 or layers.shape[3] != 4 or layers.shape[0] < 1:
+        raise ValueError(f"layers must be (Z, X, Y, 4); got "
+                         f"{tuple(layers.shape)}")
     if tf.ndim != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
         raise ValueError(f"tf must be (R, 4); got {tuple(tf.shape)}")
-    S, X, Y, _ = slabs.shape
+    _, X, Y, _ = layers.shape
+    S = geom.zws.numel()
     rows, O = geom.ga.numel(), geom.gb.numel()
+    if S < 1:
+        raise ValueError("the march needs at least one plane")
     a = _ShearWarpArgs()
-    for name, t, shape, aligned in (
-            ("slabs", slabs, slabs.shape, True), ("tf", tf, tf.shape, True),
-            ("ga", geom.ga, (rows,), False), ("gb", geom.gb, (O,), False),
-            ("zws", geom.zws, (S,), False),
-            ("exponent", geom.exponent, (rows, O), False),
-            ("lf", geom.lf, (3,), False), ("light", geom.light, (3,), False)):
-        setattr(a, name, _f32_on(name, t, dev, shape, aligned).data_ptr())
+    i32 = torch.int32
+    for name, t, shape, dtype, aligned in (
+            ("layers", layers, layers.shape, torch.float32, True),
+            ("tf", tf, tf.shape, torch.float32, True),
+            ("ga", geom.ga, (rows,), torch.float32, False),
+            ("gb", geom.gb, (O,), torch.float32, False),
+            ("zws", geom.zws, (S,), torch.float32, False),
+            ("zlo", geom.zlo, (S,), i32, False),
+            ("zhi", geom.zhi, (S,), i32, False),
+            ("fz", geom.fz, (S,), torch.float32, False),
+            ("exponent", geom.exponent, (rows, O), torch.float32, False),
+            ("lf", geom.lf, (3,), torch.float32, False),
+            ("light", geom.light, (3,), torch.float32, False)):
+        setattr(a, name, _on(name, t, dev, shape, dtype, aligned).data_ptr())
     a.S, a.X, a.Y, a.rows, a.O, a.R = S, X, Y, rows, O, tf.shape[0]
     for f in ("xsc", "ysc", "thr", "ambient", "diffuse", "specular",
               "shininess"):
@@ -279,21 +331,21 @@ def _args(slabs, tf, geom: SlabGeometry) -> _ShearWarpArgs:
     return a
 
 
-def shear_warp_fwd(slabs: torch.Tensor, tf: torch.Tensor,
+def shear_warp_fwd(layers: torch.Tensor, tf: torch.Tensor,
                    geom: SlabGeometry) -> torch.Tensor:
     """The forward: K8 on CUDA tensors (counted in
     ``shear_warp_fwd.launches``), :func:`shear_warp_march_plain` with
     :func:`_classify_dot` on CPU tensors.  Returns the intermediate image
     ``(rows, O, 4)``."""
-    if _build.uses_plain(slabs):
+    if _build.uses_plain(layers):
         with torch.no_grad():
-            return shear_warp_march_plain(slabs, tf, geom, _classify_dot)
-    a = _args(slabs, tf, geom)
+            return shear_warp_march_plain(layers, tf, geom, _classify_dot)
+    a = _args(layers, tf, geom)
     inter = torch.empty((a.rows, a.O, 4), dtype=torch.float32,
-                        device=slabs.device)
+                        device=layers.device)
     a.inter = inter.data_ptr()
     _build.check(_build.library().dr_shear_warp_fwd(
-        ctypes.byref(a), slabs.device.index, _build.stream_of(slabs)),
+        ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
         "shear_warp_fwd")
     shear_warp_fwd.launches += 1
     return inter
@@ -302,72 +354,75 @@ def shear_warp_fwd(slabs: torch.Tensor, tf: torch.Tensor,
 shear_warp_fwd.launches = 0
 
 
-def shear_warp_bwd(slabs: torch.Tensor, tf: torch.Tensor,
+def shear_warp_bwd(layers: torch.Tensor, tf: torch.Tensor,
                    geom: SlabGeometry, inter: torch.Tensor,
                    grad: torch.Tensor):
     """The backward for the cotangent ``grad`` of the intermediate image
     ``inter`` (K8's output on these inputs): K9 on CUDA tensors (counted in
     ``shear_warp_bwd.launches``), :func:`shear_warp_bwd_plain` with
-    :func:`_classify_dot` on CPU tensors.  Returns ``(d_slabs, d_tf)``.
+    :func:`_classify_dot` on CPU tensors.  Returns ``(d_layers, d_tf)``.
     Both are summed with f32 atomics, so their last bits vary from run to
     run."""
-    if _build.uses_plain(slabs):
-        return shear_warp_bwd_plain(slabs, tf, geom, grad, _classify_dot)
-    a = _args(slabs, tf, geom)
+    if _build.uses_plain(layers):
+        return shear_warp_bwd_plain(layers, tf, geom, grad, _classify_dot)
+    a = _args(layers, tf, geom)
     shape = (a.rows, a.O, 4)
-    a.inter = _f32_on("inter", inter, slabs.device, shape, True).data_ptr()
-    a.grad = _f32_on("grad", grad, slabs.device, shape, True).data_ptr()
-    d_slabs = torch.zeros_like(slabs)
+    a.inter = _on("inter", inter, layers.device, shape,
+                  aligned=True).data_ptr()
+    a.grad = _on("grad", grad, layers.device, shape, aligned=True).data_ptr()
+    d_layers = torch.zeros_like(layers)
     d_tf = torch.zeros_like(tf)
-    a.d_slabs, a.d_tf = d_slabs.data_ptr(), d_tf.data_ptr()
+    a.d_layers, a.d_tf = d_layers.data_ptr(), d_tf.data_ptr()
     _build.check(_build.library().dr_shear_warp_bwd(
-        ctypes.byref(a), slabs.device.index, _build.stream_of(slabs)),
+        ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
         "shear_warp_bwd")
     shear_warp_bwd.launches += 1
-    return d_slabs, d_tf
+    return d_layers, d_tf
 
 
 shear_warp_bwd.launches = 0
 
 
 class _ShearWarpMarch(torch.autograd.Function):
-    """K8 forward, K9 backward; saves the slab stack, the TF and the
-    image, and no per-sample tape."""
+    """K8 forward, K9 backward; saves the layers, the TF and the image, and
+    no per-sample tape."""
 
     @staticmethod
-    def forward(ctx, slabs, tf, geom):
-        inter = shear_warp_fwd(slabs, tf, geom)
-        ctx.save_for_backward(slabs, tf, inter)
+    def forward(ctx, layers, tf, geom):
+        inter = shear_warp_fwd(layers, tf, geom)
+        ctx.save_for_backward(layers, tf, inter)
         ctx.geom = geom
         return inter
 
     @staticmethod
     def backward(ctx, g):
-        slabs, tf, inter = ctx.saved_tensors
-        d_slabs, d_tf = shear_warp_bwd(slabs, tf, ctx.geom, inter,
-                                       g.contiguous())
-        need_slabs, need_tf, _ = ctx.needs_input_grad
-        return (d_slabs if need_slabs else None), \
+        layers, tf, inter = ctx.saved_tensors
+        d_layers, d_tf = shear_warp_bwd(layers, tf, ctx.geom, inter,
+                                        g.contiguous())
+        need_layers, need_tf, _ = ctx.needs_input_grad
+        return (d_layers if need_layers else None), \
             (d_tf if need_tf else None), None
 
 
-def shear_warp_march(slabs: torch.Tensor, tf: torch.Tensor,
+def shear_warp_march(layers: torch.Tensor, tf: torch.Tensor,
                      geom: SlabGeometry, slab_batch: int = 32
                      ) -> torch.Tensor:
-    """The intermediate image ``(rows, O, 4)`` of the slab stack ``slabs``
-    ``(S, X, Y, 4)`` f32 under ``tf`` ``(R, 4)``, differentiable in both.
-    On CUDA tensors one K8 launch forward and one K9 launch backward, on
-    PyTorch's current stream, with no host sync; ``slab_batch`` is ignored
-    there.  On CPU tensors :func:`shear_warp_march_plain`, classified by
-    :func:`_classify_dot`, in chunks of ``slab_batch``."""
-    if _build.uses_plain(slabs):
-        return shear_warp_march_plain(slabs, tf, geom, _classify_dot,
+    """The intermediate image ``(rows, O, 4)`` of the voxel layers
+    ``layers`` ``(Z, X, Y, 4)`` f32 under ``tf`` ``(R, 4)``,
+    differentiable in both.  On CUDA tensors one K8 launch forward and one
+    K9 launch backward, on PyTorch's current stream, with no host sync and
+    no slab stack; ``slab_batch`` is ignored there.  On CPU tensors
+    :func:`shear_warp_march_plain`, classified by :func:`_classify_dot`, in
+    chunks of ``slab_batch``."""
+    if _build.uses_plain(layers):
+        return shear_warp_march_plain(layers, tf, geom, _classify_dot,
                                       slab_batch)
     tf = tf.contiguous()
     if tf.data_ptr() % 16:
         tf = tf.clone()          # float4 loads need 16-byte alignment
-    return _ShearWarpMarch.apply(slabs.contiguous(), tf, geom)
+    return _ShearWarpMarch.apply(layers.contiguous(), tf, geom)
 
 
 __all__ = ["SlabGeometry", "shear_warp_march", "shear_warp_march_plain",
-           "shear_warp_bwd_plain", "shear_warp_fwd", "shear_warp_bwd"]
+           "shear_warp_bwd_plain", "shear_warp_fwd", "shear_warp_bwd",
+           "footprint"]

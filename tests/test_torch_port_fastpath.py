@@ -222,7 +222,7 @@ def _grad_check(vol, tf, lf, jcfg, cfg, ppv, seed):
                                                        want)]
 
 
-@pytest.mark.parametrize("view", ["-x"])
+@pytest.mark.parametrize("view", ["-x", "+y"])
 def test_render_fast_grads_match_jax(sphere, view):
     vol, tf = sphere
     jcfg, cfg = _cfgs(vol, hw=(12, 12))
