@@ -75,6 +75,7 @@ from .config import RenderConfig
 from .geometry import ray_aabb, ray_directions
 from .ops.shear_warp import (SlabGeometry, shear_warp_march,
                              shear_warp_march_plain)
+from .profiling import span
 from .sampling import apply_tf_dot
 
 # Axis permutations that bring the principal axis p to the last position.
@@ -143,9 +144,10 @@ def _slab_inputs(channels, lf, light, config: RenderConfig,
     lx, ly, lz = lf.unbind(0)
 
     # Intermediate grid: the volume corners' projections onto z = 0.
-    corners = torch.tensor([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
-                            for sz in (-1, 1)], dtype=torch.float32,
-                           device=dev)
+    with span("dr.sync"):
+        corners = torch.tensor([[sx, sy, sz] for sx in (-1, 1)
+                                for sy in (-1, 1) for sz in (-1, 1)],
+                               dtype=torch.float32, device=dev)
     t0 = -lz / (corners[:, 2] - lz)
     ax = lx + (corners[:, 0] - lx) * t0
     ay = ly + (corners[:, 1] - ly) * t0
@@ -171,7 +173,8 @@ def _slab_inputs(channels, lf, light, config: RenderConfig,
     layers = channels.permute(3, 1, 2, 0).contiguous()      # (Z, X, Y, 4)
 
     def dev_t(a):
-        return torch.from_numpy(a).to(dev)
+        with span("dr.sync"):
+            return torch.from_numpy(a).to(dev)
 
     geom = SlabGeometry(
         ga=ga, gb=gb, zws=dev_t(zws), zlo=dev_t(zlo.astype(np.int32)),
@@ -215,8 +218,9 @@ def _warp_to_image(inter, extents, look_from, config: RenderConfig, perm,
     x0, y0, dx, dy = extents
     dirs = ray_directions(look_from, config)
     _, _, hit = ray_aabb(look_from, dirs, (-1, -1, -1), (1, 1, 1))
-    flip = torch.tensor([1.0, 1.0, sign], dtype=torch.float32,
-                        device=look_from.device)
+    with span("dr.sync"):
+        flip = torch.tensor([1.0, 1.0, sign], dtype=torch.float32,
+                            device=look_from.device)
     lf_p = look_from[list(perm)] * flip
     d_p = dirs[..., list(perm)] * flip
     t = (0.0 - lf_p[2]) / d_p[..., 2]
@@ -253,7 +257,8 @@ def _frame(volume, look_from):
     side, the camera and the headlight in that frame, the axis permutation
     and the flip's sign."""
     channels = intensity_gradient_volume(volume)
-    lf_host = look_from.cpu().tolist()
+    with span("dr.sync"):
+        lf_host = look_from.cpu().tolist()
     p = max(range(3), key=lambda i: abs(lf_host[i]))
     perm = _PERMS[p]
     flip = lf_host[perm[2]] > 0
@@ -264,11 +269,14 @@ def _frame(volume, look_from):
         # Flipping the z axis negates the z gradient component.
         ch = ch.flip(3)
         ch = torch.cat([ch[:3], -ch[3:]])
-    flip_vec = torch.tensor([1.0, 1.0, sign], dtype=torch.float32,
-                            device=volume.device)
+    with span("dr.sync"):
+        flip_vec = torch.tensor([1.0, 1.0, sign], dtype=torch.float32,
+                                device=volume.device)
     lf_f = look_from[list(perm)] * flip_vec
     # Headlight at look_from + (0, 1, 0) in world coordinates.
-    light_w = look_from + torch.tensor([0.0, 1.0, 0.0], device=volume.device)
+    with span("dr.sync"):
+        up = torch.tensor([0.0, 1.0, 0.0], device=volume.device)
+    light_w = look_from + up
     light_f = light_w[list(perm)] * flip_vec
     return ch, lf_f, light_f, perm, sign
 
@@ -299,12 +307,13 @@ def _fast_inputs(volume, tf, look_from, config: RenderConfig, intermediate):
 def _render_fast_impl(volume, tf, look_from, config: RenderConfig,
                       intermediate, planes_per_voxel, slab_batch,
                       march) -> FastRenderOutput:
-    volume, tf, look_from, O = _fast_inputs(volume, tf, look_from, config,
-                                            intermediate)
-    inter, ext, perm, sign = _intermediate(volume, tf, look_from, config, O,
-                                           planes_per_voxel, slab_batch,
-                                           march)
-    img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
+    with span("dr.view"):
+        volume, tf, look_from, O = _fast_inputs(volume, tf, look_from,
+                                                config, intermediate)
+        inter, ext, perm, sign = _intermediate(volume, tf, look_from, config,
+                                               O, planes_per_voxel,
+                                               slab_batch, march)
+        img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
     return FastRenderOutput(image=img, hit=hit)
 
 
@@ -364,12 +373,13 @@ def render_fast_sharded(volume: torch.Tensor, tf: torch.Tensor, look_from,
     if O % n:
         raise ValueError(f"intermediate size must divide the mesh axis: "
                          f"O = {O} over {n} ranks")
-    strip, ext, perm, sign = _intermediate(
-        replicated(volume, group), replicated(tf, group), look_from, config,
-        O, planes_per_voxel, slab_batch, shear_warp_march, k * (O // n),
-        O // n)
-    inter = gather(strip, group, 0)
-    img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
+    with span("dr.view"):
+        strip, ext, perm, sign = _intermediate(
+            replicated(volume, group), replicated(tf, group), look_from,
+            config, O, planes_per_voxel, slab_batch, shear_warp_march,
+            k * (O // n), O // n)
+        inter = gather(strip, group, 0)
+        img, hit = _warp_to_image(inter, ext, look_from, config, perm, sign)
     return FastRenderOutput(image=img, hit=hit)
 
 
@@ -410,7 +420,9 @@ def choose_fast_params(volume, tf, look_from, config: RenderConfig,
             img = render_fast(volume, tf, look_from, config,
                               intermediate=inter,
                               planes_per_voxel=ppv).image
-            ss = float(_ssim(img.permute(2, 0, 1), exact_cf))
+            ss = _ssim(img.permute(2, 0, 1), exact_cf)
+            with span("dr.sync"):
+                ss = float(ss)
             trace.append({"intermediate": inter, "planes_per_voxel": ppv,
                           "ssim": round(ss, 4)})
             if ss >= ssim_gate:

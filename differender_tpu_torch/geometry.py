@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
+from .profiling import span
 
 
 class RayBundle(NamedTuple):
@@ -52,8 +53,14 @@ def ray_directions(look_from: torch.Tensor,
     u = x - 0.5
     v = y - 0.5
 
-    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
-    alt_up = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    # A tensor made from host data on the card is a copy that waits for the
+    # stream: a host sync.
+    with span("dr.sync"):
+        world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                                device=dev)
+    with span("dr.sync"):
+        alt_up = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
+                              device=dev)
     right_raw = torch.linalg.cross(view_dir, world_up)
     # Pole guard: a camera on the y axis has no right vector from world_up;
     # fall back to x as the up hint there.
@@ -78,8 +85,12 @@ def ray_directions(look_from: torch.Tensor,
 def ray_aabb(origin: torch.Tensor, dirs: torch.Tensor, box_min, box_max):
     """Slab-method intersection; returns ``(tmin, tmax, hit)`` with a miss
     where ``tmax < 0``, ``tmin > tmax`` or either is not finite."""
-    box_min = torch.tensor(box_min, dtype=torch.float32, device=dirs.device)
-    box_max = torch.tensor(box_max, dtype=torch.float32, device=dirs.device)
+    with span("dr.sync"):
+        box_min = torch.tensor(box_min, dtype=torch.float32,
+                               device=dirs.device)
+    with span("dr.sync"):
+        box_max = torch.tensor(box_max, dtype=torch.float32,
+                               device=dirs.device)
     dirfrac = 1.0 / dirs
     t_lo = (box_min - origin) * dirfrac
     t_hi = (box_max - origin) * dirfrac
@@ -97,27 +108,29 @@ def make_rays(look_from: torch.Tensor, config: RenderConfig,
     """Full ray setup.  ``n_samples = hit * (floor(sr * len * diag) + 1)``;
     with a uniform draw ``u`` of shape ``(H, W)`` the entry advances by
     ``u * len / n`` (ray-start jitter)."""
-    look_from = look_from.to(torch.float32)
-    dirs = ray_directions(look_from, config)
-    tmin, tmax, hit = ray_aabb(look_from, dirs, box_min, box_max)
+    with span("dr.rays"):
+        look_from = look_from.to(torch.float32)
+        dirs = ray_directions(look_from, config)
+        tmin, tmax, hit = ray_aabb(look_from, dirs, box_min, box_max)
 
-    ray_len = tmax - tmin
-    sr = float(np.float32(sampling_rate))
-    diag = float(np.float32(config.vol_diag))
-    n_f = torch.floor(sr * ray_len * diag) + 1.0
-    zero = torch.zeros((), dtype=torch.float32, device=dirs.device)
-    n_samples = torch.where(hit, n_f, zero).to(torch.int32)
+        ray_len = tmax - tmin
+        sr = float(np.float32(sampling_rate))
+        diag = float(np.float32(config.vol_diag))
+        n_f = torch.floor(sr * ray_len * diag) + 1.0
+        zero = torch.zeros((), dtype=torch.float32, device=dirs.device)
+        n_samples = torch.where(hit, n_f, zero).to(torch.int32)
 
-    if u is not None:
-        if tuple(u.shape) != tuple(tmin.shape):
-            raise ValueError(f"jitter u must have shape {tuple(tmin.shape)}; "
-                             f"got {tuple(u.shape)}")
-        u = u.to(device=dirs.device, dtype=torch.float32)
-        step = ray_len / torch.clamp(n_f, min=1.0)
-        tmin = torch.where(hit, tmin + u * step, tmin)
+        if u is not None:
+            if tuple(u.shape) != tuple(tmin.shape):
+                raise ValueError(f"jitter u must have shape "
+                                 f"{tuple(tmin.shape)}; got "
+                                 f"{tuple(u.shape)}")
+            u = u.to(device=dirs.device, dtype=torch.float32)
+            step = ray_len / torch.clamp(n_f, min=1.0)
+            tmin = torch.where(hit, tmin + u * step, tmin)
 
-    return RayBundle(origin=look_from, dirs=dirs, entry=tmin, exit=tmax,
-                     n_samples=n_samples)
+        return RayBundle(origin=look_from, dirs=dirs, entry=tmin, exit=tmax,
+                         n_samples=n_samples)
 
 
 def march_params(rays: RayBundle) -> MarchParams:

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
@@ -82,9 +84,10 @@ def dssim_mse_loss(pred: torch.Tensor, target: torch.Tensor,
                    data_range: float = 1.0) -> torch.Tensor:
     """``(1 - SSIM) + MSE`` with the SSIM term NaN-scrubbed: the loss of the
     volume inverse-rendering example."""
-    dssim = 1.0 - ssim(pred, target, data_range=data_range,
-                       nonnegative_ssim=True)
-    return torch.nan_to_num(dssim) + mse_loss(pred, target)
+    with span("dr.loss"):
+        dssim = 1.0 - ssim(pred, target, data_range=data_range,
+                           nonnegative_ssim=True)
+        return torch.nan_to_num(dssim) + mse_loss(pred, target)
 
 
 __all__ = ["mse_loss", "ssim", "dssim_mse_loss"]

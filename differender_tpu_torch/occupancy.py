@@ -36,6 +36,7 @@ import torch
 from .config import RenderConfig
 from .ops.bricks import cell_minmax
 from .ops.distance import cell_distance, tf_alpha_range_max
+from .profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +76,12 @@ def build_occupancy(volume: torch.Tensor, tf: torch.Tensor,
     auto_cell, auto_md = config.resolved_occupancy()
     cell = auto_cell if cell is None else cell
     max_dist = auto_md if max_dist is None else max_dist
-    volume = volume.to(torch.float32)
-    tf = tf.to(torch.float32)
-    X, Y, Z = volume.shape
-    lo, hi = cell_minmax(volume, cell)
-    dist, far = cell_distance(lo, hi, tf, config.alpha_skip, max_dist)
+    with span("dr.grid"):
+        volume = volume.to(torch.float32)
+        tf = tf.to(torch.float32)
+        X, Y, Z = volume.shape
+        lo, hi = cell_minmax(volume, cell)
+        dist, far = cell_distance(lo, hi, tf, config.alpha_skip, max_dist)
     # World L-inf size of one macrocell: a voxel spans 2 / (size - 1 - 1e-4)
     # world units; the least over the axes holds on every axis.
     scale = min(2.0 * cell / (s - 1.0 - 1e-4) for s in (X, Y, Z))

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..profiling import span
 
 LANES = 128
 B = 32       # brick edge of K4, as in the probe (exp_pallas_dma.py:36)
@@ -205,18 +206,20 @@ def brick_sums(volume: torch.Tensor, origins: torch.Tensor) -> torch.Tensor:
     :func:`brick_sums_reference` on CPU tensors."""
     if _build.uses_plain(volume):
         return brick_sums_reference(volume, origins)
-    volume = _volume("volume", volume, 3)
-    origins = _index("origins", origins, volume.device, (None, 3))
-    n = origins.shape[0]
-    out = torch.empty((n, LANES), dtype=torch.float32, device=volume.device)
-    plan = k4_plan(volume.shape, n)
-    scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+    with span("dr.launch.brick_sums"):
+        volume = _volume("volume", volume, 3)
+        origins = _index("origins", origins, volume.device, (None, 3))
+        n = origins.shape[0]
+        out = torch.empty((n, LANES), dtype=torch.float32,
                           device=volume.device)
-    _build.check(_build.library().dr_brick_sums(
-        volume.data_ptr(), *volume.shape, origins.data_ptr(), n,
-        scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
-        volume.device.index, _build.stream_of(volume)), "brick_sums")
-    brick_sums.launches += 1
+        plan = k4_plan(volume.shape, n)
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                              device=volume.device)
+        _build.check(_build.library().dr_brick_sums(
+            volume.data_ptr(), *volume.shape, origins.data_ptr(), n,
+            scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
+            volume.device.index, _build.stream_of(volume)), "brick_sums")
+        brick_sums.launches += 1
     return out
 
 
@@ -230,19 +233,21 @@ def brick_rows(bricks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``brick_rows.launches``), :func:`brick_rows_reference` on CPU tensors."""
     if _build.uses_plain(bricks):
         return brick_rows_reference(bricks, idx)
-    bricks = _volume("bricks", bricks, 3)
-    idx = _index("idx", idx, bricks.device, (None,))
-    n = idx.shape[0]
-    out = torch.empty((n, LANES), dtype=torch.float32, device=bricks.device)
-    nb, rows, cols = bricks.shape
-    plan = k5_plan(bricks.shape, n)
-    scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+    with span("dr.launch.brick_rows"):
+        bricks = _volume("bricks", bricks, 3)
+        idx = _index("idx", idx, bricks.device, (None,))
+        n = idx.shape[0]
+        out = torch.empty((n, LANES), dtype=torch.float32,
                           device=bricks.device)
-    _build.check(_build.library().dr_brick_rows(
-        bricks.data_ptr(), nb, rows * cols, idx.data_ptr(), n,
-        scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
-        bricks.device.index, _build.stream_of(bricks)), "brick_rows")
-    brick_rows.launches += 1
+        nb, rows, cols = bricks.shape
+        plan = k5_plan(bricks.shape, n)
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                              device=bricks.device)
+        _build.check(_build.library().dr_brick_rows(
+            bricks.data_ptr(), nb, rows * cols, idx.data_ptr(), n,
+            scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
+            bricks.device.index, _build.stream_of(bricks)), "brick_rows")
+        brick_rows.launches += 1
     return out
 
 
@@ -256,19 +261,20 @@ def cell_minmax(volume: torch.Tensor, cell: int):
     tensors.  Both equal the JAX package's ``_cell_minmax`` bit for bit."""
     if _build.uses_plain(volume):
         return cell_minmax_reference(volume, cell)
-    if cell < 1:
-        raise ValueError(f"cell must be >= 1; got {cell}")
-    volume = _volume("volume", volume, 3)
-    shape = grid_shape(volume.shape, cell)
-    lo = torch.empty(shape, dtype=torch.float32, device=volume.device)
-    hi = torch.empty_like(lo)
-    X, Y, Z = volume.shape
-    plan = k6_plan(volume.shape, cell, _sms(volume.device.index))
-    _build.check(_build.library().dr_cell_minmax(
-        volume.data_ptr(), X, Y, Z, cell, *plan, lo.data_ptr(),
-        hi.data_ptr(), volume.device.index, _build.stream_of(volume)),
-        "cell_minmax")
-    cell_minmax.launches += 1
+    with span("dr.launch.cell_minmax"):
+        if cell < 1:
+            raise ValueError(f"cell must be >= 1; got {cell}")
+        volume = _volume("volume", volume, 3)
+        shape = grid_shape(volume.shape, cell)
+        lo = torch.empty(shape, dtype=torch.float32, device=volume.device)
+        hi = torch.empty_like(lo)
+        X, Y, Z = volume.shape
+        plan = k6_plan(volume.shape, cell, _sms(volume.device.index))
+        _build.check(_build.library().dr_cell_minmax(
+            volume.data_ptr(), X, Y, Z, cell, *plan, lo.data_ptr(),
+            hi.data_ptr(), volume.device.index, _build.stream_of(volume)),
+            "cell_minmax")
+        cell_minmax.launches += 1
     return lo, hi
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..profiling import span
 
 
 def tf_alpha_range_max(tf: torch.Tensor) -> torch.Tensor:
@@ -91,23 +92,25 @@ def cell_distance(lo: torch.Tensor, hi: torch.Tensor, tf: torch.Tensor,
     :func:`cell_distance_reference` on CPU tensors."""
     if _build.uses_plain(lo):
         return cell_distance_reference(lo, hi, tf, alpha_skip, max_dist)
-    dev = lo.device
-    lo = _f32("lo", lo, dev, 3)
-    hi = _f32("hi", hi, dev, 3)
-    tf = _f32("tf", tf, dev, 2)
-    if hi.shape != lo.shape or tf.shape[1] != 4 or tf.shape[0] < 1:
-        raise ValueError(f"lo {tuple(lo.shape)} and hi {tuple(hi.shape)} "
-                         f"must match, tf {tuple(tf.shape)} be (R, 4)")
-    out = torch.empty(lo.shape, dtype=torch.int32, device=dev)
-    tmp = torch.empty_like(out)
-    far = torch.empty(1, dtype=torch.int32, device=dev)
-    nx, ny, nz = lo.shape
-    _build.check(_build.library().dr_cell_distance(
-        lo.data_ptr(), hi.data_ptr(), tf.data_ptr(), tf.shape[0],
-        float(np.float32(alpha_skip)), nx, ny, nz, max(int(max_dist), 0),
-        tmp.data_ptr(), out.data_ptr(), far.data_ptr(), dev.index,
-        _build.stream_of(lo)), "cell_distance")
-    cell_distance.launches += 1
+    with span("dr.launch.cell_distance"):
+        dev = lo.device
+        lo = _f32("lo", lo, dev, 3)
+        hi = _f32("hi", hi, dev, 3)
+        tf = _f32("tf", tf, dev, 2)
+        if hi.shape != lo.shape or tf.shape[1] != 4 or tf.shape[0] < 1:
+            raise ValueError(f"lo {tuple(lo.shape)} and hi "
+                             f"{tuple(hi.shape)} must match, tf "
+                             f"{tuple(tf.shape)} be (R, 4)")
+        out = torch.empty(lo.shape, dtype=torch.int32, device=dev)
+        tmp = torch.empty_like(out)
+        far = torch.empty(1, dtype=torch.int32, device=dev)
+        nx, ny, nz = lo.shape
+        _build.check(_build.library().dr_cell_distance(
+            lo.data_ptr(), hi.data_ptr(), tf.data_ptr(), tf.shape[0],
+            float(np.float32(alpha_skip)), nx, ny, nz, max(int(max_dist), 0),
+            tmp.data_ptr(), out.data_ptr(), far.data_ptr(), dev.index,
+            _build.stream_of(lo)), "cell_distance")
+        cell_distance.launches += 1
     return out, far
 
 

@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import _build
+from ..profiling import span
 from ..sampling import apply_tf_dot
 from ..shading import unit_normal
 from .tf_lookup import tf_lookup
@@ -340,14 +341,15 @@ def shear_warp_fwd(layers: torch.Tensor, tf: torch.Tensor,
     if _build.uses_plain(layers):
         with torch.no_grad():
             return shear_warp_march_plain(layers, tf, geom, _classify_dot)
-    a = _args(layers, tf, geom)
-    inter = torch.empty((a.rows, a.O, 4), dtype=torch.float32,
-                        device=layers.device)
-    a.inter = inter.data_ptr()
-    _build.check(_build.library().dr_shear_warp_fwd(
-        ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
-        "shear_warp_fwd")
-    shear_warp_fwd.launches += 1
+    with span("dr.launch.shear_warp_fwd"):
+        a = _args(layers, tf, geom)
+        inter = torch.empty((a.rows, a.O, 4), dtype=torch.float32,
+                            device=layers.device)
+        a.inter = inter.data_ptr()
+        _build.check(_build.library().dr_shear_warp_fwd(
+            ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
+            "shear_warp_fwd")
+        shear_warp_fwd.launches += 1
     return inter
 
 
@@ -365,18 +367,20 @@ def shear_warp_bwd(layers: torch.Tensor, tf: torch.Tensor,
     run."""
     if _build.uses_plain(layers):
         return shear_warp_bwd_plain(layers, tf, geom, grad, _classify_dot)
-    a = _args(layers, tf, geom)
-    shape = (a.rows, a.O, 4)
-    a.inter = _on("inter", inter, layers.device, shape,
-                  aligned=True).data_ptr()
-    a.grad = _on("grad", grad, layers.device, shape, aligned=True).data_ptr()
-    d_layers = torch.zeros_like(layers)
-    d_tf = torch.zeros_like(tf)
-    a.d_layers, a.d_tf = d_layers.data_ptr(), d_tf.data_ptr()
-    _build.check(_build.library().dr_shear_warp_bwd(
-        ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
-        "shear_warp_bwd")
-    shear_warp_bwd.launches += 1
+    with span("dr.launch.shear_warp_bwd"):
+        a = _args(layers, tf, geom)
+        shape = (a.rows, a.O, 4)
+        a.inter = _on("inter", inter, layers.device, shape,
+                      aligned=True).data_ptr()
+        a.grad = _on("grad", grad, layers.device, shape,
+                     aligned=True).data_ptr()
+        d_layers = torch.zeros_like(layers)
+        d_tf = torch.zeros_like(tf)
+        a.d_layers, a.d_tf = d_layers.data_ptr(), d_tf.data_ptr()
+        _build.check(_build.library().dr_shear_warp_bwd(
+            ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
+            "shear_warp_bwd")
+        shear_warp_bwd.launches += 1
     return d_layers, d_tf
 
 
@@ -397,8 +401,9 @@ class _ShearWarpMarch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         layers, tf, inter = ctx.saved_tensors
-        d_layers, d_tf = shear_warp_bwd(layers, tf, ctx.geom, inter,
-                                        g.contiguous())
+        with span("dr.backward"):
+            d_layers, d_tf = shear_warp_bwd(layers, tf, ctx.geom, inter,
+                                            g.contiguous())
         need_layers, need_tf, _ = ctx.needs_input_grad
         return (d_layers if need_layers else None), \
             (d_tf if need_tf else None), None

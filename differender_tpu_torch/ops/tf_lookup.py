@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..profiling import span
 from ..sampling import apply_tf, tf_lerp_bwd
 
 
@@ -71,14 +72,15 @@ def tf_lookup_fwd(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
     ``tf_lookup_fwd.launches``), :func:`tf_lookup_reference` on CPU."""
     if _build.uses_plain(intensity):
         return tf_lookup_reference(tf, intensity)
-    tf, flat = _check(tf, intensity)
-    out = torch.empty(flat.shape + (4,), dtype=torch.float32,
-                      device=flat.device)
-    _build.check(_build.library().dr_tf_lookup_fwd(
-        flat.data_ptr(), tf.data_ptr(), out.data_ptr(), flat.numel(),
-        tf.shape[0], flat.device.index, _build.stream_of(flat)),
-        "tf_lookup_fwd")
-    tf_lookup_fwd.launches += 1
+    with span("dr.launch.tf_lookup_fwd"):
+        tf, flat = _check(tf, intensity)
+        out = torch.empty(flat.shape + (4,), dtype=torch.float32,
+                          device=flat.device)
+        _build.check(_build.library().dr_tf_lookup_fwd(
+            flat.data_ptr(), tf.data_ptr(), out.data_ptr(), flat.numel(),
+            tf.shape[0], flat.device.index, _build.stream_of(flat)),
+            "tf_lookup_fwd")
+        tf_lookup_fwd.launches += 1
     return out.reshape(tuple(intensity.shape) + (4,))
 
 
@@ -99,33 +101,37 @@ def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
         raise ValueError(f"mask must be 'pallas' or 'dot'; got {mask!r}")
     if _build.uses_plain(intensity):
         return tf_lookup_bwd_reference(tf, intensity, g, mask)
-    tf, flat = _check(tf, intensity)
-    if g.device != flat.device or g.dtype != torch.float32:
-        raise TypeError(f"g must be float32 on {flat.device}")
-    if tuple(g.shape) != tuple(intensity.shape) + (4,):
-        raise ValueError(f"g must have shape {tuple(intensity.shape) + (4,)};"
-                         f" got {tuple(g.shape)}")
-    g = g.detach().contiguous()
-    if g.data_ptr() % 16:
-        g = g.clone()            # float4 loads need 16-byte alignment
-    n, R, dev = flat.numel(), tf.shape[0], flat.device
-    lib = _build.library()
-    blocks, partials = ctypes.c_int(0), ctypes.c_longlong(0)
-    _build.check(lib.dr_tf_lookup_bwd_plan(n, R, dev.index,
-                                           ctypes.byref(blocks),
-                                           ctypes.byref(partials)),
-                 "tf_lookup_bwd")
-    d_int = torch.empty_like(flat)
-    # The partials' sum writes every entry of d_tf; the global atomics
-    # above R = 14336 (partials == 0) add into zeros.
-    d_tf = (torch.empty_like(tf) if partials.value
-            else torch.zeros_like(tf))
-    scratch = torch.empty(partials.value, dtype=torch.float32, device=dev)
-    _build.check(lib.dr_tf_lookup_bwd(
-        flat.data_ptr(), tf.data_ptr(), g.data_ptr(), d_int.data_ptr(),
-        d_tf.data_ptr(), scratch.data_ptr(), blocks.value, n, R,
-        _MASKS[mask], dev.index, _build.stream_of(flat)), "tf_lookup_bwd")
-    tf_lookup_bwd.launches += 1
+    with span("dr.launch.tf_lookup_bwd"):
+        tf, flat = _check(tf, intensity)
+        if g.device != flat.device or g.dtype != torch.float32:
+            raise TypeError(f"g must be float32 on {flat.device}")
+        if tuple(g.shape) != tuple(intensity.shape) + (4,):
+            raise ValueError(f"g must have shape "
+                             f"{tuple(intensity.shape) + (4,)}; got "
+                             f"{tuple(g.shape)}")
+        g = g.detach().contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()            # float4 loads need 16-byte alignment
+        n, R, dev = flat.numel(), tf.shape[0], flat.device
+        lib = _build.library()
+        blocks, partials = ctypes.c_int(0), ctypes.c_longlong(0)
+        _build.check(lib.dr_tf_lookup_bwd_plan(n, R, dev.index,
+                                               ctypes.byref(blocks),
+                                               ctypes.byref(partials)),
+                     "tf_lookup_bwd")
+        d_int = torch.empty_like(flat)
+        # The partials' sum writes every entry of d_tf; the global atomics
+        # above R = 14336 (partials == 0) add into zeros.
+        d_tf = (torch.empty_like(tf) if partials.value
+                else torch.zeros_like(tf))
+        scratch = torch.empty(partials.value, dtype=torch.float32,
+                              device=dev)
+        _build.check(lib.dr_tf_lookup_bwd(
+            flat.data_ptr(), tf.data_ptr(), g.data_ptr(), d_int.data_ptr(),
+            d_tf.data_ptr(), scratch.data_ptr(), blocks.value, n, R,
+            _MASKS[mask], dev.index, _build.stream_of(flat)),
+            "tf_lookup_bwd")
+        tf_lookup_bwd.launches += 1
     return d_tf, d_int.reshape(intensity.shape)
 
 
@@ -142,7 +148,8 @@ class _TfLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tf, intensity = ctx.saved_tensors
-        d_tf, d_int = tf_lookup_bwd(tf, intensity, g, ctx.mask)
+        with span("dr.backward"):
+            d_tf, d_int = tf_lookup_bwd(tf, intensity, g, ctx.mask)
         need_tf, need_int, _ = ctx.needs_input_grad
         return (d_tf if need_tf else None), (d_int if need_int else None), \
             None

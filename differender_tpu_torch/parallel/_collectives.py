@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from .. import _build
+from ..profiling import span
 
 
 def group_rank(group, like: torch.Tensor) -> Tuple[int, int]:
@@ -51,12 +52,15 @@ def same_grad_flags(group, like: torch.Tensor, **tensors) -> None:
     per tensor (it waits for it); none in a group of one."""
     if dist.get_world_size(group) == 1:
         return
-    flags = torch.tensor([int(t.requires_grad) for t in tensors.values()],
-                         dtype=torch.int32, device=like.device)
+    with span("dr.sync"):
+        flags = torch.tensor([int(t.requires_grad)
+                              for t in tensors.values()],
+                             dtype=torch.int32, device=like.device)
     dist.all_reduce(flags, op=dist.ReduceOp.SUM, group=group)
     n = dist.get_world_size(group)
-    mixed = [name for name, f in zip(tensors, flags.tolist())
-             if f not in (0, n)]
+    with span("dr.sync"):
+        flags = flags.tolist()
+    mixed = [name for name, f in zip(tensors, flags) if f not in (0, n)]
     if mixed:
         raise ValueError(
             f"{', '.join(mixed)} requires grad on some ranks and not on "

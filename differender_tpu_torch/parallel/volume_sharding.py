@@ -43,6 +43,7 @@ import torch.distributed as dist
 from .. import _build
 from ..config import RenderConfig
 from ..geometry import RayBundle, make_rays, march_params
+from ..profiling import span
 from ..render import (RaySoA, RenderOutput, SampleCotangents, Segment,
                       _counts_out, _inputs, _launch_k2, _launch_march,
                       _ray_soa, _tap, ray_cotangents, tap_cotangents)
@@ -140,8 +141,10 @@ def _segment_window(rays: RayBundle, k: int, xl: int, scale_x, n_shards: int,
         wx[0] = -big
     if k == n_shards - 1:
         wx[1] = big
-    wx_lo, wx_hi = (torch.tensor(w, dtype=torch.float32, device=dev)
-                    for w in wx)
+    with span("dr.sync"):
+        wx_lo = torch.tensor(wx[0], dtype=torch.float32, device=dev)
+    with span("dr.sync"):
+        wx_hi = torch.tensor(wx[1], dtype=torch.float32, device=dev)
     params = march_params(rays)
     ox = rays.origin[0]
     dx = rays.dirs[..., 0]
@@ -200,7 +203,8 @@ def segment_march_plain(padded: torch.Tensor, tf: torch.Tensor,
     cnt = torch.zeros(N, dtype=torch.int32, device=dev)
     for j in range(length):
         s = seg.s_lo + j
-        idx = torch.nonzero(s < limit).reshape(-1)
+        with span("dr.sync"):
+            idx = torch.nonzero(s < limit).reshape(-1)
         if idx.numel() == 0:
             break
         t = t0[idx] + s[idx].to(torch.float32) * dt[idx]
@@ -265,10 +269,11 @@ march_segment_fwd.launches = 0
 
 
 def _k1_segment(padded, tf, soa, seg, config, sampling_rate, counts=None):
-    acc, cnt = _launch_march("dr_march_diff_fwd", padded, tf, soa, config,
-                             sampling_rate, False, config.max_samples,
-                             counts, segment=seg)
-    march_segment_fwd.launches += 1
+    with span("dr.launch.march_segment_fwd"):
+        acc, cnt = _launch_march("dr_march_diff_fwd", padded, tf, soa,
+                                 config, sampling_rate, False,
+                                 config.max_samples, counts, segment=seg)
+        march_segment_fwd.launches += 1
     return acc, cnt
 
 
@@ -318,10 +323,11 @@ def _k2_segment(padded, tf, soa, seg, config, sampling_rate, acc, grad,
                 counts=None, sums=None):
     """One launch of K2's segment instantiation, counted; its camera one
     where ``sums`` is given."""
-    out = _launch_k2(padded, tf, soa, config, sampling_rate, acc, grad,
-                     False, counts, sums, segment=seg)
-    march_segment_bwd.launches += 1
-    march_segment_bwd.camera_launches += sums is not None
+    with span("dr.launch.march_segment_bwd"):
+        out = _launch_k2(padded, tf, soa, config, sampling_rate, acc, grad,
+                         False, counts, sums, segment=seg)
+        march_segment_bwd.launches += 1
+        march_segment_bwd.camera_launches += sums is not None
     return out
 
 
@@ -350,14 +356,16 @@ class _MarchSegment(torch.autograd.Function):
         config, sampling_rate, seg_args = ctx.march
         need = ctx.needs_input_grad
         camera = any(need[2:6])
-        sums = (torch.empty(config.image_shape + (12,), dtype=torch.float32,
-                            device=padded.device) if camera else None)
-        d_padded, d_tf, _ = _k2_segment(
-            padded, tf, RaySoA(origin, dirs, t0, dt, n),
-            Segment(s_lo, *seg_args), config, sampling_rate, acc, g_acc,
-            sums=sums)
-        d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
-                  else (None,) * 4)
+        with span("dr.backward"):
+            sums = (torch.empty(config.image_shape + (12,),
+                                dtype=torch.float32, device=padded.device)
+                    if camera else None)
+            d_padded, d_tf, _ = _k2_segment(
+                padded, tf, RaySoA(origin, dirs, t0, dt, n),
+                Segment(s_lo, *seg_args), config, sampling_rate, acc, g_acc,
+                sums=sums)
+            d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
+                      else (None,) * 4)
         grads = (d_padded, d_tf) + d_rays
         return tuple(g if k else None for g, k in zip(grads, need[:6])) + \
             (None,) * 5
@@ -471,9 +479,10 @@ def render_volume_sharded(vol_local: torch.Tensor, tf: torch.Tensor,
     same_grad_flags(group, vol_local, vol_local=vol_local, tf=tf,
                     look_from=look_from)
     length, block = segment_length(config, float(sr), segment_max_samples)
-    rays = make_rays(replicated(look_from, group), config, sr, u=u)
-    image, valid = segment_render(vol_local, tf, rays, config, sr, group,
-                                  length, block)
+    with span("dr.view"):
+        rays = make_rays(replicated(look_from, group), config, sr, u=u)
+        image, valid = segment_render(vol_local, tf, rays, config, sr, group,
+                                      length, block)
     return RenderOutput(image=image, valid_steps=valid,
                         n_samples=rays.n_samples)
 

@@ -6,6 +6,35 @@ activity, and the card's kernels for a CUDA device, written into a
 directory as a Chrome trace (viewable in ``chrome://tracing``, Perfetto or
 TensorBoard).  The reference's march-length diagnostics live on as
 ``RenderOutput.valid_steps`` and :func:`march_stats`.
+
+:func:`span` is the program's one host range: a ``record_function`` while
+a ``torch.profiler`` session records (so it lies on the clock of the card's
+kernels in the same trace), else a shared null context that costs a check
+of the profiler's state.  The package opens these spans:
+
+- ``dr.raycaster``: the body of ``Raycaster.forward_with_aux``,
+  ``raycast_nondiff`` and ``raycast_fast`` (input conversion, broadcast
+  copies, the loop over views, stack and permute);
+- ``dr.view``: one single-view render (``render``, ``render_nondiff``,
+  ``render_fast`` and their strip, depth-sorted and sharded forms);
+- ``dr.rays``: ``geometry.make_rays``; ``dr.rays.soa``: a march's flat ray
+  state (``render._ray_soa``);
+- ``dr.grid``: ``occupancy.build_occupancy``;
+- ``dr.launch.<kernel>``: the host side of one kernel wrapper's call on
+  the card, from its operand checks to the C call's return, ``<kernel>``
+  its key in ``KERNEL_WRAPPERS`` (so each span is one count of
+  :func:`~differender_tpu_torch.launch_counts`);
+- ``dr.backward``: the backward of each autograd Function that launches a
+  kernel (the march, its segment, the shear-warp march, the TF lookup);
+- ``dr.loss``: ``losses.dssim_mse_loss``;
+- ``dr.sync``: each host-device sync that the package makes on its own:
+  a tensor made from host data on the card (a copy that waits for the
+  stream; ``geometry.make_rays`` makes four), a camera read on the host, a
+  policy's statistic, a collective's flags, a plain march's ``nonzero``.
+
+Counted per step or frame in a trace, ``dr.view``, ``dr.grid``,
+``dr.launch.*`` and ``dr.sync`` are the views rendered, the grids built,
+the program's launches and its syncs.
 """
 from __future__ import annotations
 
@@ -14,6 +43,7 @@ import time
 from typing import Iterator, Optional
 
 import torch
+from torch.profiler import record_function
 
 
 @contextlib.contextmanager
@@ -40,9 +70,20 @@ def trace(log_dir: str, device="cuda") -> Iterator[torch.profiler.profile]:
         yield prof
 
 
-def annotate(name: str):
-    """Named scope that shows up in profiler timelines (host and card)."""
-    return torch.profiler.record_function(name)
+_NULL = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A named host range (``with span("dr.view"): ...``) that shows in a
+    ``torch.profiler`` trace beside the card's kernels; outside a profiler
+    session a shared null context."""
+    if _recording():
+        return record_function(name)
+    return _NULL
+
+
+annotate = span
 
 
 @contextlib.contextmanager
@@ -75,4 +116,4 @@ def march_stats(render_output) -> dict:
     }
 
 
-__all__ = ["trace", "annotate", "timed", "march_stats"]
+__all__ = ["trace", "span", "annotate", "timed", "march_stats"]

@@ -19,6 +19,7 @@ from torch import nn
 
 from .config import RenderConfig
 from .fastpath import render_fast
+from .profiling import span
 from .render import RenderOutput, render, render_nondiff
 
 
@@ -141,33 +142,37 @@ class Raycaster(nn.Module):
                          u: Optional[torch.Tensor] = None,
                          sampling_rate: Optional[float] = None
                          ) -> RenderOutput:
-        volume, tf, look_from = (self._as_input(volume), self._as_input(tf),
-                                 self._as_input(look_from))
-        if not self.camera_grads:
-            look_from = look_from.detach()
-        sr = self.sampling_rate if sampling_rate is None else sampling_rate
-        batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
-                                                           look_from)
-        H, W = self.config.image_shape
-        want_u = (bs, H, W) if batched else (H, W)
-        if u is not None:
-            u = self._as_input(u)
-            if tuple(u.shape) != want_u:
-                raise ValueError(f"u must have shape {want_u}; got "
-                                 f"{tuple(u.shape)}")
-        elif self.jitter:
-            u = torch.rand(want_u, generator=self.generator,
-                           dtype=torch.float32, device=self.device)
-        self._last_u = u        # the draw of this call (None: no jitter)
-        if not batched:
-            out = render(vol, tf_i, lf, self.config, sr, u=u)
-            return out._replace(image=out.image.permute(2, 0, 1))
-        outs = [render(vol[i], tf_i[i], lf[i], self.config, sr,
-                       u=None if u is None else u[i]) for i in range(bs)]
-        return RenderOutput(
-            image=torch.stack([o.image for o in outs]).permute(0, 3, 1, 2),
-            valid_steps=torch.stack([o.valid_steps for o in outs]),
-            n_samples=torch.stack([o.n_samples for o in outs]))
+        with span("dr.raycaster"):
+            volume, tf, look_from = (self._as_input(volume),
+                                     self._as_input(tf),
+                                     self._as_input(look_from))
+            if not self.camera_grads:
+                look_from = look_from.detach()
+            sr = (self.sampling_rate if sampling_rate is None
+                  else sampling_rate)
+            batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
+                                                               look_from)
+            H, W = self.config.image_shape
+            want_u = (bs, H, W) if batched else (H, W)
+            if u is not None:
+                u = self._as_input(u)
+                if tuple(u.shape) != want_u:
+                    raise ValueError(f"u must have shape {want_u}; got "
+                                     f"{tuple(u.shape)}")
+            elif self.jitter:
+                u = torch.rand(want_u, generator=self.generator,
+                               dtype=torch.float32, device=self.device)
+            self._last_u = u        # the draw of this call (None: no jitter)
+            if not batched:
+                out = render(vol, tf_i, lf, self.config, sr, u=u)
+                return out._replace(image=out.image.permute(2, 0, 1))
+            outs = [render(vol[i], tf_i[i], lf[i], self.config, sr,
+                           u=None if u is None else u[i]) for i in range(bs)]
+            images = torch.stack([o.image for o in outs])
+            return RenderOutput(
+                image=images.permute(0, 3, 1, 2),
+                valid_steps=torch.stack([o.valid_steps for o in outs]),
+                n_samples=torch.stack([o.n_samples for o in outs]))
 
     @torch.no_grad()
     def raycast_nondiff(self, volume, tf, look_from,
@@ -175,18 +180,20 @@ class Raycaster(nn.Module):
                         ) -> torch.Tensor:
         """Inference render; default sampling rate ``4 * sampling_rate``,
         no jitter.  Returns ``([BS,] 4, H, W)``."""
-        volume, tf, look_from = (self._as_input(volume), self._as_input(tf),
-                                 self._as_input(look_from))
-        sr = 4.0 * self.sampling_rate if sampling_rate is None \
-            else sampling_rate
-        batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
-                                                           look_from)
-        if not batched:
-            img = render_nondiff(vol, tf_i, lf, self.config, sr).image
-            return img.permute(2, 0, 1)
-        imgs = [render_nondiff(vol[i], tf_i[i], lf[i], self.config, sr).image
-                for i in range(bs)]
-        return torch.stack(imgs).permute(0, 3, 1, 2)
+        with span("dr.raycaster"):
+            volume, tf, look_from = (self._as_input(volume),
+                                     self._as_input(tf),
+                                     self._as_input(look_from))
+            sr = 4.0 * self.sampling_rate if sampling_rate is None \
+                else sampling_rate
+            batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
+                                                               look_from)
+            if not batched:
+                img = render_nondiff(vol, tf_i, lf, self.config, sr).image
+                return img.permute(2, 0, 1)
+            imgs = [render_nondiff(vol[i], tf_i[i], lf[i], self.config,
+                                   sr).image for i in range(bs)]
+            return torch.stack(imgs).permute(0, 3, 1, 2)
 
     def raycast_fast(self, volume, tf, look_from,
                      intermediate: Optional[int] = None,
@@ -195,17 +202,19 @@ class Raycaster(nn.Module):
         (:func:`~differender_tpu_torch.fastpath.render_fast`: slab
         quadrature, not bit-exact with the exact renderer); returns
         ``([BS,] 4, H, W)``, differentiable in the volume and the TF."""
-        volume, tf, look_from = (self._as_input(volume), self._as_input(tf),
-                                 self._as_input(look_from))
-        batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
-                                                           look_from)
-        if not batched:
-            return render_fast(vol, tf_i, lf, self.config, intermediate,
-                               planes_per_voxel).image.permute(2, 0, 1)
-        imgs = [render_fast(vol[i], tf_i[i], lf[i], self.config,
-                            intermediate, planes_per_voxel).image
-                for i in range(bs)]
-        return torch.stack(imgs).permute(0, 3, 1, 2)
+        with span("dr.raycaster"):
+            volume, tf, look_from = (self._as_input(volume),
+                                     self._as_input(tf),
+                                     self._as_input(look_from))
+            batched, bs, vol, tf_i, lf = self._determine_batch(volume, tf,
+                                                               look_from)
+            if not batched:
+                return render_fast(vol, tf_i, lf, self.config, intermediate,
+                                   planes_per_voxel).image.permute(2, 0, 1)
+            imgs = [render_fast(vol[i], tf_i[i], lf[i], self.config,
+                                intermediate, planes_per_voxel).image
+                    for i in range(bs)]
+            return torch.stack(imgs).permute(0, 3, 1, 2)
 
     def extra_repr(self) -> str:
         return (f"Volume ({self.volume_shape}), Output Render "

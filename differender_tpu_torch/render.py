@@ -47,6 +47,7 @@ from .config import RenderConfig
 from .geometry import RayBundle, make_rays, march_params
 from .occupancy import build_occupancy, cell_index, jump_steps
 from .ops.bricks import grid_shape
+from .profiling import span
 from .sampling import (apply_tf, march_tf, sample_with_gradient,
                        sample_with_gradient_analytic, trilinear, voxel_coords,
                        voxel_scale)
@@ -80,11 +81,12 @@ class RaySoA(NamedTuple):
 
 
 def _ray_soa(rays: RayBundle) -> RaySoA:
-    params = march_params(rays)
-    n = rays.n_samples.numel()
-    return RaySoA(rays.origin.to(torch.float32), rays.dirs.reshape(n, 3),
-                  params.t0.reshape(n), params.dt.reshape(n),
-                  rays.n_samples.reshape(n))
+    with span("dr.rays.soa"):
+        params = march_params(rays)
+        n = rays.n_samples.numel()
+        return RaySoA(rays.origin.to(torch.float32), rays.dirs.reshape(n, 3),
+                      params.t0.reshape(n), params.dt.reshape(n),
+                      rays.n_samples.reshape(n))
 
 
 def _sampler(config: RenderConfig):
@@ -500,10 +502,11 @@ def _launch_march(entry, volume, tf, soa, config, sampling_rate, ert,
 
 
 def _k1(volume, tf, soa, config, sampling_rate, ert, counts=None):
-    image, steps = _launch_march(
-        "dr_march_diff_fwd", volume, tf, soa, config, sampling_rate, ert,
-        config.max_samples, counts)
-    march_diff_fwd.launches += 1
+    with span("dr.launch.march_diff_fwd"):
+        image, steps = _launch_march(
+            "dr_march_diff_fwd", volume, tf, soa, config, sampling_rate, ert,
+            config.max_samples, counts)
+        march_diff_fwd.launches += 1
     return image, steps
 
 
@@ -581,10 +584,11 @@ def _k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
         counts=None, sums=None):
     """One launch of K2, counted; its camera instantiation where ``sums``
     is given (:func:`_launch_k2`)."""
-    out = _launch_k2(volume, tf, soa, config, sampling_rate, image, grad,
-                     ert, counts, sums)
-    march_diff_bwd.launches += 1
-    march_diff_bwd.camera_launches += sums is not None
+    with span("dr.launch.march_diff_bwd"):
+        out = _launch_k2(volume, tf, soa, config, sampling_rate, image, grad,
+                         ert, counts, sums)
+        march_diff_bwd.launches += 1
+        march_diff_bwd.camera_launches += sums is not None
     return out
 
 
@@ -654,13 +658,16 @@ class _MarchDiff(torch.autograd.Function):
         config, sampling_rate, ert = ctx.march
         need = ctx.needs_input_grad
         camera = any(need[2:6])
-        sums = (torch.empty(config.image_shape + (12,), dtype=torch.float32,
-                            device=volume.device) if camera else None)
-        d_volume, d_tf, _ = _k2(volume, tf, RaySoA(origin, dirs, t0, dt, n),
-                                config, sampling_rate, image, g_image, ert,
-                                sums=sums)
-        d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
-                  else (None,) * 4)
+        with span("dr.backward"):
+            sums = (torch.empty(config.image_shape + (12,),
+                                dtype=torch.float32, device=volume.device)
+                    if camera else None)
+            d_volume, d_tf, _ = _k2(volume, tf,
+                                    RaySoA(origin, dirs, t0, dt, n), config,
+                                    sampling_rate, image, g_image, ert,
+                                    sums=sums)
+            d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
+                      else (None,) * 4)
         grads = (d_volume, d_tf) + d_rays
         return tuple(g if k else None for g, k in zip(grads, need[:6])) + \
             (None,) * 4
@@ -699,16 +706,17 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                              "volume is on the CPU")
         return march_nondiff_plain(volume, tf, rays, config, sampling_rate,
                                    occupancy)
-    _check_grid(occupancy, config)
-    counts = _counts_out("counts", counts, volume.device,
-                         config.image_shape + (3,))
-    composited = torch.empty(config.image_shape, dtype=torch.int32,
-                             device=volume.device)
-    image, visited = _launch_march(
-        "dr_march_nondiff", volume, tf, _ray_soa(rays), config,
-        sampling_rate, True, np.iinfo(np.int32).max, composited, occupancy,
-        counts)
-    march_nondiff.launches += 1
+    soa = _ray_soa(rays)
+    with span("dr.launch.march_nondiff"):
+        _check_grid(occupancy, config)
+        counts = _counts_out("counts", counts, volume.device,
+                             config.image_shape + (3,))
+        composited = torch.empty(config.image_shape, dtype=torch.int32,
+                                 device=volume.device)
+        image, visited = _launch_march(
+            "dr_march_nondiff", volume, tf, soa, config, sampling_rate, True,
+            np.iinfo(np.int32).max, composited, occupancy, counts)
+        march_nondiff.launches += 1
     return image, visited, composited
 
 
@@ -752,12 +760,13 @@ def render(volume: torch.Tensor, tf: torch.Tensor, look_from,
     instantiation then runs in place of its default one).
     """
     sr = config.sampling_rate if sampling_rate is None else sampling_rate
-    volume, tf, look_from = _inputs(volume, tf, look_from)
-    if u is None and generator is not None:
-        u = torch.rand(config.image_shape, generator=generator,
-                       dtype=torch.float32, device=volume.device)
-    rays = make_rays(look_from, config, sr, u=u)
-    image, steps = march_diff(volume, tf, rays, config, sr, ert=ert)
+    with span("dr.view"):
+        volume, tf, look_from = _inputs(volume, tf, look_from)
+        if u is None and generator is not None:
+            u = torch.rand(config.image_shape, generator=generator,
+                           dtype=torch.float32, device=volume.device)
+        rays = make_rays(look_from, config, sr, u=u)
+        image, steps = march_diff(volume, tf, rays, config, sr, ert=ert)
     return RenderOutput(image=image, valid_steps=steps,
                         n_samples=rays.n_samples)
 
@@ -775,13 +784,14 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
     and TF is passed; the image does not change.  ``valid_steps`` is all
     ones, as in the JAX package."""
     sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
-    volume, tf, look_from = _inputs(volume, tf, look_from)
-    if occupancy is None and config.occupancy_skip:
-        occupancy = build_occupancy(volume, tf, config)
-    rays = make_rays(look_from, config, sr, u=u)
-    image, _, _ = march_nondiff(volume, tf, rays, config, sr, occupancy)
-    ones = torch.ones(config.image_shape, dtype=torch.int32,
-                      device=volume.device)
+    with span("dr.view"):
+        volume, tf, look_from = _inputs(volume, tf, look_from)
+        if occupancy is None and config.occupancy_skip:
+            occupancy = build_occupancy(volume, tf, config)
+        rays = make_rays(look_from, config, sr, u=u)
+        image, _, _ = march_nondiff(volume, tf, rays, config, sr, occupancy)
+        ones = torch.ones(config.image_shape, dtype=torch.int32,
+                          device=volume.device)
     return RenderOutput(image=image, valid_steps=ones,
                         n_samples=rays.n_samples)
 
@@ -818,17 +828,19 @@ def render_nondiff_strips(volume: torch.Tensor, tf: torch.Tensor, look_from,
     image height."""
     sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
     h = _strip_height(config, n_strips)
-    volume, tf, look_from = _inputs(volume, tf, look_from)
-    if occupancy is None and config.occupancy_skip:
-        occupancy = build_occupancy(volume, tf, config)
-    rays = make_rays(look_from, config, sr, u=u)
-    strip_cfg = config.replace(image_shape=(h, config.width))
-    image = torch.cat([
-        march_nondiff(volume, tf, _ray_rows(rays, slice(s * h, (s + 1) * h)),
-                      strip_cfg, sr, occupancy)[0]
-        for s in range(n_strips)])
-    ones = torch.ones(config.image_shape, dtype=torch.int32,
-                      device=volume.device)
+    with span("dr.view"):
+        volume, tf, look_from = _inputs(volume, tf, look_from)
+        if occupancy is None and config.occupancy_skip:
+            occupancy = build_occupancy(volume, tf, config)
+        rays = make_rays(look_from, config, sr, u=u)
+        strip_cfg = config.replace(image_shape=(h, config.width))
+        image = torch.cat([
+            march_nondiff(volume, tf,
+                          _ray_rows(rays, slice(s * h, (s + 1) * h)),
+                          strip_cfg, sr, occupancy)[0]
+            for s in range(n_strips)])
+        ones = torch.ones(config.image_shape, dtype=torch.int32,
+                          device=volume.device)
     return RenderOutput(image=image, valid_steps=ones,
                         n_samples=rays.n_samples)
 
@@ -845,14 +857,16 @@ def render_strips(volume: torch.Tensor, tf: torch.Tensor, look_from,
     :func:`render` is.  ``n_strips`` must divide the image height."""
     sr = config.sampling_rate if sampling_rate is None else sampling_rate
     h = _strip_height(config, n_strips)
-    volume, tf, look_from = _inputs(volume, tf, look_from)
-    rays = make_rays(look_from, config, sr, u=u)
-    strip_cfg = config.replace(image_shape=(h, config.width))
-    outs = [march_diff(volume, tf, _ray_rows(rays, slice(s * h, (s + 1) * h)),
-                       strip_cfg, sr, ert=ert) for s in range(n_strips)]
-    return RenderOutput(image=torch.cat([o[0] for o in outs]),
-                        valid_steps=torch.cat([o[1] for o in outs]),
-                        n_samples=rays.n_samples)
+    with span("dr.view"):
+        volume, tf, look_from = _inputs(volume, tf, look_from)
+        rays = make_rays(look_from, config, sr, u=u)
+        strip_cfg = config.replace(image_shape=(h, config.width))
+        outs = [march_diff(volume, tf,
+                           _ray_rows(rays, slice(s * h, (s + 1) * h)),
+                           strip_cfg, sr, ert=ert) for s in range(n_strips)]
+        return RenderOutput(image=torch.cat([o[0] for o in outs]),
+                            valid_steps=torch.cat([o[1] for o in outs]),
+                            n_samples=rays.n_samples)
 
 
 @torch.no_grad()
@@ -907,28 +921,30 @@ def render_depth_sorted(volume: torch.Tensor, tf: torch.Tensor, look_from,
     if N % chunks:
         raise ValueError(f"chunks={chunks} must divide H*W={N}")
     M = N // chunks
-    rays = make_rays(look_from, config, sr, u=u)
-    depth = _predict_march_depth(volume, tf, rays, config)
-    order = torch.argsort(depth, stable=True)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(N, device=order.device)
-    w = math.gcd(M, W)
-    shape = (M // w, w)
-    chunk_cfg = config.replace(image_shape=shape)
-    fields = [rays.dirs.reshape(N, 3)[order], rays.entry.reshape(N)[order],
-              rays.exit.reshape(N)[order], rays.n_samples.reshape(N)[order]]
-    images, steps = [], []
-    for c in range(chunks):
-        d, e, x, n = (f[c * M:(c + 1) * M] for f in fields)
-        rb = RayBundle(origin=rays.origin, dirs=d.reshape(shape + (3,)),
-                       entry=e.reshape(shape), exit=x.reshape(shape),
-                       n_samples=n.reshape(shape))
-        image, vs = march_diff(volume, tf, rb, chunk_cfg, sr, ert=True)
-        images.append(image.reshape(M, 4))
-        steps.append(vs.reshape(M))
-    return RenderOutput(image=torch.cat(images)[inv].reshape(H, W, 4),
-                        valid_steps=torch.cat(steps)[inv].reshape(H, W),
-                        n_samples=rays.n_samples)
+    with span("dr.view"):
+        rays = make_rays(look_from, config, sr, u=u)
+        depth = _predict_march_depth(volume, tf, rays, config)
+        order = torch.argsort(depth, stable=True)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(N, device=order.device)
+        w = math.gcd(M, W)
+        shape = (M // w, w)
+        chunk_cfg = config.replace(image_shape=shape)
+        fields = [rays.dirs.reshape(N, 3)[order],
+                  rays.entry.reshape(N)[order], rays.exit.reshape(N)[order],
+                  rays.n_samples.reshape(N)[order]]
+        images, steps = [], []
+        for c in range(chunks):
+            d, e, x, n = (f[c * M:(c + 1) * M] for f in fields)
+            rb = RayBundle(origin=rays.origin, dirs=d.reshape(shape + (3,)),
+                           entry=e.reshape(shape), exit=x.reshape(shape),
+                           n_samples=n.reshape(shape))
+            image, vs = march_diff(volume, tf, rb, chunk_cfg, sr, ert=True)
+            images.append(image.reshape(M, 4))
+            steps.append(vs.reshape(M))
+        return RenderOutput(image=torch.cat(images)[inv].reshape(H, W, 4),
+                            valid_steps=torch.cat(steps)[inv].reshape(H, W),
+                            n_samples=rays.n_samples)
 
 
 @torch.no_grad()
@@ -945,7 +961,9 @@ def _depth_spread(volume, tf, look_from, config: RenderConfig,
     hit = nf > 0.0
     rho = d / torch.clamp(nf, min=1.0)
     n_hit = torch.clamp(torch.sum(hit.to(torch.float32)), min=1.0)
-    return float(torch.sum(((rho < 0.5) & hit).to(torch.float32)) / n_hit)
+    spread = torch.sum(((rho < 0.5) & hit).to(torch.float32)) / n_hit
+    with span("dr.sync"):
+        return float(spread)
 
 
 @torch.no_grad()
@@ -955,8 +973,10 @@ def _alive_fraction(volume, tf, look_from, config: RenderConfig,
     forward render at ``config`` (``valid_steps > s_split``)."""
     out = render(volume.detach(), tf.detach(), look_from, config,
                  sampling_rate)
-    return float(torch.mean((out.valid_steps.reshape(-1) > s_split)
-                            .to(torch.float32)))
+    alive = torch.mean((out.valid_steps.reshape(-1) > s_split)
+                       .to(torch.float32))
+    with span("dr.sync"):
+        return float(alive)
 
 
 def _compacted(compact_after: int, compact_prefix: float):
@@ -1044,7 +1064,8 @@ def _choose_diff_renderer_timed(volume, tf, look_from, config, sampling_rate,
 
     def sync():
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            with span("dr.sync"):
+                torch.cuda.synchronize(dev)
 
     best = None
     for name, fn in candidates:
