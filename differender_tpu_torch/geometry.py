@@ -2,10 +2,14 @@
 ``differender_tpu/geometry.py``).
 
 Plain float32 torch on the device of the camera tensor: ray setup is
-elementwise over pixels and needs no kernel of its own.
+elementwise over pixels and needs no kernel of its own.  Its constant
+vectors (the up hints, the box's corners) are made once per device and
+values (:func:`_constant`), so ray setup makes no host sync after its
+first call and the host can run ahead of the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,6 +37,22 @@ class MarchParams(NamedTuple):
     dt: torch.Tensor   # (H, W)
 
 
+@functools.lru_cache(maxsize=64)
+def _constant_of(bits: bytes, device: torch.device) -> torch.Tensor:
+    # A tensor made from host data on the card is a copy that waits for the
+    # stream: a host sync, made once per key.  Outside inference mode, so
+    # autograd may save it in a later call that records a graph.
+    with span("dr.sync"), torch.inference_mode(False):
+        return torch.tensor(np.frombuffer(bits, np.float32).tolist(),
+                            dtype=torch.float32, device=device)
+
+
+def _constant(values, device: torch.device) -> torch.Tensor:
+    """The f32 vector ``values`` on ``device``, one shared tensor per device
+    and bit pattern (so ``-0.0`` is not ``0.0``); do not write into it."""
+    return _constant_of(np.asarray(values, np.float32).tobytes(), device)
+
+
 def normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Unit-normalize (0/0 gives NaN, as in the JAX package)."""
     return v / torch.linalg.vector_norm(v, dim=dim, keepdim=True)
@@ -53,14 +73,8 @@ def ray_directions(look_from: torch.Tensor,
     u = x - 0.5
     v = y - 0.5
 
-    # A tensor made from host data on the card is a copy that waits for the
-    # stream: a host sync.
-    with span("dr.sync"):
-        world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                                device=dev)
-    with span("dr.sync"):
-        alt_up = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
-                              device=dev)
+    world_up = _constant((0.0, 1.0, 0.0), dev)
+    alt_up = _constant((1.0, 0.0, 0.0), dev)
     right_raw = torch.linalg.cross(view_dir, world_up)
     # Pole guard: a camera on the y axis has no right vector from world_up;
     # fall back to x as the up hint there.
@@ -83,14 +97,12 @@ def ray_directions(look_from: torch.Tensor,
 
 
 def ray_aabb(origin: torch.Tensor, dirs: torch.Tensor, box_min, box_max):
-    """Slab-method intersection; returns ``(tmin, tmax, hit)`` with a miss
-    where ``tmax < 0``, ``tmin > tmax`` or either is not finite."""
-    with span("dr.sync"):
-        box_min = torch.tensor(box_min, dtype=torch.float32,
-                               device=dirs.device)
-    with span("dr.sync"):
-        box_max = torch.tensor(box_max, dtype=torch.float32,
-                               device=dirs.device)
+    """Slab-method intersection with the box of corners ``box_min`` and
+    ``box_max`` (host sequences of 3 numbers); returns ``(tmin, tmax, hit)``
+    with a miss where ``tmax < 0``, ``tmin > tmax`` or either is not
+    finite."""
+    box_min = _constant(box_min, dirs.device)
+    box_max = _constant(box_max, dirs.device)
     dirfrac = 1.0 / dirs
     t_lo = (box_min - origin) * dirfrac
     t_hi = (box_max - origin) * dirfrac

@@ -29,7 +29,8 @@ of the profiler's state.  The package opens these spans:
 - ``dr.loss``: ``losses.dssim_mse_loss``;
 - ``dr.sync``: each host-device sync that the package makes on its own:
   a tensor made from host data on the card (a copy that waits for the
-  stream; ``geometry.make_rays`` makes four), a camera read on the host, a
+  stream; ``geometry.make_rays`` makes its four constant vectors once per
+  device and values, then reuses them), a camera read on the host, a
   policy's statistic, a collective's flags, a plain march's ``nonzero``.
 
 Counted per step or frame in a trace, ``dr.view``, ``dr.grid``,
