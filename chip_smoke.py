@@ -201,9 +201,11 @@ Phases (one JSON line each):
   9k. examples: ``render_nondiff.run`` at its defaults (800^2, sampling
      rate 16, 4 strips) bitwise ``render_nondiff``; ``optimize_tf.run
      backward`` for 5 iterations at its default widths (the loss falls; one
-     K1 and one K2 a step); ``interactive_viewer.run`` for 3 frames without
-     its server; the examples' files written where PIL and matplotlib
-     import.
+     K1 and one K2 a step, K2's TF-only instantiation each time);
+     ``interactive_viewer.run`` for 3 frames without its server; the
+     examples' files written where PIL and matplotlib import.  K2's TF-only
+     instantiation at the upstream TF fit's shapes against the plain march
+     (:func:`tf_only_k2`).
   Each of 9d-9k prints its own seconds.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
@@ -216,6 +218,7 @@ of f32 outside the tensor cores.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -356,6 +359,16 @@ SW_ZLERP_OPS = 12
 # of the atomic adds differs, which has stayed below 1e-5 * max |g|.
 K2_GRAD_TOL = 1e-4
 
+# K2's TF-only instantiation against the plain march: blocks of
+# TF_ONLY_TILE^2 rays, every other one in each direction of the 240^2 image,
+# d_tf held to TF_ONLY_TOL * its largest texel.  Not K2_GRAD_TOL: here a
+# block of K2 sums ~1e5 terms of both signs on one texel (the air's) with
+# f32 atomics, which the full K2 does alike (the two agree within 2.4e-6);
+# readings 2.3e-5 to 2.0e-4 against the plain march's float64 sums, two
+# runs each of four cases (H100, PR 18), nearly the same in both runs.
+TF_ONLY_TILE = 48
+TF_ONLY_TOL = 1e-3
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE_MS_IS = ("CUDA events around 20 back-to-back calls of the C entry, "
                 "median of 10")
@@ -374,6 +387,117 @@ def bound(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def tf_sums_in_f64(P):
+    """The plain march's TF backward (``sampling.tf_lerp_bwd``) with each
+    sample's terms formed in float32, as it forms them, and summed per
+    texel in float64.  At the TF fit's size a block of rays puts ~1e6
+    terms of both signs on one texel (the air's), and their float32 sum
+    is off by ~5e-3 of the largest texel (chip_smoke, PR 18)."""
+    import torch
+    orig = P.sampling.tf_lerp_bwd
+
+    def bwd(tf, intensity, g, mask):
+        R = tf.shape[0]
+        t = torch.clamp(intensity.reshape(-1) * float(R - 1), min=0.0)
+        frac = t - torch.floor(t)
+        low = torch.clamp(torch.floor(t), max=float(R - 1)).long()
+        high = torch.clamp(low + 1, max=R - 1)
+        gm = g.reshape(-1, 4)
+        acc = torch.zeros(tf.shape, dtype=torch.float64, device=tf.device)
+        acc.index_add_(0, low, ((1.0 - frac)[:, None] * gm).double())
+        acc.index_add_(0, high, (frac[:, None] * gm).double())
+        return acc.to(tf.dtype), orig(tf, intensity, g, mask)[1]
+    P.sampling.tf_lerp_bwd = bwd
+    try:
+        yield
+    finally:
+        P.sampling.tf_lerp_bwd = orig
+
+
+def tf_only_k2(P, dev, res: int = 256) -> dict:
+    """K2's TF-only instantiation at the shapes of the upstream TF fit: a
+    ``res``^3 CT phantom, R 128, sampling rate 2, 2048 samples, the rays of
+    the port example's camera at 240^2, with parity and with analytic
+    normals, under tf5 as it is (its zero-alpha texels leave the air's
+    samples quiet) and under the fit's black start (every sample lit until
+    ERT).  On each block of TF_ONLY_TILE^2 rays of a checkerboard over the
+    image, K1 then ``march_diff_bwd(..., volume_grad=False)`` against
+    ``march_diff_bwd_plain`` (its TF terms summed in float64,
+    :func:`tf_sums_in_f64`), for a seeded cotangent that is 0 on the rays
+    K2 and the plain march end apart (the ERT knife edge, at most 0.1% of
+    them).  The blocks' d_tf summed, held to TF_ONLY_TOL of the plain's
+    largest texel; ``d_volume`` None; each call one K2 launch, counted in
+    ``tf_only_launches``.  Returns each case's relative error, knife-edge
+    rays and launches."""
+    import torch
+    vol = P.volume_to_internal(torch.from_numpy(P.ct_phantom(res)).to(
+        dev)).contiguous()
+    look_from = torch.tensor([0.0, 0.9, 2.3], device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    H = W = 240
+    T = TF_ONLY_TILE
+    blocks = [(slice(r, r + T), slice(c, c + T))
+              for r in range(0, H, 2 * T) for c in range(0, W, 2 * T)]
+    out = {}
+    for analytic in (False, True):
+        cfg = P.RenderConfig(volume_shape=tuple(vol.shape),
+                             image_shape=(H, W), tf_resolution=128,
+                             max_samples=2048, analytic_normals=analytic)
+        rays = P.make_rays(look_from, cfg, 2.0)
+        for name in ("tf5", "black"):
+            label = f"TF-only K2, {name}, analytic={analytic}"
+            tf = P.get_tf(name, 128, device=dev)
+            g = torch.rand((H, W, 4), generator=gen, device=dev) - 0.5
+            got = torch.zeros((128, 4), dtype=torch.float64, device=dev)
+            want = torch.zeros_like(got)
+            n_knife = launches = 0
+            for blk in blocks:
+                rays_b = rays._replace(
+                    dirs=rays.dirs[blk], entry=rays.entry[blk],
+                    exit=rays.exit[blk], n_samples=rays.n_samples[blk])
+                cfg_b = cfg.replace(image_shape=(T, T))
+                image_b, _ = P.march_diff_fwd(vol, tf, rays_b, cfg_b, 2.0)
+                g_b = g[blk]
+                for _ in range(2):      # again with the knife edge masked
+                    torch.cuda.synchronize(dev)
+                    P.reset_launch_counts()
+                    d_volume, d_k, steps_k = P.march_diff_bwd(
+                        vol, tf, rays_b, cfg_b, 2.0, image_b, g_b,
+                        volume_grad=False)
+                    torch.cuda.synchronize(dev)
+                    n = (P.launch_counts()["march_diff_bwd"],
+                         P.march_diff_bwd.tf_only_launches)
+                    require(d_volume is None and n == (1, 1),
+                            f"{label}: d_volume {type(d_volume)}, "
+                            f"launches {n}")
+                    launches += 1
+                    with tf_sums_in_f64(P):
+                        _, d_p, steps_p = P.march_diff_bwd_plain(
+                            vol, tf, rays_b, cfg_b, 2.0, g_b)
+                    agree = steps_k == steps_p
+                    if bool(agree.all()):
+                        break
+                    g_b = g_b * agree[..., None]
+                n_knife += int((~agree).sum())
+                got += d_k.double()
+                want += d_p.double()
+            m = float(want.abs().max())
+            out[f"{name}_{'analytic' if analytic else 'parity'}"] = {
+                "d_tf_rel_err": float((got - want).abs().max()) / m
+                if m > 0 else math.inf,
+                "finite": bool(torch.isfinite(got).all()),
+                "knife_edge_rays": n_knife,
+                "zero_alpha_texels": int((tf[:, 3] == 0).sum()),
+                "launches": launches}
+    for case in out.values():           # every case read before any fails
+        require(case["knife_edge_rays"] <= 0.001 * len(blocks) * T * T
+                and case["finite"] and case["d_tf_rel_err"] <= TF_ONLY_TOL,
+                f"TF-only K2 against the plain march: {out}")
+    return out
 
 
 def main() -> int:
@@ -596,7 +720,7 @@ def main() -> int:
           "shear_warp_bwd": ptxas_of("shear_warp.cu",
                                      ["shear_warp_bwd_kernel"]),
           "ptxas_names": "template arguments <kGlobalTf, kAnalytic, "
-                         "[kCamera, ]kSegment> as Lb0/Lb1",
+                         "[kCamera, ]kSegment[, kVolumeGrad]> as Lb0/Lb1",
           "nvidia_smi": smi})
 
     kernels = {}
@@ -4246,19 +4370,25 @@ def main() -> int:
         sync()
         tf_s = time.perf_counter() - t0
         c_tf = P.launch_counts()
+        tf_only = P.march_diff_bwd.tf_only_launches
         n_log = len(o_tf["logged"])
         require(o_tf["losses"][-1] < o_tf["losses"][0]
                 and all(math.isfinite(x) for x in o_tf["losses"]),
                 f"optimize_tf: the loss did not fall: {o_tf['losses']}")
-        require(c_tf["march_diff_bwd"] == 5
+        require(c_tf["march_diff_bwd"] == 5 and tf_only == 5
                 and c_tf["march_diff_fwd"] == 5 + n_log
                 and c_tf["march_nondiff"] == 1,
-                f"optimize_tf.run launched {c_tf} with {n_log} logged")
+                f"optimize_tf.run launched {c_tf} ({tf_only} TF-only K2) "
+                f"with {n_log} logged")
         add_launches(c_tf, ("march_diff_fwd", "march_diff_bwd",
                             "march_nondiff", "cell_minmax", "cell_distance"))
-        exs["optimize_tf"] = {"launches": c_tf, "losses": o_tf["losses"],
+        exs["optimize_tf"] = {"launches": c_tf, "tf_only_launches": tf_only,
+                              "losses": o_tf["losses"],
                               "logged": n_log, "seconds": tf_s,
                               "tf_l1": o_tf["tf_l1"]}
+        exs["tf_only_k2"] = tf_only_k2(P, dev, res)
+        kernels["march_diff_bwd"]["launches"] += sum(
+            c["launches"] for c in exs["tf_only_k2"].values())
         # interactive_viewer, 3 frames without its server.
         a_v = ex_view.parser().parse_args(["--frames", "3"])
         P.reset_launch_counts()

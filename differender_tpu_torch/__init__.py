@@ -24,7 +24,9 @@ instantiations of K1 and K2 (``march_segment_fwd``,
 gradient from its 8 corners in K1, K2 and K3; a camera that requires grad
 gets its gradient through K2's camera instantiation
 (``march_diff_bwd.camera_launches`` counts it), also in a sharded render
-(``march_segment_bwd.camera_launches``).  CPU tensors go to plain torch
+(``march_segment_bwd.camera_launches``), and a TF that alone requires grad
+gets its gradient through K2's TF-only instantiation
+(``march_diff_bwd.tf_only_launches``).  CPU tensors go to plain torch
 versions of the same functions.  Importing the package needs neither a GPU
 nor ``nvcc``.
 
@@ -102,10 +104,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     """Zeroes every wrapper's count, and K2's counts of its camera
     instantiations (``march_diff_bwd.camera_launches``,
-    ``march_segment_bwd.camera_launches``)."""
+    ``march_segment_bwd.camera_launches``) and of its TF-only one
+    (``march_diff_bwd.tf_only_launches``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     march_diff_bwd.camera_launches = 0
+    march_diff_bwd.tf_only_launches = 0
     march_segment_bwd.camera_launches = 0
 
 

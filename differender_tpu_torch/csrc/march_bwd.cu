@@ -69,6 +69,16 @@
 // accumulators and the derivative points would spill in the default
 // instantiation's 128 registers, so the camera one is held to 168 (3 blocks
 // an SM).
+//
+// TF gradient only (kVolumeGrad false, launched where d_volume is null: the
+// volume needs no gradient, nor does any ray tensor, as in a transfer-
+// function fit).  The recompute stays whole (the gradient points still feed
+// the light, so d_c), and so do the composite's backward, the shading's
+// backward to the TF colour, tf_lerp_bwd into d_tf, ERT, the restart rule and
+// the counts of steps.  Left out: the normal's cotangent (shade_bwd's chain
+// from the light to the gradient), the value's cotangent dv and the scatter,
+// with the d_volume buffer the caller would zero.  Only without kCamera and
+// kSegment.
 #include <cuda_runtime.h>
 
 #include "march_common.cuh"
@@ -80,9 +90,11 @@ struct MarchBwdArgs {
                       // that add to d_volume, those that add nothing and
                       // need the light (their d_tf does), the atomics added
                       // to d_volume, and the samples of the stencil's
-                      // general branch
+                      // general branch (the TF-only instantiation counts
+                      // only the last, the others stay 0)
   const float* grad;  // (H*W, 4) image cotangent
-  float* d_volume;    // (X*Y*Z), zeroed by the caller
+  float* d_volume;    // (X*Y*Z), zeroed by the caller; null: the TF-only
+                      // instantiation runs (no ray_sums, no segment)
   float* d_tf;        // (R*4), zeroed by the caller
   float* ray_sums;    // (H*W, 12) P, S, L, V per ray, or null: the camera
                       // instantiation runs where it is set
@@ -288,7 +300,8 @@ __device__ __forceinline__ int scatter_sample(const MarchArgs& a,
 // |g| = 1e-6 (shading.py::_unit_normal_soa_bwd).  kCamera: also adds the
 // cotangents of the position in the light direction, p - (o + (0, 1, 0)),
 // to d_l and of the view direction to d_v (both 0 without a normal).
-template <bool kCamera>
+// kNormalGrad false: the TF colour's cotangent alone, the gradient's 0.
+template <bool kCamera, bool kNormalGrad = true>
 __device__ __forceinline__ float4 shade_bwd(const MarchArgs& a, float4 c,
                                             float px, float py, float pz,
                                             float gx, float gy, float gz,
@@ -336,6 +349,10 @@ __device__ __forceinline__ float4 shade_bwd(const MarchArgs& a, float4 c,
   // alpha = 1 - mm^e: JAX's pow derivative e * mm^(e - 1).
   const float d_mm = -d_alpha * (a.inv_sr * powf(mm, a.inv_sr - 1.0f));
   d_c.w = -d_mm * relu_slope(m1);
+  if constexpr (!kNormalGrad) {
+    dgx = dgy = dgz = 0.0f;
+    return d_c;
+  }
 
   const float d_raw = d_la * alpha *
       (light_raw < 1.0f ? 1.0f : (light_raw == 1.0f ? 0.5f : 0.0f));
@@ -495,7 +512,11 @@ __device__ __forceinline__ float rest_of_ray(
 // kSegment with kCamera: the 12 per-ray sums over the owned run, with the
 // global sample index s, so the caller maps them through ray_cotangents
 // unchanged; the ranks' sums of one ray add up to the whole ray's.
-template <bool kGlobalTf, bool kAnalytic, bool kCamera, bool kSegment>
+//
+// kVolumeGrad false (neither kCamera nor kSegment): d_tf alone, see the top
+// of this file.
+template <bool kGlobalTf, bool kAnalytic, bool kCamera, bool kSegment,
+          bool kVolumeGrad = true>
 __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
     march_diff_bwd_kernel(MarchBwdArgs b) {
   extern __shared__ float4 s_tf[];
@@ -580,19 +601,21 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
       }
       float dgx, dgy, dgz;
       float3 d_p = make_float3(0.0f, 0.0f, 0.0f);
-      const float4 d_c = shade_bwd<kCamera>(
+      const float4 d_c = shade_bwd<kCamera, kVolumeGrad>(
           a, q.c, q.px, q.py, q.pz, q.gx, q.gy, q.gz, dx, dy, dz, ox, oy, oz,
           make_float4(d_sh.x, d_sh.y, d_sh.z, d_a), dgx, dgy, dgz, d_p,
           sum_v);
       const float dv =
           tf_lerp_bwd<kSegment ? kTfGradEveryT : kMarchTfMask<kGlobalTf>,
                       kGlobalTf>(tf, a.R, q.v, d_c, acc);
-      if (dv != 0.0f || dgx != 0.0f || dgy != 0.0f || dgz != 0.0f) {
-        ++scattered;
-        atomics += scatter_sample<kAnalytic, kSegment>(a, b.d_volume, q, dv,
-                                                       dgx, dgy, dgz);
-      } else {
-        quiet_light += light;
+      if constexpr (kVolumeGrad) {
+        if (dv != 0.0f || dgx != 0.0f || dgy != 0.0f || dgz != 0.0f) {
+          ++scattered;
+          atomics += scatter_sample<kAnalytic, kSegment>(a, b.d_volume, q,
+                                                         dv, dgx, dgy, dgz);
+        } else {
+          quiet_light += light;
+        }
       }
       if constexpr (kCamera) {
         // d_p holds the light-direction term so far.
@@ -633,14 +656,15 @@ __global__ void __launch_bounds__(128, kCamera ? 3 : 4)
   if (!kGlobalTf) flush_tf_grad(acc, a.R, b.d_tf);
 }
 
-template <bool kAnalytic, bool kCamera, bool kSegment = false>
+template <bool kAnalytic, bool kCamera, bool kSegment = false,
+          bool kVolumeGrad = true>
 static void launch_bwd(const MarchBwdArgs& b, dim3 grid, dim3 block,
                        cudaStream_t s) {
   if (b.f.R <= kMaxSharedTexels) {
-    march_diff_bwd_kernel<false, kAnalytic, kCamera, kSegment>
+    march_diff_bwd_kernel<false, kAnalytic, kCamera, kSegment, kVolumeGrad>
         <<<grid, block, 2 * b.f.R * sizeof(float4), s>>>(b);
   } else {
-    march_diff_bwd_kernel<true, kAnalytic, kCamera, kSegment>
+    march_diff_bwd_kernel<true, kAnalytic, kCamera, kSegment, kVolumeGrad>
         <<<grid, block, 0, s>>>(b);
   }
 }
@@ -656,6 +680,8 @@ extern "C" int dr_march_diff_bwd(const MarchBwdArgs* b, int device,
                   (a.H + block.y - 1) / block.y);
   cudaStream_t s = (cudaStream_t)stream;
   const bool camera = b->ray_sums != nullptr;
+  const bool tf_only = b->d_volume == nullptr;
+  if (tf_only && (camera || a.s_lo)) return (int)cudaErrorInvalidValue;
   if (a.s_lo) {
     // The segment instantiations: parity only (the caller never asks for
     // analytic normals in a segment, as JAX's segment ignores them).
@@ -668,11 +694,15 @@ extern "C" int dr_march_diff_bwd(const MarchBwdArgs* b, int device,
   } else if (a.analytic) {
     if (camera) {
       launch_bwd<true, true>(*b, grid, block, s);
+    } else if (tf_only) {
+      launch_bwd<true, false, false, false>(*b, grid, block, s);
     } else {
       launch_bwd<true, false>(*b, grid, block, s);
     }
   } else if (camera) {
     launch_bwd<false, true>(*b, grid, block, s);
+  } else if (tf_only) {
+    launch_bwd<false, false, false, false>(*b, grid, block, s);
   } else {
     launch_bwd<false, false>(*b, grid, block, s);
   }

@@ -16,8 +16,13 @@ import torch
 from .profiling import span
 
 
-def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def _mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    with span("dr.loss"):
+        return _mse(pred, target)
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,7 +92,7 @@ def dssim_mse_loss(pred: torch.Tensor, target: torch.Tensor,
     with span("dr.loss"):
         dssim = 1.0 - ssim(pred, target, data_range=data_range,
                            nonnegative_ssim=True)
-        return torch.nan_to_num(dssim) + mse_loss(pred, target)
+        return torch.nan_to_num(dssim) + _mse(pred, target)
 
 
 __all__ = ["mse_loss", "ssim", "dssim_mse_loss"]

@@ -20,6 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 class TFMomentum(torch.optim.Optimizer):
     """See the module docstring; one state per parameter: ``momentum`` and
@@ -32,28 +34,29 @@ class TFMomentum(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["momentum"] = torch.zeros_like(p)
-                    state["step"] = 0
-                # The rate in f32, as the JAX transform computes it.
-                cur_lr = float(np.float32(group["lr"]) * np.power(
-                    np.float32(group["lr_decay"]),
-                    np.float32(state["step"])))
-                mom = state["momentum"]
-                mom.mul_(group["gamma"]).add_(
-                    torch.clamp(p.grad, -group["max_grad"],
-                                group["max_grad"]), alpha=cur_lr)
-                p.sub_(mom)
-                state["step"] += 1
+        with span("dr.optim"):
+            loss = None
+            if closure is not None:
+                with torch.enable_grad():
+                    loss = closure()
+            for group in self.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    state = self.state[p]
+                    if not state:
+                        state["momentum"] = torch.zeros_like(p)
+                        state["step"] = 0
+                    # The rate in f32, as the JAX transform computes it.
+                    cur_lr = float(np.float32(group["lr"]) * np.power(
+                        np.float32(group["lr_decay"]),
+                        np.float32(state["step"])))
+                    mom = state["momentum"]
+                    mom.mul_(group["gamma"]).add_(
+                        torch.clamp(p.grad, -group["max_grad"],
+                                    group["max_grad"]), alpha=cur_lr)
+                    p.sub_(mom)
+                    state["step"] += 1
         return loss
 
 

@@ -26,7 +26,10 @@ of the profiler's state.  The package opens these spans:
   :func:`~differender_tpu_torch.launch_counts`);
 - ``dr.backward``: the backward of each autograd Function that launches a
   kernel (the march, its segment, the shear-warp march, the TF lookup);
-- ``dr.loss``: ``losses.dssim_mse_loss``;
+  ``dr.backward.tf_only``: inside the march's, the launch of K2's TF-only
+  instantiation (the volume and the camera need no gradient);
+- ``dr.loss``: ``losses.dssim_mse_loss`` and ``losses.mse_loss``;
+- ``dr.optim``: the body of ``optim.TFMomentum.step``;
 - ``dr.sync``: each host-device sync that the package makes on its own:
   a tensor made from host data on the card (a copy that waits for the
   stream; ``geometry.make_rays`` makes its four constant vectors once per
@@ -34,8 +37,9 @@ of the profiler's state.  The package opens these spans:
   policy's statistic, a collective's flags, a plain march's ``nonzero``.
 
 Counted per step or frame in a trace, ``dr.view``, ``dr.grid``,
-``dr.launch.*`` and ``dr.sync`` are the views rendered, the grids built,
-the program's launches and its syncs.
+``dr.launch.*``, ``dr.backward.tf_only`` and ``dr.sync`` are the views
+rendered, the grids built, the program's launches, K2's TF-only launches
+and its syncs.
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ and :func:`value_and_grad_blockwise` its refusals over
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import time
@@ -557,11 +558,14 @@ def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
 
 
 def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-               counts=None, sums=None, segment=None):
+               counts=None, sums=None, segment=None, volume_grad=True):
     """One launch of K2 (uncounted): its camera instantiation where
     ``sums`` (an (H, W, 12) f32 tensor) is given to receive the per-ray
     sums, its segment instantiation with a :class:`Segment` (``d_volume``
-    then has the padded block's shape)."""
+    then has the padded block's shape).  Without ``volume_grad``, its TF-only
+    instantiation (neither ``sums`` nor a segment: the C entry refuses
+    them): no ``d_volume`` is allocated or computed, and ``None`` is
+    returned in its place."""
     H, W = config.image_shape
     dev = volume.device
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
@@ -571,9 +575,11 @@ def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
     grad = _checked("image cotangent", grad, dev, (H, W, 4))
     if grad.data_ptr() % 16:
         grad = grad.clone()      # float4 loads need 16-byte alignment
-    d_volume = torch.zeros(keep[0].shape, dtype=torch.float32, device=dev)
+    d_volume = (torch.zeros(keep[0].shape, dtype=torch.float32, device=dev)
+                if volume_grad else None)
     d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
-    args = _MarchBwdArgs(fwd, grad.data_ptr(), d_volume.data_ptr(),
+    args = _MarchBwdArgs(fwd, grad.data_ptr(),
+                         d_volume.data_ptr() if volume_grad else None,
                          d_tf.data_ptr(),
                          sums.data_ptr() if sums is not None else None)
     _launch("dr_march_diff_bwd", args, keep[0])
@@ -581,14 +587,16 @@ def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
 
 
 def _k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-        counts=None, sums=None):
+        counts=None, sums=None, volume_grad=True):
     """One launch of K2, counted; its camera instantiation where ``sums``
-    is given (:func:`_launch_k2`)."""
+    is given, its TF-only one without ``volume_grad``
+    (:func:`_launch_k2`)."""
     with span("dr.launch.march_diff_bwd"):
         out = _launch_k2(volume, tf, soa, config, sampling_rate, image, grad,
-                         ert, counts, sums)
+                         ert, counts, sums, volume_grad=volume_grad)
         march_diff_bwd.launches += 1
         march_diff_bwd.camera_launches += sums is not None
+        march_diff_bwd.tf_only_launches += not volume_grad
     return out
 
 
@@ -596,7 +604,8 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                    config: RenderConfig, sampling_rate, image: torch.Tensor,
                    grad: torch.Tensor, ert: bool = True, *,
                    counts: Optional[torch.Tensor] = None,
-                   sums: Optional[torch.Tensor] = None):
+                   sums: Optional[torch.Tensor] = None,
+                   volume_grad: bool = True):
     """Backward of the differentiable march for the image cotangent
     ``grad`` (H, W, 4): kernel K2 on CUDA tensors (one launch, counted in
     ``march_diff_bwd.launches``), :func:`march_diff_bwd_plain` on CPU.
@@ -615,23 +624,31 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     ``sums``, an (H, W, 12) f32 tensor beside the volume, receives K2's
     per-ray position sums (:func:`ray_sums`; K2's camera instantiation,
     also counted in ``march_diff_bwd.camera_launches``), the plain version
-    of which is :func:`march_diff_cotangents_plain`."""
+    of which is :func:`march_diff_cotangents_plain`.  Without
+    ``volume_grad``, ``d_volume`` is ``None``: K2's TF-only instantiation
+    (counted in ``march_diff_bwd.tf_only_launches``) computes ``d_tf``
+    alone, and takes no ``sums``."""
+    if not volume_grad and sums is not None:
+        raise ValueError("sums are taken by K2's camera instantiation, "
+                         "which computes the volume gradient too")
     if _build.uses_plain(volume):
         if counts is not None or sums is not None:
             raise ValueError("counts and sums are taken by kernel K2 only; "
                              "the volume is on the CPU")
-        return march_diff_bwd_plain(volume, tf, rays, config, sampling_rate,
-                                    grad, ert)
+        d_v, d_t, steps = march_diff_bwd_plain(volume, tf, rays, config,
+                                               sampling_rate, grad, ert)
+        return (d_v if volume_grad else None), d_t, steps
     H, W = config.image_shape
     counts = _counts_out("counts", counts, volume.device, (H, W, 4))
     sums = _counts_out("sums", sums, volume.device, (H, W, 12),
                        torch.float32)
     return _k2(volume, tf, _ray_soa(rays), config, sampling_rate, image,
-               grad, ert, counts, sums)
+               grad, ert, counts, sums, volume_grad=volume_grad)
 
 
 march_diff_bwd.launches = 0
 march_diff_bwd.camera_launches = 0
+march_diff_bwd.tf_only_launches = 0
 
 
 class _MarchDiff(torch.autograd.Function):
@@ -640,7 +657,10 @@ class _MarchDiff(torch.autograd.Function):
     (O(H*W) state beside the volume); ``valid_steps`` is not
     differentiable.  Where a ray tensor needs a gradient, K2's camera
     instantiation also sums the position cotangents per ray, and
-    :func:`ray_cotangents` maps them onto the ray tensors."""
+    :func:`ray_cotangents` maps them onto the ray tensors.  Where only the
+    TF needs one, K2's TF-only instantiation computes ``d_tf`` alone
+    (counted in ``march_diff_bwd.tf_only_launches``, inside the span
+    ``dr.backward.tf_only``)."""
 
     @staticmethod
     def forward(ctx, volume, tf, origin, dirs, t0, dt, n, config,
@@ -658,14 +678,16 @@ class _MarchDiff(torch.autograd.Function):
         config, sampling_rate, ert = ctx.march
         need = ctx.needs_input_grad
         camera = any(need[2:6])
-        with span("dr.backward"):
+        tf_only = need[1] and not need[0] and not camera
+        with span("dr.backward"), (span("dr.backward.tf_only") if tf_only
+                                   else contextlib.nullcontext()):
             sums = (torch.empty(config.image_shape + (12,),
                                 dtype=torch.float32, device=volume.device)
                     if camera else None)
             d_volume, d_tf, _ = _k2(volume, tf,
                                     RaySoA(origin, dirs, t0, dt, n), config,
                                     sampling_rate, image, g_image, ert,
-                                    sums=sums)
+                                    sums=sums, volume_grad=not tf_only)
             d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
                       else (None,) * 4)
         grads = (d_volume, d_tf) + d_rays

@@ -125,7 +125,9 @@ SPANS = [_x("dr.raycaster", 0, 500), _x("dr.view", 10, 200),
          _x("dr.launch.march_nondiff", 160, 190), _x("dr.view", 300, 480),
          _x("dr.rays", 310, 330), _x("dr.launch.march_diff_fwd", 450, 470),
          _x("dr.loss", 540, 560), _x("dr.backward", 520, 650, tid=2),
+         _x("dr.backward.tf_only", 530, 645, tid=2),
          _x("dr.launch.march_diff_bwd", 600, 640, tid=2),
+         _x("dr.optim", 655, 695),
          _x("dr.view", -50, -30), _x("dr.sync", 980, 1020)]
 OTHERS = [_x(tracing.WINDOW, 0, 1000), _x("dvrbench.step", 0, 990),
           _x("aten::add", 700, 800, "cpu_op")]
@@ -137,6 +139,7 @@ EXPECTED = {
     # [700, 1000].
     "program_idle_share.train": 50.0, "program_idle_share.viewer": 50.0,
     "grid_builds.train": 0.5,
+    "tf_only_bwd.tffit": 0.5, "optim_host_ms.tffit": 0.02,
 }
 
 
