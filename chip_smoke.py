@@ -206,7 +206,16 @@ Phases (one JSON line each):
      examples' files written where PIL and matplotlib import.  K2's TF-only
      instantiation at the upstream TF fit's shapes against the plain march
      (:func:`tf_only_k2`).
-  Each of 9d-9k prints its own seconds.
+  9l. view_batch: the volume fit's ground truth in one K3 launch
+     (:func:`view_batch`): at its shapes (256^3, 8 views of 256^2,
+     sampling rate 8, the grid on) on the benchmark's ``ct_head`` and
+     ``dense_sim`` scenes, ``render_nondiff_batch`` (one grid build, one K3
+     launch, 8 batched views) and K3 on the views' stacked rays bitwise a
+     launch a view (image, visited, composited, counts), and
+     ``Raycaster.raycast_nondiff`` of the 8 poses bitwise its view-by-view
+     loop; the batched and the looped render and K3 timed in turn; K3's
+     registers and spills from ptxas.
+  Each of 9d-9l prints its own seconds.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -415,6 +424,150 @@ def tf_sums_in_f64(P):
         yield
     finally:
         P.sampling.tf_lerp_bwd = orig
+
+
+# K3's registers and spill stores a thread, read from ptxas before its launch
+# grid took the view axis (one H100 build, parity: 128 registers, 8 bytes of
+# spill stores; analytic: 84-86, none); the view axis must keep them.
+K3_MAX_REGISTERS = 128
+K3_MAX_SPILL_STORES = 8
+
+
+def view_batch(P, dev, ptxas=None, seed: int = 19) -> dict:
+    """The volume fit's ground truth as one batched render
+    (``render_nondiff_batch``) at the benchmark's shapes (configuration
+    ``volfit_256``: 256^3, tf1 at R 128, 8 views of 256^2 at sampling rate
+    8, the occupancy grid on) on its ``ct_head`` and ``dense_sim`` scenes
+    and one step's poses from ``seed``.  Per scene: one grid build (one K6,
+    one K7) and one K3 launch, the 8 views counted in
+    ``march_nondiff.batched_views``; K3 on the views' stacked rays bitwise
+    8 launches of one view each (image, visited and composited samples,
+    per-ray counts); ``Raycaster.raycast_nondiff`` of the 8 poses (one
+    launch) bitwise its view-by-view loop (a TF batch of distinct copies:
+    8 launches).  The batched render and the loop of 8 ``render_nondiff``
+    timed in turn by CUDA events, and K3 alone (one launch of 8 views, 8
+    launches).  ``ptxas`` (the build's report of ``march.cu``): every
+    instantiation of ``march_nondiff_kernel`` within K3_MAX_REGISTERS and
+    K3_MAX_SPILL_STORES.  Returns each scene's readings."""
+    import torch
+    from dvrbench import harness
+    from dvrbench.jobs import volfit
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def in_turn(fa, fb, reps=10, warm=2):
+        for _ in range(warm):
+            fa()
+            fb()
+        sync()
+        times = ([], [])
+        for _ in range(reps):
+            for fn, out in zip((fa, fb), times):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                out.append((a, b))
+        sync()
+        return [statistics.median(a.elapsed_time(b) for a, b in t)
+                for t in times]
+
+    out = {}
+    if ptxas is not None:
+        k3, cur = {}, None
+        for ln in ptxas:
+            if "Compiling entry function" in ln:
+                cur = (ln.split("'")[1] if "march_nondiff_kernel" in ln
+                       else None)
+            elif cur and ("Used" in ln or "spill" in ln):
+                k3.setdefault(cur, []).append(ln)
+        regs = {k: int(ln.split("Used ")[1].split()[0])
+                for k, lns in k3.items() for ln in lns if "Used" in ln}
+        spills = {k: int(ln.split(" bytes spill stores")[0].split()[-1])
+                  for k, lns in k3.items() for ln in lns
+                  if "spill stores" in ln}
+        out["resources"] = k3
+        require(len(regs) == 4 and max(regs.values()) <= K3_MAX_REGISTERS
+                and max(spills.values()) <= K3_MAX_SPILL_STORES,
+                f"K3's registers or spills grew: {k3}")
+    cfg_v = harness.config("volfit_256")
+    sr = float(cfg_v["gt_sampling_rate"])
+    for scene in ("ct_head", "dense_sim"):
+        job = volfit.Job(cfg_v, harness.traffic(scene), seed, dev)
+        lfs, _ = job.feed()
+        rc, cfg = job.rc, job.rc.config
+        V = lfs.shape[0]
+        H, W = cfg.image_shape
+        vol = P.volume_to_internal(job.vol_gt[0]).contiguous()
+        tf = P.tf_to_internal(job.tf).contiguous()
+        label = f"view_batch on {scene}"
+
+        sync()
+        P.reset_launch_counts()
+        batch = P.render_nondiff_batch(vol, tf, lfs, cfg, sr)
+        sync()
+        n = P.launch_counts()
+        require(n["march_nondiff"] == 1 and n["cell_minmax"] == 1
+                and n["cell_distance"] == 1
+                and P.march_nondiff.batched_views == V,
+                f"{label}: launches {n}, batched views "
+                f"{P.march_nondiff.batched_views}")
+        loop = torch.stack([P.render_nondiff(vol, tf, lf, cfg, sr).image
+                            for lf in lfs])
+        require(torch.equal(batch.image, loop),
+                f"{label}: the batched render is not the loop's")
+
+        grid = P.build_occupancy(vol, tf, cfg)
+        per_view = [P.make_rays(lf, cfg, sr) for lf in lfs]
+        rays = P.RayBundle(*(torch.stack(f) for f in zip(*per_view)))
+        counts = torch.empty((V, H, W, 3), dtype=torch.int32, device=dev)
+        got = P.march_nondiff(vol, tf, rays, cfg, sr, grid, counts=counts)
+        one = torch.empty((H, W, 3), dtype=torch.int32, device=dev)
+        for v, r in enumerate(per_view):
+            want = P.march_nondiff(vol, tf, r, cfg, sr, grid, counts=one)
+            require(all(torch.equal(g[v], w) for g, w in zip(got, want))
+                    and torch.equal(counts[v], one),
+                    f"{label}: K3's view {v} in the batch is not its own "
+                    f"launch's")
+
+        vol_u, tf_u = job.vol_gt, job.tf
+        sync()
+        P.reset_launch_counts()
+        rc_batch = rc.raycast_nondiff(vol_u, tf_u, lfs, sr)
+        sync()
+        k3_batch = P.launch_counts()["march_nondiff"]
+        P.reset_launch_counts()
+        rc_loop = rc.raycast_nondiff(vol_u, tf_u[None].repeat(V, 1, 1), lfs,
+                                     sr)
+        sync()
+        k3_loop = P.launch_counts()["march_nondiff"]
+        require(k3_batch == 1 and k3_loop == V
+                and torch.equal(rc_batch, rc_loop),
+                f"{label}: raycast_nondiff launched K3 {k3_batch}x batched, "
+                f"{k3_loop}x looped, images equal "
+                f"{bool(torch.equal(rc_batch, rc_loop))}")
+
+        render_ms = in_turn(
+            lambda: P.render_nondiff_batch(vol, tf, lfs, cfg, sr),
+            lambda: [P.render_nondiff(vol, tf, lf, cfg, sr) for lf in lfs])
+        k3_ms = in_turn(
+            lambda: P.march_nondiff(vol, tf, rays, cfg, sr, grid),
+            lambda: [P.march_nondiff(vol, tf, r, cfg, sr, grid)
+                     for r in per_view])
+        out[scene] = {
+            "views": V, "image": [H, W], "sampling_rate": sr, "launches": n,
+            "visited": int(got[1].sum()), "composited": int(got[2].sum()),
+            "cell_loads": int(counts[..., 0].sum()),
+            "grid_reads": int(counts[..., 2].sum()),
+            "render_ms": {"batched": render_ms[0], "looped": render_ms[1]},
+            "k3_ms": {"batched": k3_ms[0], "looped": k3_ms[1]},
+            "k3_ns_per_ray": {"batched": k3_ms[0] * 1e6 / (V * H * W),
+                              "looped": k3_ms[1] * 1e6 / (V * H * W)}}
+        del job, vol, tf, grid, rays, got, counts, batch, loop
+        torch.cuda.empty_cache()
+    return out
 
 
 def tf_only_k2(P, dev, res: int = 256) -> dict:
@@ -4418,6 +4571,15 @@ def main() -> int:
     emit({"phase": "examples", "cases": exs,
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     torch.cuda.empty_cache()
+
+    # -- 9l. view_batch: the ground truth's views in one K3 launch ----------
+    t_phase = time.perf_counter()
+    vb = view_batch(P, dev, info.ptxas.get("march.cu", []))
+    emit({"phase": "view_batch", "cases": vb,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    kernels["march_nondiff"]["launches"] += sum(
+        c["launches"]["march_nondiff"] for k, c in vb.items()
+        if k != "resources")
 
     # -- 10. kernels line and the contract line ---------------------------------
     for name, k in kernels.items():

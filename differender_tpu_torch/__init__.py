@@ -8,9 +8,10 @@ and their gradients (:func:`value_and_grad_render`), also marched in row
 strips (:func:`render_strips`) or depth-sorted chunks
 (:func:`render_depth_sorted`, chosen per scene by
 :func:`choose_diff_renderer`); ``march_nondiff`` (K3) behind
-:func:`render_nondiff`, :func:`render_nondiff_strips` and
-:meth:`Raycaster.raycast_nondiff`, which jumps over empty space through the
-occupancy grid that ``cell_minmax`` (K6) and ``cell_distance`` (K7) build
+:func:`render_nondiff`, :func:`render_nondiff_strips`,
+:func:`render_nondiff_batch` (V views of one volume and TF in one launch)
+and :meth:`Raycaster.raycast_nondiff`, which jumps over empty space through
+the occupancy grid that ``cell_minmax`` (K6) and ``cell_distance`` (K7) build
 (:func:`build_occupancy`); ``brick_sums`` (K4) and ``brick_rows`` (K5), the
 box sums of the TPU DMA probe.  The shear-warp fast path
 (:func:`render_fast`, :meth:`Raycaster.raycast_fast`) marches its slabs
@@ -65,8 +66,8 @@ from .render import (RenderOutput, choose_diff_renderer, march_diff,
                      march_diff_bwd, march_diff_bwd_plain, march_diff_fwd,
                      march_diff_plain, march_nondiff, march_nondiff_plain,
                      ray_cotangents, render, render_depth_sorted, render_jit,
-                     render_nondiff, render_nondiff_jit,
-                     render_nondiff_strips, render_strips,
+                     render_nondiff, render_nondiff_batch,
+                     render_nondiff_jit, render_nondiff_strips, render_strips,
                      value_and_grad_blockwise, value_and_grad_render)
 from .shading import premultiply_alpha
 from .transfer import (get_tf, get_tf_torch_layout, random_peaks_tf,
@@ -102,12 +103,14 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zeroes every wrapper's count, and K2's counts of its camera
+    """Zeroes every wrapper's count, K2's counts of its camera
     instantiations (``march_diff_bwd.camera_launches``,
     ``march_segment_bwd.camera_launches``) and of its TF-only one
-    (``march_diff_bwd.tf_only_launches``)."""
+    (``march_diff_bwd.tf_only_launches``), and the views marched in batches
+    (``march_nondiff.batched_views``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    march_nondiff.batched_views = 0
     march_diff_bwd.camera_launches = 0
     march_diff_bwd.tf_only_launches = 0
     march_segment_bwd.camera_launches = 0
@@ -122,6 +125,7 @@ __all__ = [
     "RenderOutput", "march_diff", "march_diff_fwd", "march_diff_bwd",
     "march_diff_plain", "march_diff_bwd_plain", "ray_cotangents",
     "march_nondiff", "march_nondiff_plain", "render", "render_nondiff",
+    "render_nondiff_batch",
     "render_jit", "render_nondiff_jit", "value_and_grad_render",
     "render_nondiff_strips", "render_strips", "render_depth_sorted",
     "choose_diff_renderer", "value_and_grad_blockwise", "render_fast",

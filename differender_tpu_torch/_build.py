@@ -145,11 +145,12 @@ def library() -> ctypes.CDLL:
                                      i32, i32, i32, ptr]
     lib.dr_tf_lookup_bwd.restype = i32
     for name in ("dr_march_diff_fwd", "dr_march_diff_bwd",
-                 "dr_march_nondiff", "dr_shear_warp_fwd",
-                 "dr_shear_warp_bwd"):
+                 "dr_shear_warp_fwd", "dr_shear_warp_bwd"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, i32, ptr]
         fn.restype = i32
+    lib.dr_march_nondiff.argtypes = [ptr, i32, i32, ptr]   # + view count
+    lib.dr_march_nondiff.restype = i32
     lib.dr_brick_sums.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i64,
                                   ptr, i32, ptr]
     lib.dr_brick_rows.argtypes = [ptr, i32, i64, ptr, i32, ptr, i64, ptr,

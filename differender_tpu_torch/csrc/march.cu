@@ -134,6 +134,11 @@ __device__ __forceinline__ Centre centre_at(const MarchArgs& a, int s,
 
 // At least 4 blocks of 128 threads per SM: at most 128 registers a thread
 // (5 blocks, 96 registers, spill; 3 blocks take 168; neither was faster).
+//
+// A launch marches V views of one volume and TF (one grid), the view in
+// blockIdx.z: the slowest axis, so the blocks resident at once lie in one
+// or two views.  The per-ray operands and outputs are view-major (ray p of
+// view v at v*H*W + p) and origin holds one (x, y, z) row a view.
 template <bool kGlobalTf, bool kAnalytic>
 __global__ void __launch_bounds__(128, 4) march_nondiff_kernel(MarchArgs a) {
   extern __shared__ float4 s_tf[];
@@ -142,10 +147,10 @@ __global__ void __launch_bounds__(128, 4) march_nondiff_kernel(MarchArgs a) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int h = blockIdx.y * blockDim.y + threadIdx.y;
   if (w >= a.W || h >= a.H) return;
-  const long long p = (long long)h * a.W + w;
+  const long long p = ((long long)blockIdx.z * a.H + h) * a.W + w;
 
-  const float ox = __ldg(a.origin), oy = __ldg(a.origin + 1),
-              oz = __ldg(a.origin + 2);
+  const float* o = a.origin + 3 * blockIdx.z;
+  const float ox = __ldg(o), oy = __ldg(o + 1), oz = __ldg(o + 2);
   const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
   const float t0 = a.t0[p], dt = a.dt[p];
   const int steps = min(a.n[p], a.max_steps);
@@ -249,14 +254,15 @@ static void launch_tf(const MarchArgs& a, dim3 grid, dim3 block,
   }
 }
 
+// views > 1: K3 alone (march_nondiff_kernel's blockIdx.z).
 template <template <bool, bool> class Launch>
-static int launch(const MarchArgs* a, int device, void* stream) {
+static int launch(const MarchArgs* a, int views, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (a->H <= 0 || a->W <= 0) return 0;
+  if (a->H <= 0 || a->W <= 0 || views <= 0) return 0;
   const dim3 block(16, 8);
   const dim3 grid((a->W + block.x - 1) / block.x,
-                  (a->H + block.y - 1) / block.y);
+                  (a->H + block.y - 1) / block.y, views);
   cudaStream_t s = (cudaStream_t)stream;
   if (a->analytic) {
     launch_tf<Launch, true>(*a, grid, block, s);
@@ -294,11 +300,12 @@ struct LaunchNondiff {
 
 extern "C" int dr_march_diff_fwd(const MarchArgs* a, int device,
                                  void* stream) {
-  if (a->s_lo) return launch<LaunchSegment>(a, device, stream);
-  return launch<LaunchDiff>(a, device, stream);
+  if (a->s_lo) return launch<LaunchSegment>(a, 1, device, stream);
+  return launch<LaunchDiff>(a, 1, device, stream);
 }
 
-extern "C" int dr_march_nondiff(const MarchArgs* a, int device,
+// K3 over `views` views (1 to 65535) of the rays in `a`.
+extern "C" int dr_march_nondiff(const MarchArgs* a, int views, int device,
                                 void* stream) {
-  return launch<LaunchNondiff>(a, device, stream);
+  return launch<LaunchNondiff>(a, views, device, stream);
 }

@@ -89,7 +89,7 @@ def run(args):
     from differender_tpu_torch import (RenderConfig, adamw_onecycle,
                                        dssim_mse_loss, get_rand_pos, get_tf,
                                        in_circles, project_unit, render,
-                                       render_nondiff)
+                                       render_nondiff, render_nondiff_batch)
     from differender_tpu_torch.io import (checkpoint_tensors,
                                           load_checkpoint, save_checkpoint)
     from differender_tpu_torch.parallel import train_step_views
@@ -150,9 +150,8 @@ def run(args):
 
     def step(lfs, u):
         with torch.no_grad():
-            gts = torch.stack([render_nondiff(vol_gt, tf, lf, cfg,
-                                              args.gt_sampling_rate).image
-                               for lf in lfs])
+            gts = render_nondiff_batch(vol_gt, tf, lfs, cfg,
+                                       args.gt_sampling_rate).image
         if mode is None:
             # One graph over all views, the batch's joint loss.
             v = vol.detach().requires_grad_()

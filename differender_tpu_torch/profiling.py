@@ -17,6 +17,8 @@ of the profiler's state.  The package opens these spans:
   copies, the loop over views, stack and permute);
 - ``dr.view``: one single-view render (``render``, ``render_nondiff``,
   ``render_fast`` and their strip, depth-sorted and sharded forms);
+  ``dr.view.batch``: one ``render_nondiff_batch``, the inference render of
+  a batch of views of one volume and TF (one grid, one K3 launch);
 - ``dr.rays``: ``geometry.make_rays``; ``dr.rays.soa``: a march's flat ray
   state (``render._ray_soa``);
 - ``dr.grid``: ``occupancy.build_occupancy``;
@@ -36,10 +38,10 @@ of the profiler's state.  The package opens these spans:
   device and values, then reuses them), a camera read on the host, a
   policy's statistic, a collective's flags, a plain march's ``nonzero``.
 
-Counted per step or frame in a trace, ``dr.view``, ``dr.grid``,
-``dr.launch.*``, ``dr.backward.tf_only`` and ``dr.sync`` are the views
-rendered, the grids built, the program's launches, K2's TF-only launches
-and its syncs.
+Counted per step or frame in a trace, ``dr.view``, ``dr.view.batch``,
+``dr.grid``, ``dr.launch.*``, ``dr.backward.tf_only`` and ``dr.sync`` are
+the views rendered one by one, the batches of views, the grids built, the
+program's launches, K2's TF-only launches and its syncs.
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@
 
 Inputs: volume ``([BS,] 1, D, H, W)``, transfer function ``([BS,] 4, R)``,
 camera ``([BS,] 3)``; if any of them is batched, all are broadcast to the
-batch.  Output ``([BS,] 4, H, W)``.  A batch is a Python loop over views.
+batch (a volume or TF batched with stride 0 on the batch axis, or a batch
+of one, counts as one broadcast).  Output ``([BS,] 4, H, W)``.  A batch is
+a Python loop over views, but for ``raycast_nondiff`` of one volume and TF:
+one :func:`~differender_tpu_torch.render.render_nondiff_batch`.
 ``raycast_fast`` renders through the shear-warp fast path.
 ``forward`` is differentiable with respect to the volume and the TF (an
 unbatched input broadcast over a batch gets the sum of its views'
@@ -20,7 +23,8 @@ from torch import nn
 from .config import RenderConfig
 from .fastpath import render_fast
 from .profiling import span
-from .render import RenderOutput, render, render_nondiff
+from .render import (RenderOutput, render, render_nondiff,
+                     render_nondiff_batch)
 
 
 def volume_to_internal(volume: torch.Tensor) -> torch.Tensor:
@@ -40,6 +44,12 @@ def tf_to_internal(tf: torch.Tensor) -> torch.Tensor:
 
 def tf_from_internal(tf: torch.Tensor) -> torch.Tensor:
     return tf.permute(1, 0)
+
+
+def _one_row(x: torch.Tensor) -> bool:
+    """Whether every row of ``x``'s batch axis is one tensor: a batch of
+    one, or rows broadcast with stride 0."""
+    return x.shape[0] == 1 or x.stride(0) == 0
 
 
 class Raycaster(nn.Module):
@@ -96,7 +106,9 @@ class Raycaster(nn.Module):
     def _determine_batch(self, volume, tf, look_from):
         """Validate shapes and broadcast; returns (batched, bs, volume
         (BS?, X, Y, Z), tf (BS?, R, 4), look_from (BS?, 3)) in internal
-        layouts."""
+        layouts.  A volume or TF shared by the batch (unbatched, a batch of
+        one, or batched with stride 0) comes back as one tensor expanded
+        over it."""
         v_b, t_b, l_b = volume.ndim == 5, tf.ndim == 3, look_from.ndim == 2
         batched = v_b or t_b or l_b
         d, h, w = (self.volume_shape[1], self.volume_shape[2],
@@ -118,6 +130,10 @@ class Raycaster(nn.Module):
                     tf_to_internal(tf).contiguous(), look_from)
         bs = (volume.shape[0] if v_b else tf.shape[0] if t_b
               else look_from.shape[0])
+        if v_b and _one_row(volume):
+            volume, v_b = volume[0], False
+        if t_b and _one_row(tf):
+            tf, t_b = tf[0], False
         vol = (volume[:, 0].permute(0, 3, 1, 2).contiguous() if v_b
                else volume_to_internal(volume[0]).contiguous()
                .expand((bs,) + self.volume_shape))
@@ -179,7 +195,12 @@ class Raycaster(nn.Module):
                         sampling_rate: Optional[float] = None
                         ) -> torch.Tensor:
         """Inference render; default sampling rate ``4 * sampling_rate``,
-        no jitter.  Returns ``([BS,] 4, H, W)``."""
+        no jitter.  Returns ``([BS,] 4, H, W)``.  A batch of views of one
+        volume and TF (each unbatched, a batch of one or batched with
+        stride 0) is one
+        :func:`~differender_tpu_torch.render.render_nondiff_batch`: one
+        occupancy grid and one K3 launch; distinct volumes or TFs are
+        rendered view by view."""
         with span("dr.raycaster"):
             volume, tf, look_from = (self._as_input(volume),
                                      self._as_input(tf),
@@ -191,6 +212,10 @@ class Raycaster(nn.Module):
             if not batched:
                 img = render_nondiff(vol, tf_i, lf, self.config, sr).image
                 return img.permute(2, 0, 1)
+            if _one_row(vol) and _one_row(tf_i) and lf.shape[0] == bs:
+                img = render_nondiff_batch(vol[0], tf_i[0], lf, self.config,
+                                           sr).image
+                return img.permute(0, 3, 1, 2)
             imgs = [render_nondiff(vol[i], tf_i[i], lf[i], self.config,
                                    sr).image for i in range(bs)]
             return torch.stack(imgs).permute(0, 3, 1, 2)

@@ -409,15 +409,19 @@ def _occupancy_args(occupancy, config, dev):
 
 def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
                 image, steps, shaded=None, occupancy=None, counts=None,
-                segment=None):
+                segment=None, views=None):
     """Validate the operands and fill ``MarchArgs`` for the rays ``soa``
     (:class:`RaySoA`); with a :class:`Segment`, those of the segment
-    instantiations (``volume`` the shard's padded block; parity, no ERT).
-    Returns the struct and the tensors it points into, which the caller
-    keeps referenced until the launch is enqueued (the caching allocator
-    keeps their memory for the stream after that)."""
+    instantiations (``volume`` the shard's padded block; parity, no ERT);
+    with ``views``, K3's rays of that many views, view-major (``origin``
+    (views, 3), ``image`` (views, H, W, 4)).  Returns the struct and the
+    tensors it points into, which the caller keeps referenced until the
+    launch is enqueued (the caching allocator keeps their memory for the
+    stream after that)."""
     dev = volume.device
     H, W = config.image_shape
+    lead = () if views is None else (views,)
+    N = H * W * (views or 1)
     X, Y, Z = config.volume_shape
     if segment is None:
         volume = _checked("volume", volume, dev, config.volume_shape)
@@ -434,13 +438,13 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
     tf = _checked("tf", tf, dev)
     if tf.data_ptr() % 16:
         tf = tf.clone()          # float4 loads need 16-byte alignment
-    origin = _checked("look_from", soa.origin, dev, (3,))
-    dirs = _checked("ray dirs", soa.dirs, dev, (H * W, 3))
+    origin = _checked("look_from", soa.origin, dev, lead + (3,))
+    dirs = _checked("ray dirs", soa.dirs, dev, (N, 3))
     dx, dy, dz = (dirs[:, i].contiguous() for i in range(3))
-    t0 = _checked("t0", soa.t0, dev, (H * W,))
-    dt = _checked("dt", soa.dt, dev, (H * W,))
-    n = _checked("n_samples", soa.n, dev, (H * W,), torch.int32)
-    image = _checked("image", image, dev, (H, W, 4))
+    t0 = _checked("t0", soa.t0, dev, (N,))
+    dt = _checked("dt", soa.dt, dev, (N,))
+    n = _checked("n_samples", soa.n, dev, (N,), torch.int32)
+    image = _checked("image", image, dev, lead + (H, W, 4))
     if image.data_ptr() % 16:
         image = image.clone()    # float4 loads need 16-byte alignment
     scale = voxel_scale(config.volume_shape)
@@ -469,9 +473,11 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
                   far, s_lo)
 
 
-def _launch(entry, args, volume):
+def _launch(entry, args, volume, *lead):
+    """Call the C entry ``entry``; ``lead`` are its arguments between the
+    struct and the device (K3's view count)."""
     fn = getattr(_build.library(), entry)
-    _build.check(fn(ctypes.byref(args), volume.device.index,
+    _build.check(fn(ctypes.byref(args), *lead, volume.device.index,
                     _build.stream_of(volume)), entry)
 
 
@@ -708,6 +714,37 @@ def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                             sampling_rate, ert)
 
 
+# K3's launch grid holds the view in blockIdx.z, at most 65535.
+_MAX_VIEWS = 65535
+
+
+def _views(rays: RayBundle, config: RenderConfig) -> Optional[int]:
+    """The view count V of a bundle of views (``origin`` (V, 3), the other
+    fields (V, H, W[, 3])), None for one view's bundle (``origin`` (3,));
+    raises unless every field has the batch's shape."""
+    if rays.origin.ndim == 1:
+        return None
+    if rays.origin.ndim != 2 or rays.origin.shape[1] != 3:
+        raise ValueError(f"look_from must be (3,) or (V, 3); got "
+                         f"{tuple(rays.origin.shape)}")
+    V = rays.origin.shape[0]
+    if not 1 <= V <= _MAX_VIEWS:
+        raise ValueError(f"a batch holds 1 to {_MAX_VIEWS} views; got {V}")
+    shape = (V,) + tuple(config.image_shape)
+    for name, t, want in (("dirs", rays.dirs, shape + (3,)),
+                          ("entry", rays.entry, shape),
+                          ("exit", rays.exit, shape),
+                          ("n_samples", rays.n_samples, shape)):
+        if tuple(t.shape) != want:
+            raise ValueError(f"ray {name} of {V} views must have shape "
+                             f"{want}; got {tuple(t.shape)}")
+    return V
+
+
+def _view_rays(rays: RayBundle, v: int) -> RayBundle:
+    return RayBundle(*(f[v] for f in rays))
+
+
 def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                   config: RenderConfig, sampling_rate, occupancy=None, *,
                   counts: Optional[torch.Tensor] = None):
@@ -721,28 +758,48 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     change), the voxels its composited samples loaded beyond that cell for
     their gradient (0 with ``analytic_normals``: the gradient comes from the
     cell), and its reads of the occupancy grid (K3 only: ``chip_smoke.py``
-    reads them)."""
+    reads them).
+
+    ``rays`` may hold V views of this volume and TF (``origin`` (V, 3),
+    the other fields with a leading V, as :func:`render_nondiff_batch`
+    stacks them): then one K3 launch marches them all (the plain march
+    each view in turn on the CPU), the outputs and ``counts`` gain the
+    leading V, each ray's results are those of its view marched alone, and
+    ``march_nondiff.batched_views`` counts the V views."""
+    views = _views(rays, config)
     if _build.uses_plain(volume):
         if counts is not None:
             raise ValueError("counts are counted by kernel K3 only; the "
                              "volume is on the CPU")
-        return march_nondiff_plain(volume, tf, rays, config, sampling_rate,
-                                   occupancy)
+        if views is None:
+            return march_nondiff_plain(volume, tf, rays, config,
+                                       sampling_rate, occupancy)
+        outs = [march_nondiff_plain(volume, tf, _view_rays(rays, v), config,
+                                    sampling_rate, occupancy)
+                for v in range(views)]
+        march_nondiff.batched_views += views
+        return tuple(torch.stack(o) for o in zip(*outs))
     soa = _ray_soa(rays)
+    dev = volume.device
     with span("dr.launch.march_nondiff"):
         _check_grid(occupancy, config)
-        counts = _counts_out("counts", counts, volume.device,
-                             config.image_shape + (3,))
-        composited = torch.empty(config.image_shape, dtype=torch.int32,
-                                 device=volume.device)
-        image, visited = _launch_march(
-            "dr_march_nondiff", volume, tf, soa, config, sampling_rate, True,
-            np.iinfo(np.int32).max, composited, occupancy, counts)
+        shape = ((views,) if views else ()) + tuple(config.image_shape)
+        counts = _counts_out("counts", counts, dev, shape + (3,))
+        image = torch.empty(shape + (4,), dtype=torch.float32, device=dev)
+        visited = torch.empty(shape, dtype=torch.int32, device=dev)
+        composited = torch.empty(shape, dtype=torch.int32, device=dev)
+        args, keep = _march_args(volume, tf, soa, config, sampling_rate,
+                                 True, np.iinfo(np.int32).max, image,
+                                 visited, composited, occupancy, counts,
+                                 views=views)
+        _launch("dr_march_nondiff", args, keep[0], views or 1)
         march_nondiff.launches += 1
+        march_nondiff.batched_views += views or 0
     return image, visited, composited
 
 
 march_nondiff.launches = 0
+march_nondiff.batched_views = 0
 
 
 # ---------------------------------------------------------------------------
@@ -813,6 +870,35 @@ def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
         rays = make_rays(look_from, config, sr, u=u)
         image, _, _ = march_nondiff(volume, tf, rays, config, sr, occupancy)
         ones = torch.ones(config.image_shape, dtype=torch.int32,
+                          device=volume.device)
+    return RenderOutput(image=image, valid_steps=ones,
+                        n_samples=rays.n_samples)
+
+
+def render_nondiff_batch(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                         config: RenderConfig,
+                         sampling_rate: Optional[float] = None
+                         ) -> RenderOutput:
+    """:func:`render_nondiff` of V views (``look_from`` (V, 3)) of one
+    volume and one TF: one occupancy grid (with ``config.occupancy_skip``),
+    each view's rays from :func:`make_rays` stacked view-major, and one
+    :func:`march_nondiff` of them all: one K3 launch on CUDA, the plain
+    march of each view in turn on the CPU.  Every ray's K3 thread does the
+    work it does in its own view's launch, so the images are
+    :func:`render_nondiff`'s bit for bit.  Returns images (V, H, W, 4),
+    ``valid_steps`` all ones and ``n_samples`` (V, H, W)."""
+    sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
+    with span("dr.view.batch"):
+        volume, tf, look_from = _inputs(volume, tf, look_from)
+        if look_from.ndim != 2 or look_from.shape[1] != 3:
+            raise ValueError(f"look_from must be (V, 3); got "
+                             f"{tuple(look_from.shape)}")
+        occupancy = (build_occupancy(volume, tf, config)
+                     if config.occupancy_skip else None)
+        per_view = [make_rays(lf, config, sr) for lf in look_from]
+        rays = RayBundle(*(torch.stack(f) for f in zip(*per_view)))
+        image, _, _ = march_nondiff(volume, tf, rays, config, sr, occupancy)
+        ones = torch.ones(rays.n_samples.shape, dtype=torch.int32,
                           device=volume.device)
     return RenderOutput(image=image, valid_steps=ones,
                         n_samples=rays.n_samples)
@@ -1180,7 +1266,8 @@ render_nondiff_jit = render_nondiff
 __all__ = ["RenderOutput", "RaySoA", "march_diff", "march_diff_fwd",
            "march_diff_bwd", "march_diff_plain", "march_diff_bwd_plain",
            "ray_cotangents", "march_nondiff", "march_nondiff_plain",
-           "render", "render_nondiff", "render_jit", "render_nondiff_jit",
+           "render", "render_nondiff", "render_nondiff_batch", "render_jit",
+           "render_nondiff_jit",
            "render_nondiff_strips", "render_strips", "render_depth_sorted",
            "choose_diff_renderer", "value_and_grad_render",
            "value_and_grad_blockwise"]

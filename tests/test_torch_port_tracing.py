@@ -113,13 +113,14 @@ def _x(name, ts, end, cat="user_annotation", tid=1):
 
 
 # Device busy [100, 400] and [600, 700] of the window [0, 1000]: idle 600
-# us.  The main thread's spans, the autograd thread's (2) overlapping them
-# in time, one span before the window (left out) and one past its end
-# (clipped).  Two units.
+# us.  The main thread's spans (a batched inference render, then a
+# single-view render), the autograd thread's (2) overlapping them in time,
+# one span before the window (left out) and one past its end (clipped).
+# Two units.
 KERNELS = [_x("march_nondiff_kernel", 100, 300, "kernel", 7),
            _x("cell_minmax_kernel", 250, 400, "kernel", 7),
            _x("march_diff_bwd_kernel", 600, 700, "kernel", 7)]
-SPANS = [_x("dr.raycaster", 0, 500), _x("dr.view", 10, 200),
+SPANS = [_x("dr.raycaster", 0, 500), _x("dr.view.batch", 10, 200),
          _x("dr.rays", 20, 50), _x("dr.rays.soa", 60, 80),
          _x("dr.grid", 90, 150), _x("dr.launch.cell_minmax", 95, 110),
          _x("dr.launch.march_nondiff", 160, 190), _x("dr.view", 300, 480),
@@ -138,7 +139,7 @@ EXPECTED = {
     # Inside dr. spans: 100 of [0, 100], 180 of [400, 600], 20 of
     # [700, 1000].
     "program_idle_share.train": 50.0, "program_idle_share.viewer": 50.0,
-    "grid_builds.train": 0.5,
+    "grid_builds.train": 0.5, "view_batches.train": 0.5,
     "tf_only_bwd.tffit": 0.5, "optim_host_ms.tffit": 0.02,
 }
 
