@@ -439,8 +439,8 @@ def view_batch(P, dev, ptxas=None, seed: int = 19) -> dict:
     ``volfit_256``: 256^3, tf1 at R 128, 8 views of 256^2 at sampling rate
     8, the occupancy grid on) on its ``ct_head`` and ``dense_sim`` scenes
     and one step's poses from ``seed``.  Per scene: one grid build (one K6,
-    one K7) and one K3 launch, the 8 views counted in
-    ``march_nondiff.batched_views``; K3 on the views' stacked rays bitwise
+    one K7) and one K3 launch, the 8 views counted in the tally
+    ``march_nondiff.views``; K3 on the views' stacked rays bitwise
     8 launches of one view each (image, visited and composited samples,
     per-ray counts); ``Raycaster.raycast_nondiff`` of the 8 poses (one
     launch) bitwise its view-by-view loop (a TF batch of distinct copies:
@@ -511,9 +511,8 @@ def view_batch(P, dev, ptxas=None, seed: int = 19) -> dict:
         n = P.launch_counts()
         require(n["march_nondiff"] == 1 and n["cell_minmax"] == 1
                 and n["cell_distance"] == 1
-                and P.march_nondiff.batched_views == V,
-                f"{label}: launches {n}, batched views "
-                f"{P.march_nondiff.batched_views}")
+                and n["march_nondiff.views"] == V,
+                f"{label}: launches {n}")
         loop = torch.stack([P.render_nondiff(vol, tf, lf, cfg, sr).image
                             for lf in lfs])
         require(torch.equal(batch.image, loop),
@@ -582,8 +581,8 @@ def tf_only_k2(P, dev, res: int = 256) -> dict:
     :func:`tf_sums_in_f64`), for a seeded cotangent that is 0 on the rays
     K2 and the plain march end apart (the ERT knife edge, at most 0.1% of
     them).  The blocks' d_tf summed, held to TF_ONLY_TOL of the plain's
-    largest texel; ``d_volume`` None; each call one K2 launch, counted in
-    ``tf_only_launches``.  Returns each case's relative error, knife-edge
+    largest texel; ``d_volume`` None; each call one K2 launch, tallied as
+    ``march_diff_bwd.tf_only``.  Returns each case's relative error, knife-edge
     rays and launches."""
     import torch
     vol = P.volume_to_internal(torch.from_numpy(P.ct_phantom(res)).to(
@@ -622,8 +621,8 @@ def tf_only_k2(P, dev, res: int = 256) -> dict:
                         vol, tf, rays_b, cfg_b, 2.0, image_b, g_b,
                         volume_grad=False)
                     torch.cuda.synchronize(dev)
-                    n = (P.launch_counts()["march_diff_bwd"],
-                         P.march_diff_bwd.tf_only_launches)
+                    c = P.launch_counts()
+                    n = (c["march_diff_bwd"], c["march_diff_bwd.tf_only"])
                     require(d_volume is None and n == (1, 1),
                             f"{label}: d_volume {type(d_volume)}, "
                             f"launches {n}")
@@ -2360,9 +2359,8 @@ def main() -> int:
         counts = P.launch_counts()
         require(counts["march_diff_fwd"] == 1
                 and counts["march_diff_bwd"] == 1
-                and P.march_diff_bwd.camera_launches == 0,
-                f"analytic gradient step launched {counts}, camera "
-                f"{P.march_diff_bwd.camera_launches}")
+                and counts["march_diff_bwd.camera"] == 0,
+                f"analytic gradient step launched {counts}")
         k2_launches = counts["march_diff_bwd"]
         require(bool(torch.isfinite(v_leaf.grad).all()
                      & torch.isfinite(t_leaf.grad).all()),
@@ -2474,7 +2472,7 @@ def main() -> int:
                   "plain_ms": k1_plain_ms, "bound_ms": b1_ms,
                   "bound_by": b1_by},
               "march_diff_bwd": {
-                  "launches": k2_launches, "camera_launches": 0,
+                  "launches": k2_launches, "camera": 0,
                   "counts_equal_k1": True,
                   "vs_plain_512_ert_True": {"rel_err_d_volume": k2_errs[0],
                                             "rel_err_d_tf": k2_errs[1],
@@ -2611,12 +2609,12 @@ def main() -> int:
         P.reset_launch_counts()
         d_v, d_t, _ = P.march_diff_bwd(vol_i, tf_c, rays_c, cfg_c, sr, img_k,
                                        g_m, ert=ert, sums=sums)
-        cam_launches = P.march_diff_bwd.camera_launches
+        cam_launches = P.launch_counts()["march_diff_bwd.camera"]
         d_v0, d_t0, _ = P.march_diff_bwd(vol_i, tf_c, rays_c, cfg_c, sr,
                                          img_k, g_m, ert=ert)
-        require(cam_launches == 1 and P.march_diff_bwd.camera_launches == 1,
-                f"camera {label}: {P.march_diff_bwd.camera_launches} camera "
-                f"launches")
+        cam_after = P.launch_counts()["march_diff_bwd.camera"]
+        require(cam_launches == 1 and cam_after == 1,
+                f"camera {label}: {cam_after} camera launches")
         same = max(float((d_v - d_v0).abs().max() / d_v0.abs().max()),
                    float((d_t - d_t0).abs().max() / d_t0.abs().max()))
         require(same <= K2_GRAD_TOL, f"camera {label}: K2's camera "
@@ -2741,18 +2739,17 @@ def main() -> int:
     P.reset_launch_counts()
     step_default()
     sync()
-    default_counts = dict(P.launch_counts(),
-                          camera=P.march_diff_bwd.camera_launches)
+    default_counts = P.launch_counts()
     require(default_counts["march_diff_bwd"] == 1
-            and default_counts["camera"] == 0 and lf_leaf.grad is None,
+            and default_counts["march_diff_bwd.camera"] == 0
+            and lf_leaf.grad is None,
             f"the default gradient step launched {default_counts}")
     P.reset_launch_counts()
     step_camera()
     sync()
-    camera_counts = dict(P.launch_counts(),
-                         camera=P.march_diff_bwd.camera_launches)
+    camera_counts = P.launch_counts()
     require(camera_counts["march_diff_bwd"] == 1
-            and camera_counts["camera"] == 1
+            and camera_counts["march_diff_bwd.camera"] == 1
             and bool(torch.isfinite(lf_leaf.grad).all()),
             f"the camera gradient step launched {camera_counts}")
     kernels["march_diff_fwd"]["launches"] += 2
@@ -3159,6 +3156,8 @@ def main() -> int:
             return fn(vol_i, tf_i, lf, cfg, intermediate=O_fast,
                       planes_per_voxel=ppv, slab_batch=slab_batch)
 
+    held = []
+
     def march_args(vol_i, O_s=O_fast, lf_s=None, cfg_s=None, tf_s=None):
         """render_fast's voxel layers, geometry and K8's argument struct
         at a view (by default the bench's), with K8's output, its per-pixel
@@ -3171,7 +3170,8 @@ def main() -> int:
         layers, geom, ext = PF._slab_inputs(ch, lf_f, light_f, cfg_s, O_s,
                                             ppv)
         del ch
-        a = SW._args(layers, tf_s, geom)
+        a, keep = SW._args(layers, tf_s, geom)
+        held.append(keep)       # the operands ``a`` points into
         inter = torch.empty((O_s, O_s, 4), device=dev)
         steps = torch.zeros((O_s, O_s), dtype=torch.int32, device=dev)
         taken = torch.zeros_like(steps)
@@ -3529,7 +3529,22 @@ def main() -> int:
     import torch.distributed as dist
     from differender_tpu_torch import parallel as PP
     from differender_tpu_torch.parallel import volume_sharding as PV
-    from differender_tpu_torch.render import _ray_soa
+    from differender_tpu_torch.render import (_launch_k2, _launch_march,
+                                              _ray_soa)
+
+    def k1_segment(pad, tf, soa, seg, cfg, sr, counts=None):
+        """One launch of K1's segment instantiation, counted."""
+        with _build.launch("march_segment_fwd"):
+            return _launch_march(pad, tf, soa, cfg, sr, False, counts,
+                                 segment=seg)
+
+    def k2_segment(pad, tf, soa, seg, cfg, sr, acc, grad, counts=None,
+                   sums=None):
+        """One launch of K2's segment instantiation, counted; its camera
+        instantiation where ``sums`` is given."""
+        with _build.launch("march_segment_bwd", camera=sums is not None):
+            return _launch_k2(pad, tf, soa, cfg, sr, acc, grad, False,
+                              counts, sums, segment=seg)
 
     # One NCCL rank: the card's machine has one card, and NCCL takes one
     # rank per card.  The K shards' segments run one after another here.
@@ -3898,7 +3913,7 @@ def main() -> int:
         segs = [PV._segment(rays_p, cfg, k, 4, length) for k in range(4)]
         c1 = [torch.zeros((img, img, 2), dtype=torch.int32, device=dev)
               for _ in range(4)]
-        fwd = [PV._k1_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0, c1[k])
+        fwd = [k1_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0, c1[k])
                for k in range(4)]
         accs = torch.stack([f[0] for f in fwd]).requires_grad_(True)
         image, _ = PV.compose_segments(accs, torch.stack([f[1] for f in fwd]),
@@ -3907,23 +3922,23 @@ def main() -> int:
         c2 = [torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
               for _ in range(4)]
         for k in range(4):
-            PV._k2_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0, fwd[k][0],
+            k2_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0, fwd[k][0],
                            g_accs[k], c2[k])
-        k1_ms = [cuda_ms(lambda k=k: PV._k1_segment(
+        k1_ms = [cuda_ms(lambda k=k: k1_segment(
             pads[k], tf_i, soa, segs[k], cfg, 1.0), 10) for k in range(4)]
-        k2_ms = [cuda_ms(lambda k=k: PV._k2_segment(
+        k2_ms = [cuda_ms(lambda k=k: k2_segment(
             pads[k], tf_i, soa, segs[k], cfg, 1.0, fwd[k][0], g_accs[k]),
             10) for k in range(4)]
         whole_img, whole_steps = P.march_diff_fwd(vol_n, tf_i, rays_p, cfg,
                                                   1.0, ert=False)
         g_whole = 2.0 * whole_img / whole_img.numel()
         k1_sum_ms, k1_whole_ms = cuda_ms_ab(
-            lambda: [PV._k1_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0)
+            lambda: [k1_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0)
                      for k in range(4)],
             lambda: P.march_diff_fwd(vol_n, tf_i, rays_p, cfg, 1.0,
                                      ert=False), 10, warm=2)
         k2_sum_ms, k2_whole_ms = cuda_ms_ab(
-            lambda: [PV._k2_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0,
+            lambda: [k2_segment(pads[k], tf_i, soa, segs[k], cfg, 1.0,
                                     fwd[k][0], g_accs[k]) for k in range(4)],
             lambda: P.march_diff_bwd(vol_n, tf_i, rays_p, cfg, 1.0,
                                      whole_img, g_whole, ert=False),
@@ -4024,11 +4039,12 @@ def main() -> int:
                 acc, cnt = P.march_segment_fwd(pad, tf_c, rays_c, cfg_c, sr,
                                                k, n, length_c)
                 sums = torch.zeros((H, W, 12), device=dev)
-                before = P.march_segment_bwd.camera_launches
+                before = P.launch_counts()["march_segment_bwd.camera"]
                 d_p, d_t, _ = P.march_segment_bwd(
                     pad, tf_c, rays_c, cfg_c, sr, k, n, length_c, acc, g_m,
                     sums=sums)
-                require(P.march_segment_bwd.camera_launches == before + 1,
+                require(P.launch_counts()["march_segment_bwd.camera"]
+                        == before + 1,
                         f"{label} shard {k}: no camera launch")
                 d_p0, d_t0, _ = P.march_segment_bwd(
                     pad, tf_c, rays_c, cfg_c, sr, k, n, length_c, acc, g_m)
@@ -4092,10 +4108,10 @@ def main() -> int:
                                              sampling_rate=sr, u=u_c)
             torch.sum(out_k.image * g_m).backward()
             sync()
-            c_k = dict(P.launch_counts(),
-                       camera=P.march_segment_bwd.camera_launches)
+            c_k = P.launch_counts()
             require(c_k["march_segment_fwd"] == 1
-                    and c_k["march_segment_bwd"] == 1 and c_k["camera"] == 1,
+                    and c_k["march_segment_bwd"] == 1
+                    and c_k["march_segment_bwd.camera"] == 1,
                     f"{label}: the camera step launched {c_k}")
             lf_p = lf_c.clone().requires_grad_()
             rays_pl = P.make_rays(lf_p, cfg_c, sr, u=u_c)
@@ -4153,16 +4169,17 @@ def main() -> int:
         P.reset_launch_counts()
         rvs_step(lf_leaf)
         sync()
-        c_cam = dict(P.launch_counts(),
-                     camera=P.march_segment_bwd.camera_launches)
+        c_cam = P.launch_counts()
         require(c_cam["march_segment_fwd"] == 1
-                and c_cam["march_segment_bwd"] == 1 and c_cam["camera"] == 1
+                and c_cam["march_segment_bwd"] == 1
+                and c_cam["march_segment_bwd.camera"] == 1
                 and sum(c_cam.values()) == 3
                 and bool(torch.isfinite(lf_leaf.grad).all()),
                 f"the sharded camera step launched {c_cam}")
         for name in ("march_segment_fwd", "march_segment_bwd"):
             kernels[name]["launches"] += c_cam[name]
-        kernels["march_segment_bwd_camera"]["launches"] += c_cam["camera"]
+        kernels["march_segment_bwd_camera"]["launches"] += c_cam[
+            "march_segment_bwd.camera"]
         step_ms, step_ms_cam = host_ms_ab(lambda: rvs_step(lf),
                                           lambda: rvs_step(lf_leaf), 5)
         # K2's segment camera instantiation at the step's rays (one segment
@@ -4172,15 +4189,15 @@ def main() -> int:
         soa = _ray_soa(rays_p)
         seg1 = PV._segment(rays_p, cfg, 0, 1, length)
         pad1 = PV.pad_halos(vol_n, 0, 1)
-        acc1, cnt1 = PV._k1_segment(pad1, tf_i, soa, seg1, cfg, 1.0)
+        acc1, cnt1 = k1_segment(pad1, tf_i, soa, seg1, cfg, 1.0)
         g1 = 2.0 * acc1 / acc1.numel()
         sums1 = torch.empty((img, img, 12), device=dev)
         k2_ms_def, k2_ms_cam = cuda_ms_ab(
-            lambda: PV._k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1),
-            lambda: PV._k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1,
+            lambda: k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1),
+            lambda: k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1,
                                    sums=sums1), 10, warm=2)
         cc = torch.zeros((img, img, 4), dtype=torch.int32, device=dev)
-        PV._k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1, cc, sums1)
+        k2_segment(pad1, tf_i, soa, seg1, cfg, 1.0, acc1, g1, cc, sums1)
         n_s = int(cnt1.sum())
         n_sc, n_ql = int(cc[..., 0].sum()), int(cc[..., 1].sum())
         b_cam = bound(3 * pad1.numel() * 4 + R * 32 + ray_bytes
@@ -4523,7 +4540,7 @@ def main() -> int:
         sync()
         tf_s = time.perf_counter() - t0
         c_tf = P.launch_counts()
-        tf_only = P.march_diff_bwd.tf_only_launches
+        tf_only = c_tf["march_diff_bwd.tf_only"]
         n_log = len(o_tf["logged"])
         require(o_tf["losses"][-1] < o_tf["losses"][0]
                 and all(math.isfinite(x) for x in o_tf["losses"]),
@@ -4535,7 +4552,7 @@ def main() -> int:
                 f"with {n_log} logged")
         add_launches(c_tf, ("march_diff_fwd", "march_diff_bwd",
                             "march_nondiff", "cell_minmax", "cell_distance"))
-        exs["optimize_tf"] = {"launches": c_tf, "tf_only_launches": tf_only,
+        exs["optimize_tf"] = {"launches": c_tf, "tf_only": tf_only,
                               "losses": o_tf["losses"],
                               "logged": n_log, "seconds": tf_s,
                               "tf_l1": o_tf["tf_l1"]}

@@ -23,13 +23,17 @@ instantiations of K1 and K2 (``march_segment_fwd``,
 ``march_segment_bwd``).
 ``RenderConfig(analytic_normals=True)`` takes each sample's
 gradient from its 8 corners in K1, K2 and K3; a camera that requires grad
-gets its gradient through K2's camera instantiation
-(``march_diff_bwd.camera_launches`` counts it), also in a sharded render
-(``march_segment_bwd.camera_launches``), and a TF that alone requires grad
-gets its gradient through K2's TF-only instantiation
-(``march_diff_bwd.tf_only_launches``).  CPU tensors go to plain torch
-versions of the same functions.  Importing the package needs neither a GPU
-nor ``nvcc``.
+gets its gradient through K2's camera instantiation, also in a sharded
+render, and a TF that alone requires grad gets its gradient through K2's
+TF-only instantiation.  CPU tensors go to plain torch versions of the same
+functions.  Importing the package needs neither a GPU nor ``nvcc``.
+
+Every launch is counted in one table: :func:`launch_counts` holds a key for
+each kernel (``_build.KERNELS``; one count for each ``dr.launch.<kernel>``
+span) and four dotted tallies beside them (``march_diff_bwd.camera``,
+``march_diff_bwd.tf_only``, ``march_segment_bwd.camera`` and
+``march_nondiff.views``, the views marched in batches);
+:func:`reset_launch_counts` zeroes it.
 
 Beside the renderer: :class:`TorchRaycaster` (the JAX package's torch
 bridge, over :class:`Raycaster`), :mod:`.io` (raw and NIfTI volumes,
@@ -38,8 +42,7 @@ checkpoints), :mod:`.profiling` (``torch.profiler`` traces),
 :mod:`.plotting`; the example scripts run as ``python -m
 differender_tpu_torch.examples.<name>``.
 """
-from typing import Dict
-
+from ._build import launch_counts, reset_launch_counts
 from .config import RenderConfig
 from .fastpath import (FastRenderOutput, choose_fast_params, render_fast,
                        render_fast_auto, render_fast_plain,
@@ -79,43 +82,6 @@ from .video import VideoWriter, save_video
 
 __version__ = "0.1.0"
 
-# Kernel name -> the wrapper that launches it and counts its launches.
-KERNEL_WRAPPERS = {
-    "tf_lookup_fwd": tf_lookup_fwd,
-    "tf_lookup_bwd": tf_lookup_bwd,
-    "march_diff_fwd": march_diff_fwd,
-    "march_diff_bwd": march_diff_bwd,
-    "march_nondiff": march_nondiff,
-    "brick_sums": brick_sums,
-    "brick_rows": brick_rows,
-    "cell_minmax": cell_minmax,
-    "cell_distance": cell_distance,
-    "march_segment_fwd": march_segment_fwd,
-    "march_segment_bwd": march_segment_bwd,
-    "shear_warp_fwd": shear_warp_fwd,
-    "shear_warp_bwd": shear_warp_bwd,
-}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Launches of each kernel since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
-
-
-def reset_launch_counts() -> None:
-    """Zeroes every wrapper's count, K2's counts of its camera
-    instantiations (``march_diff_bwd.camera_launches``,
-    ``march_segment_bwd.camera_launches``) and of its TF-only one
-    (``march_diff_bwd.tf_only_launches``), and the views marched in batches
-    (``march_nondiff.batched_views``)."""
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
-    march_nondiff.batched_views = 0
-    march_diff_bwd.camera_launches = 0
-    march_diff_bwd.tf_only_launches = 0
-    march_segment_bwd.camera_launches = 0
-
-
 __all__ = [
     "RenderConfig", "RayBundle", "MarchParams", "make_rays",
     "march_params", "ray_aabb", "ray_directions", "state_from_numpy",
@@ -142,7 +108,7 @@ __all__ = [
     "occupancy_from_numpy", "brick_sums", "brick_rows", "cell_minmax",
     "brick_sums_reference", "brick_rows_reference", "cell_minmax_reference",
     "cell_distance", "cell_distance_reference",
-    "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
+    "launch_counts", "reset_launch_counts",
     "shear_warp_fwd", "shear_warp_bwd",
     "TorchRaycaster", "VideoWriter", "save_video",
 ]

@@ -7,9 +7,18 @@ the repository root, keyed on a hash of the sources and flags, then loaded
 with ``ctypes``.  Importing this module needs neither ``nvcc`` nor a GPU.
 No ``--use_fast_math``: the parity with the JAX package relies on IEEE
 ``powf``, ``sqrtf`` and division.
+
+Every kernel wrapper launches through this module: :func:`launch` opens the
+``dr.launch.<kernel>`` span and counts one launch of a name in
+:data:`KERNELS` (and of its tallies) in the one table that
+:func:`launch_counts` reads, :func:`operand` and :func:`output` check what
+the C entry reads and writes, and :func:`call` makes the C call on
+PyTorch's current stream.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -20,7 +29,11 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .profiling import span
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -130,6 +143,17 @@ def build() -> BuildInfo:
     return BuildInfo(lib, time.perf_counter() - t0, False, ptxas)
 
 
+# The kernels, each launched in a ``launch(<name>)`` block, and the
+# launches they tally beside their count (``<kernel>.<tally>``).
+KERNELS = ("tf_lookup_fwd", "tf_lookup_bwd", "march_diff_fwd",
+           "march_diff_bwd", "march_nondiff", "brick_sums", "brick_rows",
+           "cell_minmax", "cell_distance", "march_segment_fwd",
+           "march_segment_bwd", "shear_warp_fwd", "shear_warp_bwd")
+TALLIES = ("march_diff_bwd.camera", "march_diff_bwd.tf_only",
+           "march_segment_bwd.camera", "march_nondiff.views")
+_counts = collections.Counter(dict.fromkeys(KERNELS + TALLIES, 0))
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
@@ -181,7 +205,6 @@ def uses_plain(t) -> bool:
 
 def stream_of(t) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
-    import torch
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -190,3 +213,87 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().dr_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+
+
+def call(entry: str, *args, like: torch.Tensor) -> None:
+    """Call the C entry ``entry`` with ``args``, then ``like``'s device index
+    and PyTorch's current stream there; raise on a non-zero status."""
+    check(getattr(library(), entry)(*args, like.device.index,
+                                    stream_of(like)), entry)
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``key``, a kernel or a tally, in the table of counts."""
+    if key not in _counts:
+        raise KeyError(f"no count {key!r}; the counts are "
+                       f"{KERNELS + TALLIES}")
+    _counts[key] += n
+
+
+@contextlib.contextmanager
+def launch(kernel: str, **tallies: int):
+    """The host side of one launch of ``kernel``, from its operand checks to
+    the C call's return, in the span ``dr.launch.<kernel>``.  A block that
+    ends normally counts one launch of ``kernel`` and adds each tally's
+    amount to ``<kernel>.<tally>``; one that raises counts nothing."""
+    keys = [(f"{kernel}.{t}", n) for t, n in tallies.items()]
+    if kernel not in KERNELS or any(k not in _counts for k, _ in keys):
+        raise ValueError(f"no kernel {kernel!r} with tallies "
+                         f"{sorted(tallies)}; the kernels are {KERNELS}, "
+                         f"the tallies {TALLIES}")
+    with span("dr.launch." + kernel):
+        yield
+    _counts[kernel] += 1
+    for k, n in keys:
+        _counts[k] += n
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launches of each kernel in :data:`KERNELS`, and the tallies of
+    :data:`TALLIES`, since the last :func:`reset_launch_counts`.  Only the
+    undotted keys are launches: one for each ``dr.launch.*`` span."""
+    return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    """Zero the table of counts."""
+    for key in _counts:
+        _counts[key] = 0
+
+
+def _validate(name, t, device, shape, dtype) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}; the kernel runs on "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape) and (
+            t.ndim != len(shape) or any(w is not None and a != w
+                                        for a, w in zip(t.shape, shape))):
+        raise ValueError(f"{name} must have shape {tuple(shape)}; got "
+                         f"{tuple(t.shape)}")
+
+
+def operand(name: str, t: torch.Tensor, device, shape=None,
+            dtype=torch.float32) -> torch.Tensor:
+    """A tensor that a kernel reads: ``t`` on ``device`` with ``dtype`` and
+    ``shape`` (``None`` in it matches any size; ``shape`` None any shape),
+    returned detached, contiguous and 16-byte aligned (float4 loads), a
+    copy only where ``t`` is not.  Raises ``TypeError`` on the dtype,
+    ``ValueError`` on the device or the shape.  The caller keeps the result
+    referenced until :func:`call` returns."""
+    _validate(name, t, device, shape, dtype)
+    t = t.detach().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def output(name: str, t: Optional[torch.Tensor], device, shape,
+           dtype=torch.int32) -> Optional[torch.Tensor]:
+    """An optional tensor that a kernel writes (per-ray counts or sums):
+    checked as :func:`operand` checks, and contiguous; never copied."""
+    if t is None:
+        return None
+    _validate(name, t, device, shape, dtype)
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t

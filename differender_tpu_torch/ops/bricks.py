@@ -19,15 +19,15 @@ of its cells in registers, and reduces a window along z and y in shared
 memory when it closes (:func:`k6_plan` chooses the tiling), so each voxel
 is read from device memory about once.
 
-On CUDA tensors each wrapper launches its kernel (counted in its
-``launches``, once per call); on CPU tensors it takes the plain torch
-version beside it.  A brick that does not lie wholly inside the volume (or
-an index outside the table) gives a row of NaN in the kernels and the plain
-versions alike: the Pallas DMA has no defined result there, and clamping
-the origin would sum another brick.  The sums are taken in another order
-than XLA's, so they agree to f32 rounding (the probe holds them at
-``rtol=1e-5``); K4 and K5 use no float atomics and give the same bits on
-every call.  Min and max are exact.
+On CUDA tensors each wrapper launches its kernel (one launch a call); on
+CPU tensors it takes the plain torch version beside it.  A brick that does
+not lie wholly inside the volume (or an index outside the table) gives a
+row of NaN in the kernels and the plain versions alike: the Pallas DMA
+has no defined result there, and clamping the origin would sum another
+brick.  The sums are taken in another order than XLA's, so they agree to
+f32 rounding (the probe holds them at ``rtol=1e-5``); K4 and K5 use no
+float atomics and give the same bits on every call.  Min and max are
+exact.
 """
 from __future__ import annotations
 
@@ -38,7 +38,6 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..profiling import span
 
 LANES = 128
 B = 32       # brick edge of K4, as in the probe (exp_pallas_dma.py:36)
@@ -178,107 +177,70 @@ def cell_minmax_reference(volume: torch.Tensor, cell: int):
     return lo, hi
 
 
-def _volume(name, t, ndim):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32; got {t.dtype}")
-    if t.ndim != ndim:
-        raise ValueError(f"{name} must have {ndim} dimensions; got "
-                         f"{tuple(t.shape)}")
-    return t.detach().contiguous()
-
-
-def _index(name, t, dev, shape):
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}; the data on {dev}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32; got {t.dtype}")
-    if t.ndim != len(shape) or any(
-            w is not None and a != w for a, w in zip(t.shape, shape)):
-        raise ValueError(f"{name} must have shape {shape}; got "
-                         f"{tuple(t.shape)}")
-    return t.contiguous()
-
-
 def brick_sums(volume: torch.Tensor, origins: torch.Tensor) -> torch.Tensor:
     """Sum of the ``B``^3 brick of ``volume`` (X, Y, Z) f32 at each row
     of ``origins`` (n, 3) int32, broadcast to ``(n, 128)``: kernel K4 on
-    CUDA tensors (counted in ``brick_sums.launches``),
-    :func:`brick_sums_reference` on CPU tensors."""
+    CUDA tensors, :func:`brick_sums_reference` on CPU tensors."""
     if _build.uses_plain(volume):
         return brick_sums_reference(volume, origins)
-    with span("dr.launch.brick_sums"):
-        volume = _volume("volume", volume, 3)
-        origins = _index("origins", origins, volume.device, (None, 3))
+    dev = volume.device
+    with _build.launch("brick_sums"):
+        volume = _build.operand("volume", volume, dev, (None,) * 3)
+        origins = _build.operand("origins", origins, dev, (None, 3),
+                                 torch.int32)
         n = origins.shape[0]
-        out = torch.empty((n, LANES), dtype=torch.float32,
-                          device=volume.device)
+        out = torch.empty((n, LANES), dtype=torch.float32, device=dev)
         plan = k4_plan(volume.shape, n)
         scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
-                              device=volume.device)
-        _build.check(_build.library().dr_brick_sums(
-            volume.data_ptr(), *volume.shape, origins.data_ptr(), n,
-            scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
-            volume.device.index, _build.stream_of(volume)), "brick_sums")
-        brick_sums.launches += 1
+                              device=dev)
+        _build.call("dr_brick_sums", volume.data_ptr(), *volume.shape,
+                    origins.data_ptr(), n, scratch.data_ptr(),
+                    plan.scratch_words, out.data_ptr(), like=volume)
     return out
-
-
-brick_sums.launches = 0
 
 
 def brick_rows(bricks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Sum of the pre-bricked row block ``bricks[idx[i]]`` of ``bricks``
     (NB, rows, cols) f32 for each ``idx`` (n,) int32, broadcast to
-    ``(n, 128)``: kernel K5 on CUDA tensors (counted in
-    ``brick_rows.launches``), :func:`brick_rows_reference` on CPU tensors."""
+    ``(n, 128)``: kernel K5 on CUDA tensors, :func:`brick_rows_reference`
+    on CPU tensors."""
     if _build.uses_plain(bricks):
         return brick_rows_reference(bricks, idx)
-    with span("dr.launch.brick_rows"):
-        bricks = _volume("bricks", bricks, 3)
-        idx = _index("idx", idx, bricks.device, (None,))
+    dev = bricks.device
+    with _build.launch("brick_rows"):
+        bricks = _build.operand("bricks", bricks, dev, (None,) * 3)
+        idx = _build.operand("idx", idx, dev, (None,), torch.int32)
         n = idx.shape[0]
-        out = torch.empty((n, LANES), dtype=torch.float32,
-                          device=bricks.device)
+        out = torch.empty((n, LANES), dtype=torch.float32, device=dev)
         nb, rows, cols = bricks.shape
         plan = k5_plan(bricks.shape, n)
         scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
-                              device=bricks.device)
-        _build.check(_build.library().dr_brick_rows(
-            bricks.data_ptr(), nb, rows * cols, idx.data_ptr(), n,
-            scratch.data_ptr(), plan.scratch_words, out.data_ptr(),
-            bricks.device.index, _build.stream_of(bricks)), "brick_rows")
-        brick_rows.launches += 1
+                              device=dev)
+        _build.call("dr_brick_rows", bricks.data_ptr(), nb, rows * cols,
+                    idx.data_ptr(), n, scratch.data_ptr(),
+                    plan.scratch_words, out.data_ptr(), like=bricks)
     return out
-
-
-brick_rows.launches = 0
 
 
 def cell_minmax(volume: torch.Tensor, cell: int):
     """Per-macrocell ``(lo, hi)`` of ``volume`` (X, Y, Z) over each cell and
-    its one-voxel halo: kernel K6 on CUDA tensors (counted in
-    ``cell_minmax.launches``), :func:`cell_minmax_reference` on CPU
-    tensors.  Both equal the JAX package's ``_cell_minmax`` bit for bit."""
+    its one-voxel halo: kernel K6 on CUDA tensors,
+    :func:`cell_minmax_reference` on CPU tensors.  Both equal the JAX
+    package's ``_cell_minmax`` bit for bit."""
     if _build.uses_plain(volume):
         return cell_minmax_reference(volume, cell)
-    with span("dr.launch.cell_minmax"):
+    with _build.launch("cell_minmax"):
         if cell < 1:
             raise ValueError(f"cell must be >= 1; got {cell}")
-        volume = _volume("volume", volume, 3)
+        volume = _build.operand("volume", volume, volume.device,
+                                (None,) * 3)
         shape = grid_shape(volume.shape, cell)
         lo = torch.empty(shape, dtype=torch.float32, device=volume.device)
         hi = torch.empty_like(lo)
-        X, Y, Z = volume.shape
         plan = k6_plan(volume.shape, cell, _sms(volume.device.index))
-        _build.check(_build.library().dr_cell_minmax(
-            volume.data_ptr(), X, Y, Z, cell, *plan, lo.data_ptr(),
-            hi.data_ptr(), volume.device.index, _build.stream_of(volume)),
-            "cell_minmax")
-        cell_minmax.launches += 1
+        _build.call("dr_cell_minmax", volume.data_ptr(), *volume.shape, cell,
+                    *plan, lo.data_ptr(), hi.data_ptr(), like=volume)
     return lo, hi
-
-
-cell_minmax.launches = 0
 
 
 __all__ = ["brick_sums", "brick_rows", "cell_minmax", "brick_sums_reference",

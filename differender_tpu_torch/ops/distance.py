@@ -21,7 +21,6 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..profiling import span
 
 
 def tf_alpha_range_max(tf: torch.Tensor) -> torch.Tensor:
@@ -72,49 +71,31 @@ def cell_distance_reference(lo: torch.Tensor, hi: torch.Tensor,
     return dist, dist.amax().reshape(1)
 
 
-def _f32(name, t, dev, ndim):
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}; lo on {dev}")
-    if t.dtype != torch.float32 or t.ndim != ndim:
-        raise ValueError(f"{name} must be a {ndim}-D float32 tensor; got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    return t.contiguous()
-
-
 def cell_distance(lo: torch.Tensor, hi: torch.Tensor, tf: torch.Tensor,
                   alpha_skip: float, max_dist: int):
     """L-inf distance from each macrocell of the ``(lo, hi)`` grid
     (nx, ny, nz) f32 to the nearest one that ``tf`` (R, 4) f32 classifies
     above ``alpha_skip``, saturated at ``max_dist``.  Returns ``(dist,
     far)``: ``(nx, ny, nz)`` int32 and its largest value as a (1,) int32 on
-    the same device.  Kernel K7 on CUDA tensors (counted in
-    ``cell_distance.launches``, once per call of its three passes),
-    :func:`cell_distance_reference` on CPU tensors."""
+    the same device.  Kernel K7 on CUDA tensors (one launch a call of its
+    three passes), :func:`cell_distance_reference` on CPU tensors."""
     if _build.uses_plain(lo):
         return cell_distance_reference(lo, hi, tf, alpha_skip, max_dist)
-    with span("dr.launch.cell_distance"):
-        dev = lo.device
-        lo = _f32("lo", lo, dev, 3)
-        hi = _f32("hi", hi, dev, 3)
-        tf = _f32("tf", tf, dev, 2)
-        if hi.shape != lo.shape or tf.shape[1] != 4 or tf.shape[0] < 1:
-            raise ValueError(f"lo {tuple(lo.shape)} and hi "
-                             f"{tuple(hi.shape)} must match, tf "
-                             f"{tuple(tf.shape)} be (R, 4)")
+    dev = lo.device
+    with _build.launch("cell_distance"):
+        lo = _build.operand("lo", lo, dev, (None,) * 3)
+        hi = _build.operand("hi", hi, dev, lo.shape)
+        if tf.ndim != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
+            raise ValueError(f"tf must be (R, 4); got {tuple(tf.shape)}")
+        tf = _build.operand("tf", tf, dev)
         out = torch.empty(lo.shape, dtype=torch.int32, device=dev)
         tmp = torch.empty_like(out)
         far = torch.empty(1, dtype=torch.int32, device=dev)
-        nx, ny, nz = lo.shape
-        _build.check(_build.library().dr_cell_distance(
-            lo.data_ptr(), hi.data_ptr(), tf.data_ptr(), tf.shape[0],
-            float(np.float32(alpha_skip)), nx, ny, nz, max(int(max_dist), 0),
-            tmp.data_ptr(), out.data_ptr(), far.data_ptr(), dev.index,
-            _build.stream_of(lo)), "cell_distance")
-        cell_distance.launches += 1
+        _build.call("dr_cell_distance", lo.data_ptr(), hi.data_ptr(),
+                    tf.data_ptr(), tf.shape[0], float(np.float32(alpha_skip)),
+                    *lo.shape, max(int(max_dist), 0), tmp.data_ptr(),
+                    out.data_ptr(), far.data_ptr(), like=lo)
     return out, far
-
-
-cell_distance.launches = 0
 
 
 __all__ = ["cell_distance", "cell_distance_reference", "tf_alpha_range_max"]

@@ -283,22 +283,10 @@ class _ShearWarpArgs(ctypes.Structure):
             "shininess")])
 
 
-def _on(name, t, dev, shape, dtype=torch.float32, aligned=False):
-    if t.device != dev or t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype} on {dev}; got {t.dtype} on "
-                        f"{t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}; got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if aligned and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
-    return t.detach()
-
-
-def _args(layers, tf, geom: SlabGeometry) -> _ShearWarpArgs:
-    """The kernels' argument struct, after the wrapper's checks."""
+def _args(layers, tf, geom: SlabGeometry):
+    """The kernels' argument struct, after the wrapper's checks, and the
+    operands it points into, which the caller keeps referenced until the
+    C call returns."""
     dev = layers.device
     if layers.ndim != 4 or layers.shape[3] != 4 or layers.shape[0] < 1:
         raise ValueError(f"layers must be (Z, X, Y, 4); got "
@@ -311,80 +299,68 @@ def _args(layers, tf, geom: SlabGeometry) -> _ShearWarpArgs:
     if S < 1:
         raise ValueError("the march needs at least one plane")
     a = _ShearWarpArgs()
-    i32 = torch.int32
-    for name, t, shape, dtype, aligned in (
-            ("layers", layers, layers.shape, torch.float32, True),
-            ("tf", tf, tf.shape, torch.float32, True),
-            ("ga", geom.ga, (rows,), torch.float32, False),
-            ("gb", geom.gb, (O,), torch.float32, False),
-            ("zws", geom.zws, (S,), torch.float32, False),
-            ("zlo", geom.zlo, (S,), i32, False),
-            ("zhi", geom.zhi, (S,), i32, False),
-            ("fz", geom.fz, (S,), torch.float32, False),
-            ("exponent", geom.exponent, (rows, O), torch.float32, False),
-            ("lf", geom.lf, (3,), torch.float32, False),
-            ("light", geom.light, (3,), torch.float32, False)):
-        setattr(a, name, _on(name, t, dev, shape, dtype, aligned).data_ptr())
+    f32, i32 = torch.float32, torch.int32
+    keep = []
+    for name, t, shape, dtype in (
+            ("layers", layers, layers.shape, f32),
+            ("tf", tf, tf.shape, f32),
+            ("ga", geom.ga, (rows,), f32),
+            ("gb", geom.gb, (O,), f32),
+            ("zws", geom.zws, (S,), f32),
+            ("zlo", geom.zlo, (S,), i32),
+            ("zhi", geom.zhi, (S,), i32),
+            ("fz", geom.fz, (S,), f32),
+            ("exponent", geom.exponent, (rows, O), f32),
+            ("lf", geom.lf, (3,), f32),
+            ("light", geom.light, (3,), f32)):
+        keep.append(_build.operand(name, t, dev, shape, dtype))
+        setattr(a, name, keep[-1].data_ptr())
     a.S, a.X, a.Y, a.rows, a.O, a.R = S, X, Y, rows, O, tf.shape[0]
     for f in ("xsc", "ysc", "thr", "ambient", "diffuse", "specular",
               "shininess"):
         setattr(a, f, float(getattr(geom, f)))
-    return a
+    return a, keep
 
 
 def shear_warp_fwd(layers: torch.Tensor, tf: torch.Tensor,
                    geom: SlabGeometry) -> torch.Tensor:
-    """The forward: K8 on CUDA tensors (counted in
-    ``shear_warp_fwd.launches``), :func:`shear_warp_march_plain` with
+    """The forward: K8 on CUDA tensors, :func:`shear_warp_march_plain` with
     :func:`_classify_dot` on CPU tensors.  Returns the intermediate image
     ``(rows, O, 4)``."""
     if _build.uses_plain(layers):
         with torch.no_grad():
             return shear_warp_march_plain(layers, tf, geom, _classify_dot)
-    with span("dr.launch.shear_warp_fwd"):
-        a = _args(layers, tf, geom)
+    with _build.launch("shear_warp_fwd"):
+        a, keep = _args(layers, tf, geom)
         inter = torch.empty((a.rows, a.O, 4), dtype=torch.float32,
                             device=layers.device)
         a.inter = inter.data_ptr()
-        _build.check(_build.library().dr_shear_warp_fwd(
-            ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
-            "shear_warp_fwd")
-        shear_warp_fwd.launches += 1
+        _build.call("dr_shear_warp_fwd", ctypes.byref(a), like=keep[0])
     return inter
-
-
-shear_warp_fwd.launches = 0
 
 
 def shear_warp_bwd(layers: torch.Tensor, tf: torch.Tensor,
                    geom: SlabGeometry, inter: torch.Tensor,
                    grad: torch.Tensor):
     """The backward for the cotangent ``grad`` of the intermediate image
-    ``inter`` (K8's output on these inputs): K9 on CUDA tensors (counted in
-    ``shear_warp_bwd.launches``), :func:`shear_warp_bwd_plain` with
-    :func:`_classify_dot` on CPU tensors.  Returns ``(d_layers, d_tf)``.
+    ``inter`` (K8's output on these inputs): K9 on CUDA tensors,
+    :func:`shear_warp_bwd_plain` with :func:`_classify_dot` on CPU tensors.
+    Returns ``(d_layers, d_tf)``.
     Both are summed with f32 atomics, so their last bits vary from run to
     run."""
     if _build.uses_plain(layers):
         return shear_warp_bwd_plain(layers, tf, geom, grad, _classify_dot)
-    with span("dr.launch.shear_warp_bwd"):
-        a = _args(layers, tf, geom)
+    with _build.launch("shear_warp_bwd"):
+        a, keep = _args(layers, tf, geom)
         shape = (a.rows, a.O, 4)
-        a.inter = _on("inter", inter, layers.device, shape,
-                      aligned=True).data_ptr()
-        a.grad = _on("grad", grad, layers.device, shape,
-                     aligned=True).data_ptr()
-        d_layers = torch.zeros_like(layers)
-        d_tf = torch.zeros_like(tf)
+        inter = _build.operand("inter", inter, layers.device, shape)
+        grad = _build.operand("grad", grad, layers.device, shape)
+        a.inter, a.grad = inter.data_ptr(), grad.data_ptr()
+        d_layers = torch.zeros_like(keep[0])
+        d_tf = torch.zeros_like(keep[1])
         a.d_layers, a.d_tf = d_layers.data_ptr(), d_tf.data_ptr()
-        _build.check(_build.library().dr_shear_warp_bwd(
-            ctypes.byref(a), layers.device.index, _build.stream_of(layers)),
-            "shear_warp_bwd")
-        shear_warp_bwd.launches += 1
+        _build.call("dr_shear_warp_bwd", ctypes.byref(a), like=keep[0])
     return d_layers, d_tf
-
-
-shear_warp_bwd.launches = 0
 
 
 class _ShearWarpMarch(torch.autograd.Function):
@@ -402,8 +378,7 @@ class _ShearWarpMarch(torch.autograd.Function):
     def backward(ctx, g):
         layers, tf, inter = ctx.saved_tensors
         with span("dr.backward"):
-            d_layers, d_tf = shear_warp_bwd(layers, tf, ctx.geom, inter,
-                                            g.contiguous())
+            d_layers, d_tf = shear_warp_bwd(layers, tf, ctx.geom, inter, g)
         need_layers, need_tf, _ = ctx.needs_input_grad
         return (d_layers if need_layers else None), \
             (d_tf if need_tf else None), None
@@ -422,10 +397,7 @@ def shear_warp_march(layers: torch.Tensor, tf: torch.Tensor,
     if _build.uses_plain(layers):
         return shear_warp_march_plain(layers, tf, geom, _classify_dot,
                                       slab_batch)
-    tf = tf.contiguous()
-    if tf.data_ptr() % 16:
-        tf = tf.clone()          # float4 loads need 16-byte alignment
-    return _ShearWarpMarch.apply(layers.contiguous(), tf, geom)
+    return _ShearWarpMarch.apply(layers, tf, geom)
 
 
 __all__ = ["SlabGeometry", "shear_warp_march", "shear_warp_march_plain",

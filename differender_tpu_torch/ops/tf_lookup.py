@@ -54,43 +54,32 @@ def tf_lookup_bwd_reference(tf: torch.Tensor, intensity: torch.Tensor,
 _MASKS = {"pallas": 0, "dot": 1}
 
 
-def _check(tf, intensity):
-    if tf.device != intensity.device:
-        raise ValueError(f"tf on {tf.device}, intensity on {intensity.device}")
-    if tf.dtype != torch.float32 or intensity.dtype != torch.float32:
-        raise TypeError("tf_lookup takes float32 tf and intensity")
+def _operands(tf, intensity):
+    """``tf`` (R, 4) and ``intensity`` flattened, as the kernels read them."""
+    dev = intensity.device
     if tf.ndim != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
         raise ValueError(f"tf must be (R, 4); got {tuple(tf.shape)}")
-    tf = tf.detach().contiguous()
-    if tf.data_ptr() % 16:
-        tf = tf.clone()          # float4 loads need 16-byte alignment
-    return tf, intensity.detach().contiguous().reshape(-1)
+    return (_build.operand("tf", tf, dev),
+            _build.operand("intensity", intensity, dev).reshape(-1))
 
 
 def tf_lookup_fwd(tf: torch.Tensor, intensity: torch.Tensor) -> torch.Tensor:
-    """The forward: K0 on CUDA tensors (counted in
-    ``tf_lookup_fwd.launches``), :func:`tf_lookup_reference` on CPU."""
+    """The forward: K0 on CUDA tensors, :func:`tf_lookup_reference` on
+    CPU."""
     if _build.uses_plain(intensity):
         return tf_lookup_reference(tf, intensity)
-    with span("dr.launch.tf_lookup_fwd"):
-        tf, flat = _check(tf, intensity)
+    with _build.launch("tf_lookup_fwd"):
+        tf, flat = _operands(tf, intensity)
         out = torch.empty(flat.shape + (4,), dtype=torch.float32,
                           device=flat.device)
-        _build.check(_build.library().dr_tf_lookup_fwd(
-            flat.data_ptr(), tf.data_ptr(), out.data_ptr(), flat.numel(),
-            tf.shape[0], flat.device.index, _build.stream_of(flat)),
-            "tf_lookup_fwd")
-        tf_lookup_fwd.launches += 1
+        _build.call("dr_tf_lookup_fwd", flat.data_ptr(), tf.data_ptr(),
+                    out.data_ptr(), flat.numel(), tf.shape[0], like=flat)
     return out.reshape(tuple(intensity.shape) + (4,))
-
-
-tf_lookup_fwd.launches = 0
 
 
 def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
                   g: torch.Tensor, mask: str = "pallas"):
-    """The backward: K0b on CUDA tensors (counted in
-    ``tf_lookup_bwd.launches``, once per call of its two launches),
+    """The backward: K0b on CUDA tensors (one launch a call of its two),
     :func:`tf_lookup_bwd_reference` on CPU; ``d_intensity`` under ``mask``
     (``"pallas"`` or ``"dot"``).
     Returns ``(d_tf (R, 4), d_intensity)``.  ``d_tf``'s sum across blocks
@@ -101,24 +90,15 @@ def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
         raise ValueError(f"mask must be 'pallas' or 'dot'; got {mask!r}")
     if _build.uses_plain(intensity):
         return tf_lookup_bwd_reference(tf, intensity, g, mask)
-    with span("dr.launch.tf_lookup_bwd"):
-        tf, flat = _check(tf, intensity)
-        if g.device != flat.device or g.dtype != torch.float32:
-            raise TypeError(f"g must be float32 on {flat.device}")
-        if tuple(g.shape) != tuple(intensity.shape) + (4,):
-            raise ValueError(f"g must have shape "
-                             f"{tuple(intensity.shape) + (4,)}; got "
-                             f"{tuple(g.shape)}")
-        g = g.detach().contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()            # float4 loads need 16-byte alignment
+    with _build.launch("tf_lookup_bwd"):
+        tf, flat = _operands(tf, intensity)
+        g = _build.operand("g", g, flat.device,
+                           tuple(intensity.shape) + (4,))
         n, R, dev = flat.numel(), tf.shape[0], flat.device
-        lib = _build.library()
         blocks, partials = ctypes.c_int(0), ctypes.c_longlong(0)
-        _build.check(lib.dr_tf_lookup_bwd_plan(n, R, dev.index,
-                                               ctypes.byref(blocks),
-                                               ctypes.byref(partials)),
-                     "tf_lookup_bwd")
+        _build.check(_build.library().dr_tf_lookup_bwd_plan(
+            n, R, dev.index, ctypes.byref(blocks), ctypes.byref(partials)),
+            "dr_tf_lookup_bwd_plan")
         d_int = torch.empty_like(flat)
         # The partials' sum writes every entry of d_tf; the global atomics
         # above R = 14336 (partials == 0) add into zeros.
@@ -126,16 +106,11 @@ def tf_lookup_bwd(tf: torch.Tensor, intensity: torch.Tensor,
                 else torch.zeros_like(tf))
         scratch = torch.empty(partials.value, dtype=torch.float32,
                               device=dev)
-        _build.check(lib.dr_tf_lookup_bwd(
-            flat.data_ptr(), tf.data_ptr(), g.data_ptr(), d_int.data_ptr(),
-            d_tf.data_ptr(), scratch.data_ptr(), blocks.value, n, R,
-            _MASKS[mask], dev.index, _build.stream_of(flat)),
-            "tf_lookup_bwd")
-        tf_lookup_bwd.launches += 1
+        _build.call("dr_tf_lookup_bwd", flat.data_ptr(), tf.data_ptr(),
+                    g.data_ptr(), d_int.data_ptr(), d_tf.data_ptr(),
+                    scratch.data_ptr(), blocks.value, n, R, _MASKS[mask],
+                    like=flat)
     return d_tf, d_int.reshape(intensity.shape)
-
-
-tf_lookup_bwd.launches = 0
 
 
 class _TfLookup(torch.autograd.Function):

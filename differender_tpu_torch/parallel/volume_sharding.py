@@ -45,8 +45,8 @@ from ..config import RenderConfig
 from ..geometry import RayBundle, make_rays, march_params
 from ..profiling import span
 from ..render import (RaySoA, RenderOutput, SampleCotangents, Segment,
-                      _counts_out, _inputs, _launch_k2, _launch_march,
-                      _ray_soa, _tap, ray_cotangents, tap_cotangents)
+                      _inputs, _launch_k2, _launch_march, _ray_soa, _tap,
+                      ray_cotangents, tap_cotangents)
 from ..sampling import apply_tf, sample_with_gradient_shard, voxel_scale
 from ..shading import shade
 from ._collectives import (all_gather, gather, group_rank, replicated,
@@ -253,28 +253,18 @@ def segment_cotangents_plain(padded: torch.Tensor, tf: torch.Tensor,
 def march_segment_fwd(padded: torch.Tensor, tf: torch.Tensor,
                       rays: RayBundle, config: RenderConfig, sampling_rate,
                       k: int, n_shards: int, length: int):
-    """Kernel K1's segment instantiation on CUDA tensors (one launch,
-    counted in ``march_segment_fwd.launches``), :func:`segment_march_plain`
-    on CPU tensors.  Returns ``(acc (H, W, 4), cnt (H, W))``; no autograd."""
+    """Kernel K1's segment instantiation on CUDA tensors (one launch),
+    :func:`segment_march_plain` on CPU tensors.  Returns ``(acc (H, W, 4),
+    cnt (H, W))``; no autograd."""
     if _build.uses_plain(padded):
         with torch.no_grad():
             return segment_march_plain(padded, tf, rays, config,
                                        sampling_rate, k, n_shards, length)
-    return _k1_segment(padded, tf, _ray_soa(rays),
-                       _segment(rays, config, k, n_shards, length), config,
-                       sampling_rate)
-
-
-march_segment_fwd.launches = 0
-
-
-def _k1_segment(padded, tf, soa, seg, config, sampling_rate, counts=None):
-    with span("dr.launch.march_segment_fwd"):
-        acc, cnt = _launch_march("dr_march_diff_fwd", padded, tf, soa,
-                                 config, sampling_rate, False,
-                                 config.max_samples, counts, segment=seg)
-        march_segment_fwd.launches += 1
-    return acc, cnt
+    soa = _ray_soa(rays)
+    seg = _segment(rays, config, k, n_shards, length)
+    with _build.launch("march_segment_fwd"):
+        return _launch_march(padded, tf, soa, config, sampling_rate, False,
+                             segment=seg)
 
 
 def march_segment_bwd(padded: torch.Tensor, tf: torch.Tensor,
@@ -284,14 +274,14 @@ def march_segment_bwd(padded: torch.Tensor, tf: torch.Tensor,
                       sums: Optional[torch.Tensor] = None):
     """Backward of shard ``k``'s segment for the cotangent ``grad``
     (H, W, 4) of its composite ``acc`` (:func:`march_segment_fwd`'s):
-    kernel K2's segment instantiation on CUDA tensors (one launch, counted
-    in ``march_segment_bwd.launches``), autograd of
+    kernel K2's segment instantiation on CUDA tensors (one launch),
+    autograd of
     :func:`segment_march_plain` on CPU tensors.  Returns ``(d_padded,
     d_tf, cnt)``; ``d_padded`` holds the halo planes' cotangents too.
     ``sums``, an (H, W, 12) f32 tensor beside the block, receives the
     segment's per-ray position sums over its owned samples (K2's segment
-    camera instantiation, also counted in
-    ``march_segment_bwd.camera_launches``; ``render.ray_cotangents`` maps
+    camera instantiation, tallied as ``march_segment_bwd.camera``;
+    ``render.ray_cotangents`` maps
     them onto the ray tensors), the plain version of which is
     :func:`segment_cotangents_plain`."""
     if _build.uses_plain(padded):
@@ -308,27 +298,13 @@ def march_segment_bwd(padded: torch.Tensor, tf: torch.Tensor,
         return (torch.zeros_like(padded) if d_v is None else d_v,
                 torch.zeros_like(tf) if d_t is None else d_t, cnt)
     H, W = config.image_shape
-    sums = _counts_out("sums", sums, padded.device, (H, W, 12),
-                       torch.float32)
-    return _k2_segment(padded, tf, _ray_soa(rays),
-                       _segment(rays, config, k, n_shards, length), config,
-                       sampling_rate, acc, grad, sums=sums)
-
-
-march_segment_bwd.launches = 0
-march_segment_bwd.camera_launches = 0
-
-
-def _k2_segment(padded, tf, soa, seg, config, sampling_rate, acc, grad,
-                counts=None, sums=None):
-    """One launch of K2's segment instantiation, counted; its camera one
-    where ``sums`` is given."""
-    with span("dr.launch.march_segment_bwd"):
-        out = _launch_k2(padded, tf, soa, config, sampling_rate, acc, grad,
-                         False, counts, sums, segment=seg)
-        march_segment_bwd.launches += 1
-        march_segment_bwd.camera_launches += sums is not None
-    return out
+    soa = _ray_soa(rays)
+    seg = _segment(rays, config, k, n_shards, length)
+    with _build.launch("march_segment_bwd", camera=sums is not None):
+        sums = _build.output("sums", sums, padded.device, (H, W, 12),
+                             torch.float32)
+        return _launch_k2(padded, tf, soa, config, sampling_rate, acc, grad,
+                          False, sums=sums, segment=seg)
 
 
 class _MarchSegment(torch.autograd.Function):
@@ -344,7 +320,9 @@ class _MarchSegment(torch.autograd.Function):
                 sampling_rate, seg_args):
         soa = RaySoA(origin, dirs, t0, dt, n)
         seg = Segment(s_lo, *seg_args)
-        acc, cnt = _k1_segment(padded, tf, soa, seg, config, sampling_rate)
+        with _build.launch("march_segment_fwd"):
+            acc, cnt = _launch_march(padded, tf, soa, config, sampling_rate,
+                                     False, segment=seg)
         ctx.save_for_backward(padded, tf, origin, dirs, t0, dt, n, s_lo, acc)
         ctx.march = (config, sampling_rate, seg_args)
         ctx.mark_non_differentiable(cnt)
@@ -360,10 +338,11 @@ class _MarchSegment(torch.autograd.Function):
             sums = (torch.empty(config.image_shape + (12,),
                                 dtype=torch.float32, device=padded.device)
                     if camera else None)
-            d_padded, d_tf, _ = _k2_segment(
-                padded, tf, RaySoA(origin, dirs, t0, dt, n),
-                Segment(s_lo, *seg_args), config, sampling_rate, acc, g_acc,
-                sums=sums)
+            with _build.launch("march_segment_bwd", camera=camera):
+                d_padded, d_tf, _ = _launch_k2(
+                    padded, tf, RaySoA(origin, dirs, t0, dt, n), config,
+                    sampling_rate, acc, g_acc, False, sums=sums,
+                    segment=Segment(s_lo, *seg_args))
             d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
                       else (None,) * 4)
         grads = (d_padded, d_tf) + d_rays

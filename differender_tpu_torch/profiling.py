@@ -24,7 +24,8 @@ of the profiler's state.  The package opens these spans:
 - ``dr.grid``: ``occupancy.build_occupancy``;
 - ``dr.launch.<kernel>``: the host side of one kernel wrapper's call on
   the card, from its operand checks to the C call's return, ``<kernel>``
-  its key in ``KERNEL_WRAPPERS`` (so each span is one count of
+  its name in ``_build.KERNELS`` (``_build.launch`` opens the span and
+  counts the launch, so each span is one count of
   :func:`~differender_tpu_torch.launch_counts`);
 - ``dr.backward``: the backward of each autograd Function that launches a
   kernel (the march, its segment, the shear-warp march, the TF lookup);

@@ -333,8 +333,8 @@ def march_nondiff_plain(volume: torch.Tensor, tf: torch.Tensor,
         volume, tf, rays, config, sampling_rate, limit, ert=True,
         nondiff=True, occupancy=occupancy)
     if cell_loads is not None:
-        _counts_out("cell_loads", cell_loads, volume.device,
-                    config.image_shape).copy_(loads.reshape(H, W))
+        _build.output("cell_loads", cell_loads, volume.device,
+                      config.image_shape).copy_(loads.reshape(H, W))
     image = torch.cat([rgb, (1.0 - T)[:, None]], dim=-1)
     image = torch.clamp(image, max=1.0).reshape(H, W, 4)
     return image, vis.reshape(H, W), comp.reshape(H, W)
@@ -382,17 +382,6 @@ class _MarchBwdArgs(ctypes.Structure):
         "grad", "d_volume", "d_tf", "ray_sums")]
 
 
-def _checked(name, t, dev, shape=None, dtype=torch.float32):
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}; the volume on {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}; "
-                         f"got {tuple(t.shape)}")
-    return t.detach().contiguous()
-
-
 def _occupancy_args(occupancy, config, dev):
     """The grid's fields of ``MarchArgs`` (a null grid: no skip): its
     distance field, the field's largest value (on the device: K3 reads it),
@@ -400,10 +389,11 @@ def _occupancy_args(occupancy, config, dev):
     if occupancy is None:
         return None, None, (0, 0, 0, 1, 1), 0.0
     nx, ny, nz = occupancy.shape
-    dist = _checked("occupancy.dist", occupancy.dist, dev, (nx * ny * nz,),
-                    torch.int32)
+    dist = _build.operand("occupancy.dist", occupancy.dist, dev,
+                          (nx * ny * nz,), torch.int32)
     ints = (nx, ny, nz, occupancy.cell, max(1, config.occupancy_jump_every))
-    far = _checked("occupancy.far", occupancy.far, dev, (1,), torch.int32)
+    far = _build.operand("occupancy.far", occupancy.far, dev, (1,),
+                         torch.int32)
     return dist, far, ints, float(np.float32(occupancy.cell_world))
 
 
@@ -424,29 +414,26 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
     N = H * W * (views or 1)
     X, Y, Z = config.volume_shape
     if segment is None:
-        volume = _checked("volume", volume, dev, config.volume_shape)
+        volume = _build.operand("volume", volume, dev, config.volume_shape)
         s_lo, seg = None, (0, 0, 0, 0.0, 0.0)
     else:
         Xp = volume.shape[0]
-        volume = _checked("padded volume", volume, dev, (Xp, Y, Z))
-        s_lo = _checked("s_lo", segment.s_lo, dev, (H * W,), torch.int32)
+        volume = _build.operand("padded volume", volume, dev, (Xp, Y, Z))
+        s_lo = _build.operand("s_lo", segment.s_lo, dev, (H * W,),
+                              torch.int32)
         seg = (segment.length, segment.x_start, Xp, segment.x_lo,
                segment.x_hi)
         ert = False
     if tf.ndim != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
         raise ValueError(f"tf must be (R, 4); got {tuple(tf.shape)}")
-    tf = _checked("tf", tf, dev)
-    if tf.data_ptr() % 16:
-        tf = tf.clone()          # float4 loads need 16-byte alignment
-    origin = _checked("look_from", soa.origin, dev, lead + (3,))
-    dirs = _checked("ray dirs", soa.dirs, dev, (N, 3))
+    tf = _build.operand("tf", tf, dev)
+    origin = _build.operand("look_from", soa.origin, dev, lead + (3,))
+    dirs = _build.operand("ray dirs", soa.dirs, dev, (N, 3))
     dx, dy, dz = (dirs[:, i].contiguous() for i in range(3))
-    t0 = _checked("t0", soa.t0, dev, (N,))
-    dt = _checked("dt", soa.dt, dev, (N,))
-    n = _checked("n_samples", soa.n, dev, (N,), torch.int32)
-    image = _checked("image", image, dev, lead + (H, W, 4))
-    if image.data_ptr() % 16:
-        image = image.clone()    # float4 loads need 16-byte alignment
+    t0 = _build.operand("t0", soa.t0, dev, (N,))
+    dt = _build.operand("dt", soa.dt, dev, (N,))
+    n = _build.operand("n_samples", soa.n, dev, (N,), torch.int32)
+    image = _build.operand("image", image, dev, lead + (H, W, 4))
     scale = voxel_scale(config.volume_shape)
     sc = np.float32(config.normal_delta) * scale
     lc = config.light_color
@@ -473,56 +460,28 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
                   far, s_lo)
 
 
-def _launch(entry, args, volume, *lead):
-    """Call the C entry ``entry``; ``lead`` are its arguments between the
-    struct and the device (K3's view count)."""
-    fn = getattr(_build.library(), entry)
-    _build.check(fn(ctypes.byref(args), *lead, volume.device.index,
-                    _build.stream_of(volume)), entry)
-
-
-def _counts_out(name, counts, dev, shape, dtype=torch.int32):
-    """Checks an optional tensor of per-ray counts or sums that a kernel
-    writes, and returns it (or None)."""
-    if counts is None:
-        return None
-    _checked(name, counts, dev, shape, dtype)
-    if not counts.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return counts
-
-
-def _launch_march(entry, volume, tf, soa, config, sampling_rate, ert,
-                  max_steps, shaded=None, occupancy=None, counts=None,
-                  segment=None):
-    """Allocate the outputs and launch one forward march kernel; ``shaded``
-    and ``counts`` (if given) receive its per-ray counts."""
+def _launch_march(volume, tf, soa, config, sampling_rate, ert,
+                  counts=None, segment=None):
+    """Allocate the outputs and call K1 (its segment instantiation with a
+    :class:`Segment`) inside the caller's ``_build.launch`` block;
+    ``counts`` (if given) receives its per-ray counts."""
     H, W = config.image_shape
     dev = volume.device
     image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
     args, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
-                             max_steps, image, steps, shaded, occupancy,
-                             counts, segment)
-    _launch(entry, args, keep[0])
-    return image, steps
-
-
-def _k1(volume, tf, soa, config, sampling_rate, ert, counts=None):
-    with span("dr.launch.march_diff_fwd"):
-        image, steps = _launch_march(
-            "dr_march_diff_fwd", volume, tf, soa, config, sampling_rate, ert,
-            config.max_samples, counts)
-        march_diff_fwd.launches += 1
+                             config.max_samples, image, steps, counts,
+                             segment=segment)
+    _build.call("dr_march_diff_fwd", ctypes.byref(args), like=keep[0])
     return image, steps
 
 
 def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                    config: RenderConfig, sampling_rate, ert: bool = True, *,
                    counts: Optional[torch.Tensor] = None):
-    """Kernel K1 on CUDA tensors (one launch, counted in
-    ``march_diff_fwd.launches``), :func:`march_diff_plain` on CPU tensors.
-    Returns ``(image (H, W, 4), valid_steps (H, W))``; no autograd.
+    """Kernel K1 on CUDA tensors (one launch), :func:`march_diff_plain` on
+    CPU tensors.  Returns ``(image (H, W, 4), valid_steps (H, W))``; no
+    autograd.
     ``counts``, an (H, W, 2) int32 tensor beside the volume, receives two
     counts per ray: the samples of opacity exactly 0, which K1 composites
     without their gradient and shading, and the samples of the stencil's
@@ -535,13 +494,12 @@ def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
         with torch.no_grad():
             return march_diff_plain(volume, tf, rays, config, sampling_rate,
                                     ert)
-    counts = _counts_out("counts", counts, volume.device,
-                         config.image_shape + (2,))
-    return _k1(volume, tf, _ray_soa(rays), config, sampling_rate, ert,
-               counts)
-
-
-march_diff_fwd.launches = 0
+    soa = _ray_soa(rays)
+    with _build.launch("march_diff_fwd"):
+        counts = _build.output("counts", counts, volume.device,
+                               config.image_shape + (2,))
+        return _launch_march(volume, tf, soa, config, sampling_rate, ert,
+                             counts)
 
 
 def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
@@ -565,22 +523,20 @@ def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
 
 def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
                counts=None, sums=None, segment=None, volume_grad=True):
-    """One launch of K2 (uncounted): its camera instantiation where
-    ``sums`` (an (H, W, 12) f32 tensor) is given to receive the per-ray
-    sums, its segment instantiation with a :class:`Segment` (``d_volume``
-    then has the padded block's shape).  Without ``volume_grad``, its TF-only
-    instantiation (neither ``sums`` nor a segment: the C entry refuses
-    them): no ``d_volume`` is allocated or computed, and ``None`` is
-    returned in its place."""
+    """Call K2 inside the caller's ``_build.launch`` block: its camera
+    instantiation where ``sums`` (an (H, W, 12) f32 tensor) is given to
+    receive the per-ray sums, its segment instantiation with a
+    :class:`Segment` (``d_volume`` then has the padded block's shape).
+    Without ``volume_grad``, its TF-only instantiation (neither ``sums`` nor
+    a segment: the C entry refuses them): no ``d_volume`` is allocated or
+    computed, and ``None`` is returned in its place."""
     H, W = config.image_shape
     dev = volume.device
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
     fwd, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
                             config.max_samples, image, steps, counts,
                             segment=segment)
-    grad = _checked("image cotangent", grad, dev, (H, W, 4))
-    if grad.data_ptr() % 16:
-        grad = grad.clone()      # float4 loads need 16-byte alignment
+    grad = _build.operand("image cotangent", grad, dev, (H, W, 4))
     d_volume = (torch.zeros(keep[0].shape, dtype=torch.float32, device=dev)
                 if volume_grad else None)
     d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
@@ -588,22 +544,8 @@ def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
                          d_volume.data_ptr() if volume_grad else None,
                          d_tf.data_ptr(),
                          sums.data_ptr() if sums is not None else None)
-    _launch("dr_march_diff_bwd", args, keep[0])
+    _build.call("dr_march_diff_bwd", ctypes.byref(args), like=keep[0])
     return d_volume, d_tf, steps
-
-
-def _k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-        counts=None, sums=None, volume_grad=True):
-    """One launch of K2, counted; its camera instantiation where ``sums``
-    is given, its TF-only one without ``volume_grad``
-    (:func:`_launch_k2`)."""
-    with span("dr.launch.march_diff_bwd"):
-        out = _launch_k2(volume, tf, soa, config, sampling_rate, image, grad,
-                         ert, counts, sums, volume_grad=volume_grad)
-        march_diff_bwd.launches += 1
-        march_diff_bwd.camera_launches += sums is not None
-        march_diff_bwd.tf_only_launches += not volume_grad
-    return out
 
 
 def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
@@ -613,8 +555,8 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                    sums: Optional[torch.Tensor] = None,
                    volume_grad: bool = True):
     """Backward of the differentiable march for the image cotangent
-    ``grad`` (H, W, 4): kernel K2 on CUDA tensors (one launch, counted in
-    ``march_diff_bwd.launches``), :func:`march_diff_bwd_plain` on CPU.
+    ``grad`` (H, W, 4): kernel K2 on CUDA tensors (one launch),
+    :func:`march_diff_bwd_plain` on CPU.
 
     ``image`` is K1's output for the same inputs: K2 recomputes the march
     front to back, bitwise as K1 marched it, and needs the finished
@@ -629,10 +571,10 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     general branch (K2 only: ``chip_smoke.py`` reads them for K2's bound).
     ``sums``, an (H, W, 12) f32 tensor beside the volume, receives K2's
     per-ray position sums (:func:`ray_sums`; K2's camera instantiation,
-    also counted in ``march_diff_bwd.camera_launches``), the plain version
+    tallied as ``march_diff_bwd.camera``), the plain version
     of which is :func:`march_diff_cotangents_plain`.  Without
     ``volume_grad``, ``d_volume`` is ``None``: K2's TF-only instantiation
-    (counted in ``march_diff_bwd.tf_only_launches``) computes ``d_tf``
+    (tallied as ``march_diff_bwd.tf_only``) computes ``d_tf``
     alone, and takes no ``sums``."""
     if not volume_grad and sums is not None:
         raise ValueError("sums are taken by K2's camera instantiation, "
@@ -645,16 +587,14 @@ def march_diff_bwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                                                sampling_rate, grad, ert)
         return (d_v if volume_grad else None), d_t, steps
     H, W = config.image_shape
-    counts = _counts_out("counts", counts, volume.device, (H, W, 4))
-    sums = _counts_out("sums", sums, volume.device, (H, W, 12),
-                       torch.float32)
-    return _k2(volume, tf, _ray_soa(rays), config, sampling_rate, image,
-               grad, ert, counts, sums, volume_grad=volume_grad)
-
-
-march_diff_bwd.launches = 0
-march_diff_bwd.camera_launches = 0
-march_diff_bwd.tf_only_launches = 0
+    soa = _ray_soa(rays)
+    with _build.launch("march_diff_bwd", camera=sums is not None,
+                       tf_only=not volume_grad):
+        counts = _build.output("counts", counts, volume.device, (H, W, 4))
+        sums = _build.output("sums", sums, volume.device, (H, W, 12),
+                             torch.float32)
+        return _launch_k2(volume, tf, soa, config, sampling_rate, image,
+                          grad, ert, counts, sums, volume_grad=volume_grad)
 
 
 class _MarchDiff(torch.autograd.Function):
@@ -665,14 +605,16 @@ class _MarchDiff(torch.autograd.Function):
     instantiation also sums the position cotangents per ray, and
     :func:`ray_cotangents` maps them onto the ray tensors.  Where only the
     TF needs one, K2's TF-only instantiation computes ``d_tf`` alone
-    (counted in ``march_diff_bwd.tf_only_launches``, inside the span
+    (tallied as ``march_diff_bwd.tf_only``, inside the span
     ``dr.backward.tf_only``)."""
 
     @staticmethod
     def forward(ctx, volume, tf, origin, dirs, t0, dt, n, config,
                 sampling_rate, ert):
         soa = RaySoA(origin, dirs, t0, dt, n)
-        image, steps = _k1(volume, tf, soa, config, sampling_rate, ert)
+        with _build.launch("march_diff_fwd"):
+            image, steps = _launch_march(volume, tf, soa, config,
+                                         sampling_rate, ert)
         ctx.save_for_backward(volume, tf, origin, dirs, t0, dt, n, image)
         ctx.march = (config, sampling_rate, ert)
         ctx.mark_non_differentiable(steps)
@@ -690,10 +632,12 @@ class _MarchDiff(torch.autograd.Function):
             sums = (torch.empty(config.image_shape + (12,),
                                 dtype=torch.float32, device=volume.device)
                     if camera else None)
-            d_volume, d_tf, _ = _k2(volume, tf,
-                                    RaySoA(origin, dirs, t0, dt, n), config,
-                                    sampling_rate, image, g_image, ert,
-                                    sums=sums, volume_grad=not tf_only)
+            with _build.launch("march_diff_bwd", camera=camera,
+                               tf_only=tf_only):
+                d_volume, d_tf, _ = _launch_k2(
+                    volume, tf, RaySoA(origin, dirs, t0, dt, n), config,
+                    sampling_rate, image, g_image, ert, sums=sums,
+                    volume_grad=not tf_only)
             d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
                       else (None,) * 4)
         grads = (d_volume, d_tf) + d_rays
@@ -748,10 +692,10 @@ def _view_rays(rays: RayBundle, v: int) -> RayBundle:
 def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                   config: RenderConfig, sampling_rate, occupancy=None, *,
                   counts: Optional[torch.Tensor] = None):
-    """Inference march: kernel K3 on CUDA tensors (counted in
-    ``march_nondiff.launches``), :func:`march_nondiff_plain` on CPU
-    tensors.  With an ``occupancy`` grid each ray jumps over empty space.
-    Returns ``(image, visited, composited)`` as the plain version does.
+    """Inference march: kernel K3 on CUDA tensors (one launch),
+    :func:`march_nondiff_plain` on CPU tensors.  With an ``occupancy`` grid
+    each ray jumps over empty space.  Returns ``(image, visited,
+    composited)`` as the plain version does.
     ``counts``, an (H, W, 3) int32 tensor beside the volume, receives three
     counts per ray: K3's loads of the centre's 2x2x2 cell (it keeps the
     cell across samples and loads it when the centre's low voxel indices
@@ -765,7 +709,7 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     stacks them): then one K3 launch marches them all (the plain march
     each view in turn on the CPU), the outputs and ``counts`` gain the
     leading V, each ray's results are those of its view marched alone, and
-    ``march_nondiff.batched_views`` counts the V views."""
+    the tally ``march_nondiff.views`` counts the V views."""
     views = _views(rays, config)
     if _build.uses_plain(volume):
         if counts is not None:
@@ -777,14 +721,14 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
         outs = [march_nondiff_plain(volume, tf, _view_rays(rays, v), config,
                                     sampling_rate, occupancy)
                 for v in range(views)]
-        march_nondiff.batched_views += views
+        _build.count("march_nondiff.views", views)
         return tuple(torch.stack(o) for o in zip(*outs))
     soa = _ray_soa(rays)
     dev = volume.device
-    with span("dr.launch.march_nondiff"):
+    with _build.launch("march_nondiff", views=views or 0):
         _check_grid(occupancy, config)
         shape = ((views,) if views else ()) + tuple(config.image_shape)
-        counts = _counts_out("counts", counts, dev, shape + (3,))
+        counts = _build.output("counts", counts, dev, shape + (3,))
         image = torch.empty(shape + (4,), dtype=torch.float32, device=dev)
         visited = torch.empty(shape, dtype=torch.int32, device=dev)
         composited = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -792,14 +736,9 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
                                  True, np.iinfo(np.int32).max, image,
                                  visited, composited, occupancy, counts,
                                  views=views)
-        _launch("dr_march_nondiff", args, keep[0], views or 1)
-        march_nondiff.launches += 1
-        march_nondiff.batched_views += views or 0
+        _build.call("dr_march_nondiff", ctypes.byref(args), views or 1,
+                    like=keep[0])
     return image, visited, composited
-
-
-march_nondiff.launches = 0
-march_nondiff.batched_views = 0
 
 
 # ---------------------------------------------------------------------------

@@ -115,9 +115,13 @@ def test_cpu_tensors_never_launch():
                                  "brick_rows": 0, "cell_minmax": 0,
                                  "cell_distance": 0, "march_segment_fwd": 0,
                                  "march_segment_bwd": 0, "shear_warp_fwd": 0,
-                                 "shear_warp_bwd": 0}
-    assert P.march_diff_bwd.camera_launches == 0
-    assert P.march_segment_bwd.camera_launches == 0
+                                 "shear_warp_bwd": 0,
+                                 "march_diff_bwd.camera": 0,
+                                 "march_diff_bwd.tf_only": 0,
+                                 "march_segment_bwd.camera": 0,
+                                 "march_nondiff.views": 0}
+    assert P.launch_counts()["march_diff_bwd.camera"] == 0
+    assert P.launch_counts()["march_segment_bwd.camera"] == 0
 
 
 @pytest.mark.parametrize("field", ["analytic_normals", "camera_grads"])

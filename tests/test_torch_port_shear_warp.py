@@ -706,16 +706,23 @@ def test_args_mirror_the_c_struct():
                                  "tf", "zlo"])
 def test_wrapper_checks_raise(sphere, bad):
     """The checks that guard the C entries raise on what the kernels do not
-    take (they run before any launch, so the CPU reaches them)."""
+    take (they run before any launch, so the CPU reaches them); a layout
+    that only strides differently is not refused but copied."""
     vol, tf = sphere
     _, layers, geom = _inputs(vol, VIEWS["+z"], _cfg(vol), 8, 1.0)
     tf_t = torch.from_numpy(tf)
+    if bad == "contiguity":
+        strided = torch.empty_like(layers).transpose(1, 2).contiguous(
+            ).transpose(1, 2).copy_(layers)
+        a, keep = SW._args(strided, tf_t, geom)
+        assert not strided.is_contiguous() and keep[0].is_contiguous()
+        assert torch.equal(keep[0], layers)
+        assert a.layers == keep[0].data_ptr() != strided.data_ptr()
+        return
     if bad == "layout":
         layers = layers.permute(0, 3, 1, 2).contiguous()
     elif bad == "dtype":
         layers = layers.double()
-    elif bad == "contiguity":
-        layers = layers.transpose(1, 2)
     elif bad == "zws":
         geom = geom._replace(zws=geom.zws[:-1])
     elif bad == "zlo":

@@ -5,7 +5,7 @@ On the CPU: ``Raycaster.raycast_nondiff`` of views of one volume and TF is
 one batched render, bitwise the per-view loop (one and three views, the
 occupancy grid on and off, parity and analytic normals, images whose sides
 are not multiples of K3's 16x8 blocks); it engages only for one volume and
-TF (the ``dr.view.batch`` span and ``march_nondiff.batched_views``); the
+TF (the ``dr.view.batch`` span and the ``march_nondiff.views`` tally); the
 operands it hands K3 are view-major; malformed batches are refused.  The
 test marked ``card`` holds one batched K3 launch bitwise to a launch a
 view, counts included; it skips without a card.  This file imports no
@@ -69,7 +69,7 @@ def test_batched_raycast_nondiff_is_the_loop(views, grid, analytic, image):
     assert got.shape == (views, 4, image[1], image[0])
     assert torch.equal(got, loop)
     assert 0.0 < float(got[:, 3].mean()) < 1.0
-    assert P.march_nondiff.batched_views == views
+    assert P.launch_counts()["march_nondiff.views"] == views
     assert P.launch_counts()["march_nondiff"] == 0     # the plain path
 
 
@@ -126,7 +126,7 @@ def test_a_batch_shared_with_stride_0_is_batched(tmp_path):
         got = rc.raycast_nondiff(vol[None].expand(3, -1, -1, -1, -1),
                                  tf[None].expand(3, -1, -1), LOOK[0], SR)
     assert torch.equal(got, want[:1].expand(3, -1, -1, -1))
-    assert P.march_nondiff.batched_views == 3
+    assert P.launch_counts()["march_nondiff.views"] == 3
     assert _spans(tmp_path)["dr.view.batch"] == 1
 
 
@@ -142,7 +142,7 @@ def test_distinct_volumes_or_tfs_stay_on_the_loop(distinct, tmp_path):
     with PPR.trace(str(tmp_path), device="cpu"):
         got = rc.raycast_nondiff(vol, tf, LOOK, SR)
     spans = _spans(tmp_path)
-    assert P.march_nondiff.batched_views == 0
+    assert P.launch_counts()["march_nondiff.views"] == 0
     assert spans["dr.view.batch"] == 0
     assert spans["dr.view"] == spans["dr.grid"] == 3
     for v in range(3):
@@ -234,7 +234,7 @@ def test_one_batched_k3_launch_is_a_launch_a_view_on_the_card():
     P.reset_launch_counts()
     got = P.march_nondiff(vol, tf, rays, cfg, 8.0, grid, counts=counts)
     assert P.launch_counts()["march_nondiff"] == 1
-    assert P.march_nondiff.batched_views == 3
+    assert P.launch_counts()["march_nondiff.views"] == 3
     for v, r in enumerate(per_view):
         one = torch.empty((67, 45, 3), dtype=torch.int32, device="cuda")
         want = P.march_nondiff(vol, tf, r, cfg, 8.0, grid, counts=one)

@@ -150,25 +150,27 @@ NEEDS = {"tf_only": ((False, True, False), False),
 @pytest.mark.parametrize("case", sorted(NEEDS))
 def test_backward_takes_tf_only_k2_where_only_the_tf_needs_a_gradient(
         case, monkeypatch):
-    """``_MarchDiff``'s choice of K2 instantiation, the kernels replaced by
-    stand-ins that record how they were called."""
+    """``_MarchDiff``'s choice of K2 instantiation, the calls of K1 and K2
+    replaced by stand-ins that record how they were called."""
     (v_req, t_req, c_req), volume_grad = NEEDS[case]
     calls = []
 
-    def k1(volume, tf, soa, config, sampling_rate, ert, counts=None):
+    def k1(volume, tf, soa, config, sampling_rate, ert, counts=None,
+           segment=None):
         H, W = config.image_shape
         return (torch.zeros((H, W, 4)), torch.zeros((H, W),
                                                     dtype=torch.int32))
 
     def k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-           counts=None, sums=None, volume_grad=True):
+           counts=None, sums=None, segment=None, volume_grad=True):
         calls.append(volume_grad)
         if sums is not None:
             sums.zero_()
         return (torch.zeros_like(volume) if volume_grad else None,
                 torch.ones_like(tf), None)
-    monkeypatch.setattr(PR, "_k1", k1)
-    monkeypatch.setattr(PR, "_k2", k2)
+    monkeypatch.setattr(PR, "_launch_march", k1)
+    monkeypatch.setattr(PR, "_launch_k2", k2)
+    P.reset_launch_counts()
     cfg = P.RenderConfig(volume_shape=(6, 6, 6), image_shape=(4, 5),
                          tf_resolution=8, max_samples=16)
     vol = torch.rand((6, 6, 6)).requires_grad_(v_req)
@@ -178,6 +180,10 @@ def test_backward_takes_tf_only_k2_where_only_the_tf_needs_a_gradient(
     image, _ = PR._MarchDiff.apply(vol, tf, *soa, cfg, 1.0, True)
     image.sum().backward()
     assert calls == [volume_grad]
+    counts = P.launch_counts()
+    assert counts["march_diff_fwd"] == counts["march_diff_bwd"] == 1
+    assert counts["march_diff_bwd.tf_only"] == int(not volume_grad)
+    assert counts["march_diff_bwd.camera"] == int(c_req)
     assert (tf.grad is not None) == t_req
     assert (vol.grad is not None) == v_req
 
@@ -289,7 +295,7 @@ def test_tf_only_k2_matches_the_full_k2_on_the_card(card, analytic, R_, lit):
     assert d_volume is None
     assert gap <= DTF_TOL[R_ > 1024]
     assert P.launch_counts()["march_diff_bwd"] == 1
-    assert P.march_diff_bwd.tf_only_launches == 1
+    assert P.launch_counts()["march_diff_bwd.tf_only"] == 1
     assert extra < vol.numel() * 4
     assert float(torch.linalg.vector_norm(d_vol_full)) > 0.0
 
@@ -313,7 +319,7 @@ def test_warmed_tf_fit_steps_make_no_host_sync_on_the_card(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert P.march_diff_bwd.tf_only_launches == 2
+    assert P.launch_counts()["march_diff_bwd.tf_only"] == 2
     assert P.launch_counts()["march_diff_bwd"] == 2
 
 
