@@ -44,7 +44,8 @@ Phases (one JSON line each):
      gradient step and the inference render on the noise scene, the last
      with the occupancy grid and without it (torch.profiler).
   5b. train: 5 steps of the volume-fitting loop of
-     ``examples/optimize_volume.py`` at 256^3 and 512^2, 2 views.
+     ``examples/optimize_volume.py`` at 256^3 and 512^2, 2 views of one
+     volume: one K1 launch a step (``render_batch``), one K2 a view.
   6. golden: the card's renders of the sphere fixtures of
      ``tests/golden_renders.npz``, and K2 on that sphere at sampling rate
      0.8 against the plain march and through ``value_and_grad_render``.
@@ -215,7 +216,15 @@ Phases (one JSON line each):
      ``Raycaster.raycast_nondiff`` of the 8 poses bitwise its view-by-view
      loop; the batched and the looped render and K3 timed in turn; K3's
      registers and spills from ptxas.
-  Each of 9d-9l prints its own seconds.
+  9m. diff_batch: the volume fit's views in one K1 launch
+     (:func:`diff_batch`): at its shapes (256^3, 8 views of 256^2,
+     sampling rate 1, jittered) on both scenes, K1 on the views' stacked
+     rays bitwise a launch a view (image, ``valid_steps``, counts); the
+     fitting step through ``Raycaster.forward`` (one K1, a K2 a view)
+     against its view-by-view loop (images bitwise, ``d_volume`` and
+     ``d_tf`` within K2_GRAD_TOL); K1 and the step timed batched and looped
+     in turn, the step's peak memory; K1's registers and spills from ptxas.
+  Each of 9d-9m prints its own seconds.
   10. the ``kernels`` line, then the contract line as the last line.
 Launch counts are reset just before each entry point is driven and read just
 after; launches made to compare or time a kernel do not count.  Any failed
@@ -433,6 +442,45 @@ K3_MAX_REGISTERS = 128
 K3_MAX_SPILL_STORES = 8
 
 
+def cuda_ms_in_turn(dev, fa, fb, reps=10, warm=2):
+    """Device ms of ``fa`` and of ``fb`` by CUDA events, the two called in
+    turn (``warm`` times each first): the medians of ``reps`` each."""
+    import torch
+    for _ in range(warm):
+        fa()
+        fb()
+    torch.cuda.synchronize(dev)
+    times = ([], [])
+    for _ in range(reps):
+        for fn, out in zip((fa, fb), times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            out.append((a, b))
+    torch.cuda.synchronize(dev)
+    return [statistics.median(a.elapsed_time(b) for a, b in t)
+            for t in times]
+
+
+def ptxas_resources(ptxas, kernel: str) -> dict:
+    """Per instantiation of ``kernel`` in a ptxas report: its registers a
+    thread and its bytes of spill stores."""
+    found, cur = {}, None
+    for ln in ptxas:
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if kernel in ln else None
+        elif cur and ("Used" in ln or "spill" in ln):
+            found.setdefault(cur, []).append(ln)
+    regs = {k: int(ln.split("Used ")[1].split()[0])
+            for k, lns in found.items() for ln in lns if "Used" in ln}
+    spills = {k: int(ln.split(" bytes spill stores")[0].split()[-1])
+              for k, lns in found.items() for ln in lns
+              if "spill stores" in ln}
+    return {"report": found, "registers": regs, "spill_stores": spills}
+
+
 def view_batch(P, dev, ptxas=None, seed: int = 19) -> dict:
     """The volume fit's ground truth as one batched render
     (``render_nondiff_batch``) at the benchmark's shapes (configuration
@@ -456,42 +504,17 @@ def view_batch(P, dev, ptxas=None, seed: int = 19) -> dict:
     def sync():
         torch.cuda.synchronize(dev)
 
-    def in_turn(fa, fb, reps=10, warm=2):
-        for _ in range(warm):
-            fa()
-            fb()
-        sync()
-        times = ([], [])
-        for _ in range(reps):
-            for fn, out in zip((fa, fb), times):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                fn()
-                b.record()
-                out.append((a, b))
-        sync()
-        return [statistics.median(a.elapsed_time(b) for a, b in t)
-                for t in times]
+    def in_turn(fa, fb):
+        return cuda_ms_in_turn(dev, fa, fb)
 
     out = {}
     if ptxas is not None:
-        k3, cur = {}, None
-        for ln in ptxas:
-            if "Compiling entry function" in ln:
-                cur = (ln.split("'")[1] if "march_nondiff_kernel" in ln
-                       else None)
-            elif cur and ("Used" in ln or "spill" in ln):
-                k3.setdefault(cur, []).append(ln)
-        regs = {k: int(ln.split("Used ")[1].split()[0])
-                for k, lns in k3.items() for ln in lns if "Used" in ln}
-        spills = {k: int(ln.split(" bytes spill stores")[0].split()[-1])
-                  for k, lns in k3.items() for ln in lns
-                  if "spill stores" in ln}
-        out["resources"] = k3
+        k3 = ptxas_resources(ptxas, "march_nondiff_kernel")
+        regs, spills = k3["registers"], k3["spill_stores"]
+        out["resources"] = k3["report"]
         require(len(regs) == 4 and max(regs.values()) <= K3_MAX_REGISTERS
                 and max(spills.values()) <= K3_MAX_SPILL_STORES,
-                f"K3's registers or spills grew: {k3}")
+                f"K3's registers or spills grew: {k3['report']}")
     cfg_v = harness.config("volfit_256")
     sr = float(cfg_v["gt_sampling_rate"])
     for scene in ("ct_head", "dense_sim"):
@@ -565,6 +588,148 @@ def view_batch(P, dev, ptxas=None, seed: int = 19) -> dict:
             "k3_ns_per_ray": {"batched": k3_ms[0] * 1e6 / (V * H * W),
                               "looped": k3_ms[1] * 1e6 / (V * H * W)}}
         del job, vol, tf, grid, rays, got, counts, batch, loop
+        torch.cuda.empty_cache()
+    return out
+
+
+# K1's registers and spill stores a thread, read from ptxas before its launch
+# grid took the view axis (one H100 build: parity 96 registers, 8 bytes of
+# spill stores; analytic 72-74, none; segment 96 and 8): 5 blocks of 128
+# threads an SM (__launch_bounds__(128, 5)) allow 102 registers, and the
+# view axis must add no spill.
+K1_MAX_REGISTERS = 102
+K1_MAX_SPILL_STORES = 8
+
+
+def diff_batch(P, dev, ptxas=None, seed: int = 21) -> dict:
+    """The volume fit's views in one K1 launch (``render_batch``) at the
+    benchmark's shapes (configuration ``volfit_256``: 256^3, tf1 at R 128,
+    8 views of 256^2 at sampling rate 1, 1024 samples, jittered) on its
+    ``ct_head`` and ``dense_sim`` scenes, the fitted (corrupted) volume and
+    one step's poses and jitter from ``seed``.  Per scene: K1 on the views'
+    stacked rays (one launch, the 8 views tallied in
+    ``march_diff_fwd.views``) bitwise 8 launches of one view each (image,
+    ``valid_steps``, per-ray counts); the job's step through
+    ``Raycaster.forward`` and the loss's backward (one K1 launch, 8 K2) with
+    its images bitwise and its ``d_volume`` and ``d_tf`` within
+    K2_GRAD_TOL of their largest of the Raycaster's view-by-view loop (a TF
+    batch of distinct copies: 8 K1 and 8 K2 launches); K1 timed by CUDA
+    events batched and a launch a view in turn, the step likewise, and the
+    step's peak memory both ways.  ``ptxas`` (the build's report of
+    ``march.cu``): K1's parity and analytic instantiations within
+    K1_MAX_REGISTERS and K1_MAX_SPILL_STORES.  Returns each scene's
+    readings."""
+    import torch
+    from dvrbench import harness
+    from dvrbench.jobs import volfit
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    out = {}
+    if ptxas is not None:
+        k1 = ptxas_resources(ptxas, "march_diff_fwd_kernel")
+        # Mangled names end in the template flags <kGlobalTf, kAnalytic,
+        # kSegment>: Lb0E/Lb1E; the segment ones (kSegment true) end in
+        # Lb1EEv.
+        whole = {k: r for k, r in k1["registers"].items()
+                 if not k.endswith("Lb1EEv9MarchArgs")}
+        spills = {k: k1["spill_stores"].get(k, 0) for k in whole}
+        out["resources"] = k1["report"]
+        require(len(whole) == 4
+                and max(whole.values()) <= K1_MAX_REGISTERS
+                and max(spills.values()) <= K1_MAX_SPILL_STORES,
+                f"K1's registers or spills grew: {k1['report']}")
+    cfg_v = harness.config("volfit_256")
+    sr = float(cfg_v["sampling_rate"])
+    for scene in ("ct_head", "dense_sim"):
+        job = volfit.Job(cfg_v, harness.traffic(scene), seed, dev)
+        lfs, u = job.feed()
+        rc, cfg = job.rc, job.rc.config
+        V = lfs.shape[0]
+        H, W = cfg.image_shape
+        vol = P.volume_to_internal(job.vol.detach()[0]).contiguous()
+        tf = P.tf_to_internal(job.tf).contiguous()
+        label = f"diff_batch on {scene}"
+
+        per_view = [P.make_rays(lf, cfg, sr, u=u[v])
+                    for v, lf in enumerate(lfs)]
+        rays = P.RayBundle(*(torch.stack(f) for f in zip(*per_view)))
+        counts = torch.empty((V, H, W, 2), dtype=torch.int32, device=dev)
+        sync()
+        P.reset_launch_counts()
+        image, steps = P.march_diff_fwd(vol, tf, rays, cfg, sr,
+                                        counts=counts)
+        sync()
+        n = P.launch_counts()
+        require(n["march_diff_fwd"] == 1 and n["march_diff_fwd.views"] == V,
+                f"{label}: launches {n}")
+        one = torch.empty((H, W, 2), dtype=torch.int32, device=dev)
+        for v, r in enumerate(per_view):
+            want = P.march_diff_fwd(vol, tf, r, cfg, sr, counts=one)
+            require(torch.equal(image[v], want[0])
+                    and torch.equal(steps[v], want[1])
+                    and torch.equal(counts[v], one),
+                    f"{label}: K1's view {v} in the batch is not its own "
+                    f"launch's")
+
+        with torch.no_grad():
+            gts = rc.raycast_nondiff(job.vol_gt, job.tf, lfs,
+                                     float(cfg_v["gt_sampling_rate"]))
+        tf_rows = job.tf[None].repeat(V, 1, 1)
+
+        def step(batched):
+            v = job.vol.detach().clone().requires_grad_(True)
+            t = (job.tf if batched else tf_rows).clone().requires_grad_(True)
+            imgs = rc(v, t, lfs, u=u)
+            P.dssim_mse_loss(imgs, gts).backward()
+            return imgs.detach(), v.grad, (t.grad if batched
+                                           else t.grad.sum(0))
+
+        readings = {}
+        for batched in (True, False):
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            P.reset_launch_counts()
+            res = step(batched)
+            sync()
+            readings[batched] = (res, P.launch_counts(),
+                                 torch.cuda.max_memory_allocated(dev) - base)
+        (img_b, dv_b, dt_b), n_b, peak_b = readings[True]
+        (img_l, dv_l, dt_l), n_l, peak_l = readings[False]
+        require(n_b["march_diff_fwd"] == 1 and n_b["march_diff_bwd"] == V
+                and n_b["march_diff_fwd.views"] == V
+                and n_l["march_diff_fwd"] == V and n_l["march_diff_bwd"] == V
+                and n_l["march_diff_fwd.views"] == 0,
+                f"{label}: the batched step launched {n_b}, the loop {n_l}")
+        require(torch.equal(img_b, img_l),
+                f"{label}: the batched step's images are not the loop's")
+        errs = {}
+        for what, g, w in (("d_volume", dv_b, dv_l), ("d_tf", dt_b, dt_l)):
+            m = float(w.abs().max())
+            e = float((g - w).abs().max())
+            require(bool(torch.isfinite(g).all()) and m > 0
+                    and e <= K2_GRAD_TOL * m,
+                    f"{label} {what}: max |diff| {e} > {K2_GRAD_TOL} * {m}")
+            errs[what] = e / m
+        k1_ms = cuda_ms_in_turn(
+            dev, lambda: P.march_diff_fwd(vol, tf, rays, cfg, sr),
+            lambda: [P.march_diff_fwd(vol, tf, r, cfg, sr)
+                     for r in per_view])
+        step_ms = cuda_ms_in_turn(dev, lambda: step(True),
+                                  lambda: step(False), reps=5)
+        out[scene] = {
+            "views": V, "image": [H, W], "sampling_rate": sr,
+            "launches": {"batched": n_b, "looped": n_l},
+            "marched": int((steps - 1).sum()),
+            "zero_skipped": int(counts[..., 0].sum()),
+            "grad_rel_err": errs,
+            "k1_ms": {"batched": k1_ms[0], "looped": k1_ms[1]},
+            "step_ms": {"batched": step_ms[0], "looped": step_ms[1]},
+            "step_peak_bytes": {"batched": peak_b, "looped": peak_l}}
+        del job, vol, tf, rays, per_view, image, steps, counts, gts
+        del readings, img_b, dv_b, dt_b, img_l, dv_l, dt_l
         torch.cuda.empty_cache()
     return out
 
@@ -1696,7 +1861,10 @@ def main() -> int:
                 f"{grad_max[-1]}")
     counts = P.launch_counts()
     require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
-    require(counts["march_diff_fwd"] == 10 and counts["march_diff_bwd"] == 10,
+    # One K1 launch a step for its 2 views of one volume (render_batch),
+    # one K2 launch a view.
+    require(counts["march_diff_fwd"] == 5 and counts["march_diff_bwd"] == 10
+            and counts["march_diff_fwd.views"] == 10,
             f"train: 5 steps of 2 views launched {counts}")
     emit({"phase": "train", "volume": res, "image": img, "views": 2,
           "steps": 5, "loss": losses, "grad_abs_max": grad_max,
@@ -4597,6 +4765,15 @@ def main() -> int:
     kernels["march_nondiff"]["launches"] += sum(
         c["launches"]["march_nondiff"] for k, c in vb.items()
         if k != "resources")
+
+    # -- 9m. diff_batch: the fitted views in one K1 launch ------------------
+    t_phase = time.perf_counter()
+    db = diff_batch(P, dev, info.ptxas.get("march.cu", []))
+    emit({"phase": "diff_batch", "cases": db,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    for k, c in db.items():
+        if k != "resources":
+            kernels["march_diff_fwd"]["launches"] += 1
 
     # -- 10. kernels line and the contract line ---------------------------------
     for name, k in kernels.items():

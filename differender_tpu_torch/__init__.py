@@ -3,7 +3,8 @@
 The renderer runs on hand-written CUDA kernels for Hopper (``csrc/``, built
 with ``nvcc`` at first use): ``tf_lookup_fwd`` (K0) and ``tf_lookup_bwd``
 (K0b) behind :func:`tf_lookup`; ``march_diff_fwd`` (K1) and
-``march_diff_bwd`` (K2) behind :func:`render`, :meth:`Raycaster.forward`
+``march_diff_bwd`` (K2) behind :func:`render`, :func:`render_batch` (V
+views of one volume and TF in one K1 launch), :meth:`Raycaster.forward`
 and their gradients (:func:`value_and_grad_render`), also marched in row
 strips (:func:`render_strips`) or depth-sorted chunks
 (:func:`render_depth_sorted`, chosen per scene by
@@ -30,9 +31,10 @@ functions.  Importing the package needs neither a GPU nor ``nvcc``.
 
 Every launch is counted in one table: :func:`launch_counts` holds a key for
 each kernel (``_build.KERNELS``; one count for each ``dr.launch.<kernel>``
-span) and four dotted tallies beside them (``march_diff_bwd.camera``,
-``march_diff_bwd.tf_only``, ``march_segment_bwd.camera`` and
-``march_nondiff.views``, the views marched in batches);
+span) and five dotted tallies beside them (``march_diff_bwd.camera``,
+``march_diff_bwd.tf_only``, ``march_segment_bwd.camera``, and
+``march_nondiff.views`` and ``march_diff_fwd.views``, the views marched
+in batches);
 :func:`reset_launch_counts` zeroes it.
 
 Beside the renderer: :class:`TorchRaycaster` (the JAX package's torch
@@ -69,7 +71,7 @@ from .render import (RenderOutput, choose_diff_renderer, march_diff,
                      march_diff_bwd, march_diff_bwd_plain, march_diff_fwd,
                      march_diff_plain, march_nondiff, march_nondiff_plain,
                      ray_cotangents, render, render_depth_sorted, render_jit,
-                     render_nondiff, render_nondiff_batch,
+                     render_batch, render_nondiff, render_nondiff_batch,
                      render_nondiff_jit, render_nondiff_strips, render_strips,
                      value_and_grad_blockwise, value_and_grad_render)
 from .shading import premultiply_alpha
@@ -91,7 +93,7 @@ __all__ = [
     "RenderOutput", "march_diff", "march_diff_fwd", "march_diff_bwd",
     "march_diff_plain", "march_diff_bwd_plain", "ray_cotangents",
     "march_nondiff", "march_nondiff_plain", "render", "render_nondiff",
-    "render_nondiff_batch",
+    "render_nondiff_batch", "render_batch",
     "render_jit", "render_nondiff_jit", "value_and_grad_render",
     "render_nondiff_strips", "render_strips", "render_depth_sorted",
     "choose_diff_renderer", "value_and_grad_blockwise", "render_fast",

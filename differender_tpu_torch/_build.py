@@ -150,7 +150,8 @@ KERNELS = ("tf_lookup_fwd", "tf_lookup_bwd", "march_diff_fwd",
            "cell_minmax", "cell_distance", "march_segment_fwd",
            "march_segment_bwd", "shear_warp_fwd", "shear_warp_bwd")
 TALLIES = ("march_diff_bwd.camera", "march_diff_bwd.tf_only",
-           "march_segment_bwd.camera", "march_nondiff.views")
+           "march_segment_bwd.camera", "march_nondiff.views",
+           "march_diff_fwd.views")
 _counts = collections.Counter(dict.fromkeys(KERNELS + TALLIES, 0))
 
 
@@ -168,13 +169,15 @@ def library() -> ctypes.CDLL:
     lib.dr_tf_lookup_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
                                      i32, i32, i32, ptr]
     lib.dr_tf_lookup_bwd.restype = i32
-    for name in ("dr_march_diff_fwd", "dr_march_diff_bwd",
-                 "dr_shear_warp_fwd", "dr_shear_warp_bwd"):
+    for name in ("dr_march_diff_bwd", "dr_shear_warp_fwd",
+                 "dr_shear_warp_bwd"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, i32, ptr]
         fn.restype = i32
-    lib.dr_march_nondiff.argtypes = [ptr, i32, i32, ptr]   # + view count
-    lib.dr_march_nondiff.restype = i32
+    for name in ("dr_march_diff_fwd", "dr_march_nondiff"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, i32, i32, ptr]      # + view count
+        fn.restype = i32
     lib.dr_brick_sums.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, i64,
                                   ptr, i32, ptr]
     lib.dr_brick_rows.argtypes = [ptr, i32, i64, ptr, i32, ptr, i64, ptr,

@@ -60,8 +60,14 @@
 // At least 5 blocks of 128 threads per SM: at most 102 registers a thread
 // (nvcc's own choice is 113, 4 blocks, a little slower).
 //
-// kSegment (parity only, no ERT): the march over one X-slab of a sharded
-// volume (parallel/volume_sharding.py::segment_march; JAX's
+// A launch marches V views of one volume and TF, the view in blockIdx.z
+// as in K3: the slowest axis, so the blocks resident at once lie in one or
+// two views.  The per-ray operands and outputs are view-major (ray p of
+// view v at v*H*W + p) and origin holds one (x, y, z) row a view.  Each
+// ray's thread does what it does in its own view's launch.
+//
+// kSegment (parity only, no ERT, one view): the march over one X-slab of
+// a sharded volume (parallel/volume_sharding.py::segment_march; JAX's
 // volume_sharding.py::segment_render).  The ray marches only its eligible
 // run of samples (segment_range in march_common.cuh) and writes that run's
 // premultiplied composite (r, g, b, 1 - T) and its length.
@@ -74,10 +80,10 @@ __global__ void __launch_bounds__(128, 5)
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int h = blockIdx.y * blockDim.y + threadIdx.y;
   if (w >= a.W || h >= a.H) return;
-  const long long p = (long long)h * a.W + w;
+  const long long p = ((long long)blockIdx.z * a.H + h) * a.W + w;
 
-  const float ox = __ldg(a.origin), oy = __ldg(a.origin + 1),
-              oz = __ldg(a.origin + 2);
+  const float* o = a.origin + 3 * blockIdx.z;
+  const float ox = __ldg(o), oy = __ldg(o + 1), oz = __ldg(o + 2);
   const float dx = a.dx[p], dy = a.dy[p], dz = a.dz[p];
   const float t0 = a.t0[p], dt = a.dt[p];
   int s0 = 0, steps = min(a.n[p], a.max_steps);
@@ -254,7 +260,7 @@ static void launch_tf(const MarchArgs& a, dim3 grid, dim3 block,
   }
 }
 
-// views > 1: K3 alone (march_nondiff_kernel's blockIdx.z).
+// views > 1: the view in blockIdx.z (K1 and K3; not K1's segment).
 template <template <bool, bool> class Launch>
 static int launch(const MarchArgs* a, int views, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -298,10 +304,15 @@ struct LaunchNondiff {
   }
 };
 
-extern "C" int dr_march_diff_fwd(const MarchArgs* a, int device,
+// K1 over `views` views (1 to 65535) of the rays in `a`; its segment
+// instantiation over one view only.
+extern "C" int dr_march_diff_fwd(const MarchArgs* a, int views, int device,
                                  void* stream) {
-  if (a->s_lo) return launch<LaunchSegment>(a, 1, device, stream);
-  return launch<LaunchDiff>(a, 1, device, stream);
+  if (a->s_lo) {
+    if (views != 1) return (int)cudaErrorInvalidValue;
+    return launch<LaunchSegment>(a, 1, device, stream);
+  }
+  return launch<LaunchDiff>(a, views, device, stream);
 }
 
 // K3 over `views` views (1 to 65535) of the rays in `a`.

@@ -52,9 +52,10 @@ def parser() -> argparse.ArgumentParser:
                          "turn, each its own forward and backward, "
                          "gradients summed; shard_map = the views split "
                          "over the ranks of a process group (--mesh-views); "
-                         "vmap = one autograd graph over all views (the "
-                         "views in a loop: torch.func.vmap cannot trace "
-                         "the kernels); auto = shard_map with a group, "
+                         "vmap = one autograd graph over all views "
+                         "(render_batch: torch.func.vmap cannot trace the "
+                         "kernels, and the batch's one K1 launch marches "
+                         "every view); auto = shard_map with a group, "
                          "else accum")
     ap.add_argument("--mesh-views", type=int, default=0,
                     help="split the views over this many ranks of a "
@@ -89,7 +90,8 @@ def run(args):
     from differender_tpu_torch import (RenderConfig, adamw_onecycle,
                                        dssim_mse_loss, get_rand_pos, get_tf,
                                        in_circles, project_unit, render,
-                                       render_nondiff, render_nondiff_batch)
+                                       render_batch, render_nondiff,
+                                       render_nondiff_batch)
     from differender_tpu_torch.io import (checkpoint_tensors,
                                           load_checkpoint, save_checkpoint)
     from differender_tpu_torch.parallel import train_step_views
@@ -153,11 +155,11 @@ def run(args):
             gts = render_nondiff_batch(vol_gt, tf, lfs, cfg,
                                        args.gt_sampling_rate).image
         if mode is None:
-            # One graph over all views, the batch's joint loss.
+            # One graph over all views (one K1 launch on the card), the
+            # batch's joint loss.
             v = vol.detach().requires_grad_()
-            imgs = torch.stack([render(v, tf, lfs[i], cfg,
-                                       args.sampling_rate, u=u[i]).image
-                                for i in range(len(lfs))])
+            imgs = render_batch(v, tf, lfs, cfg, args.sampling_rate,
+                                u=u).image
             loss = dssim_mse_loss(imgs.permute(0, 3, 1, 2),
                                   gts.permute(0, 3, 1, 2))
             grads, = torch.autograd.grad(loss, v)

@@ -18,7 +18,8 @@ of the profiler's state.  The package opens these spans:
 - ``dr.view``: one single-view render (``render``, ``render_nondiff``,
   ``render_fast`` and their strip, depth-sorted and sharded forms);
   ``dr.view.batch``: one ``render_nondiff_batch``, the inference render of
-  a batch of views of one volume and TF (one grid, one K3 launch);
+  a batch of views of one volume and TF (one grid, one K3 launch), or one
+  ``render_batch``, their differentiable render (one K1 launch);
 - ``dr.rays``: ``geometry.make_rays``; ``dr.rays.soa``: a march's flat ray
   state (``render._ray_soa``);
 - ``dr.grid``: ``occupancy.build_occupancy``;
@@ -28,7 +29,8 @@ of the profiler's state.  The package opens these spans:
   counts the launch, so each span is one count of
   :func:`~differender_tpu_torch.launch_counts`);
 - ``dr.backward``: the backward of each autograd Function that launches a
-  kernel (the march, its segment, the shear-warp march, the TF lookup);
+  kernel (the march, one for a batch of views with a K2 launch a view
+  inside, its segment, the shear-warp march, the TF lookup);
   ``dr.backward.tf_only``: inside the march's, the launch of K2's TF-only
   instantiation (the volume and the camera need no gradient);
 - ``dr.loss``: ``losses.dssim_mse_loss`` and ``losses.mse_loss``;

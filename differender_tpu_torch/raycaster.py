@@ -4,9 +4,12 @@
 Inputs: volume ``([BS,] 1, D, H, W)``, transfer function ``([BS,] 4, R)``,
 camera ``([BS,] 3)``; if any of them is batched, all are broadcast to the
 batch (a volume or TF batched with stride 0 on the batch axis, or a batch
-of one, counts as one broadcast).  Output ``([BS,] 4, H, W)``.  A batch is
-a Python loop over views, but for ``raycast_nondiff`` of one volume and TF:
-one :func:`~differender_tpu_torch.render.render_nondiff_batch`.
+of one, counts as one broadcast).  Output ``([BS,] 4, H, W)``.  A batch of
+views of one volume and TF is one batched render:
+:func:`~differender_tpu_torch.render.render_batch` in ``forward`` and
+:func:`~differender_tpu_torch.render.render_nondiff_batch` in
+``raycast_nondiff``; distinct volumes or TFs, and ``raycast_fast``, loop
+over the views.
 ``raycast_fast`` renders through the shear-warp fast path.
 ``forward`` is differentiable with respect to the volume and the TF (an
 unbatched input broadcast over a batch gets the sum of its views'
@@ -23,7 +26,7 @@ from torch import nn
 from .config import RenderConfig
 from .fastpath import render_fast
 from .profiling import span
-from .render import (RenderOutput, render, render_nondiff,
+from .render import (RenderOutput, render, render_batch, render_nondiff,
                      render_nondiff_batch)
 
 
@@ -50,6 +53,12 @@ def _one_row(x: torch.Tensor) -> bool:
     """Whether every row of ``x``'s batch axis is one tensor: a batch of
     one, or rows broadcast with stride 0."""
     return x.shape[0] == 1 or x.stride(0) == 0
+
+
+def _row(x: torch.Tensor, i: int, ndim: int) -> torch.Tensor:
+    """View ``i``'s input: row ``i`` of a batched ``x``, or ``x`` itself
+    where it has ``ndim`` dimensions (one input shared by the batch)."""
+    return x if x.ndim == ndim else x[i]
 
 
 class Raycaster(nn.Module):
@@ -107,8 +116,9 @@ class Raycaster(nn.Module):
         """Validate shapes and broadcast; returns (batched, bs, volume
         (BS?, X, Y, Z), tf (BS?, R, 4), look_from (BS?, 3)) in internal
         layouts.  A volume or TF shared by the batch (unbatched, a batch of
-        one, or batched with stride 0) comes back as one tensor expanded
-        over it."""
+        one, or batched with stride 0) comes back as one tensor without the
+        batch axis, so that each view's gradient adds into one tensor of
+        its size (not into a zero tensor of the whole batch's)."""
         v_b, t_b, l_b = volume.ndim == 5, tf.ndim == 3, look_from.ndim == 2
         batched = v_b or t_b or l_b
         d, h, w = (self.volume_shape[1], self.volume_shape[2],
@@ -135,11 +145,9 @@ class Raycaster(nn.Module):
         if t_b and _one_row(tf):
             tf, t_b = tf[0], False
         vol = (volume[:, 0].permute(0, 3, 1, 2).contiguous() if v_b
-               else volume_to_internal(volume[0]).contiguous()
-               .expand((bs,) + self.volume_shape))
+               else volume_to_internal(volume[0]).contiguous())
         tf_i = (tf.permute(0, 2, 1).contiguous() if t_b
-                else tf_to_internal(tf).contiguous()
-                .expand(bs, self.tf_shape, 4))
+                else tf_to_internal(tf).contiguous())
         lf = look_from if l_b else look_from.expand(bs, 3)
         return True, bs, vol, tf_i, lf
 
@@ -150,7 +158,11 @@ class Raycaster(nn.Module):
         ``look_from`` with ``camera_grads`` (a camera broadcast over a batch
         gets the sum of its views' gradients).  ``u``
         ((H, W), or (BS, H, W) for a batch) jitters ray starts with the
-        given draw."""
+        given draw.  A batch of views of one volume and TF (each
+        unbatched, a batch of one or batched with stride 0) is one
+        :func:`~differender_tpu_torch.render.render_batch`: one K1 launch,
+        and a K2 launch a view adding into one gradient; distinct volumes
+        or TFs are rendered view by view."""
         return self.forward_with_aux(volume, tf, look_from, u,
                                      sampling_rate).image
 
@@ -182,8 +194,12 @@ class Raycaster(nn.Module):
             if not batched:
                 out = render(vol, tf_i, lf, self.config, sr, u=u)
                 return out._replace(image=out.image.permute(2, 0, 1))
-            outs = [render(vol[i], tf_i[i], lf[i], self.config, sr,
-                           u=None if u is None else u[i]) for i in range(bs)]
+            if vol.ndim == 3 and tf_i.ndim == 2 and lf.shape[0] == bs:
+                out = render_batch(vol, tf_i, lf, self.config, sr, u=u)
+                return out._replace(image=out.image.permute(0, 3, 1, 2))
+            outs = [render(_row(vol, i, 3), _row(tf_i, i, 2), lf[i],
+                           self.config, sr, u=None if u is None else u[i])
+                    for i in range(bs)]
             images = torch.stack([o.image for o in outs])
             return RenderOutput(
                 image=images.permute(0, 3, 1, 2),
@@ -212,12 +228,13 @@ class Raycaster(nn.Module):
             if not batched:
                 img = render_nondiff(vol, tf_i, lf, self.config, sr).image
                 return img.permute(2, 0, 1)
-            if _one_row(vol) and _one_row(tf_i) and lf.shape[0] == bs:
-                img = render_nondiff_batch(vol[0], tf_i[0], lf, self.config,
+            if vol.ndim == 3 and tf_i.ndim == 2 and lf.shape[0] == bs:
+                img = render_nondiff_batch(vol, tf_i, lf, self.config,
                                            sr).image
                 return img.permute(0, 3, 1, 2)
-            imgs = [render_nondiff(vol[i], tf_i[i], lf[i], self.config,
-                                   sr).image for i in range(bs)]
+            imgs = [render_nondiff(_row(vol, i, 3), _row(tf_i, i, 2), lf[i],
+                                   self.config, sr).image
+                    for i in range(bs)]
             return torch.stack(imgs).permute(0, 3, 1, 2)
 
     def raycast_fast(self, volume, tf, look_from,
@@ -236,8 +253,9 @@ class Raycaster(nn.Module):
             if not batched:
                 return render_fast(vol, tf_i, lf, self.config, intermediate,
                                    planes_per_voxel).image.permute(2, 0, 1)
-            imgs = [render_fast(vol[i], tf_i[i], lf[i], self.config,
-                                intermediate, planes_per_voxel).image
+            imgs = [render_fast(_row(vol, i, 3), _row(tf_i, i, 2), lf[i],
+                                self.config, intermediate,
+                                planes_per_voxel).image
                     for i in range(bs)]
             return torch.stack(imgs).permute(0, 3, 1, 2)
 

@@ -18,7 +18,10 @@ analytic in-cell gradient of the centre's 8 corners.  Gradients flow to the
 volume and the TF, and to the camera where ``look_from`` requires grad (as
 JAX's functional AD gives them): on CUDA through K2's per-ray position sums
 (its camera instantiation) and autograd of the ray setup, on the CPU
-through autograd of the plain march.
+through autograd of the plain march.  ``march_diff`` also takes a bundle of
+V views of one volume and TF (:func:`render_batch`): one K1 launch with the
+view in its launch grid's z axis, and a K2 launch a view adding into one
+``d_volume`` and one ``d_tf``.
 
 K1 and K2 also march one X-slab of a sharded volume in their segment
 instantiations (a :class:`Segment` in ``MarchArgs``), which
@@ -219,6 +222,19 @@ def march_diff_plain(volume: torch.Tensor, tf: torch.Tensor,
     return image, (comp + 1).reshape(H, W)
 
 
+def _plain_views(plain, tally, volume, tf, rays, views, *args):
+    """``plain(volume, tf, rays, *args)``, a plain march, of one view's
+    bundle (``views`` None), or of each of a bundle's ``views`` views in
+    turn over the one volume and TF with the outputs stacked and the views
+    counted in the tally ``tally``."""
+    if views is None:
+        return plain(volume, tf, rays, *args)
+    outs = [plain(volume, tf, _view_rays(rays, v), *args)
+            for v in range(views)]
+    _build.count(tally, views)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 class SampleCotangents(NamedTuple):
     """Per sample of a differentiable march (M samples), the cotangents
     that K2's camera instantiation sums per ray."""
@@ -297,15 +313,17 @@ def ray_sums(cot: SampleCotangents, image_shape) -> torch.Tensor:
 
 
 def ray_cotangents(sums: torch.Tensor, dirs: torch.Tensor, t0: torch.Tensor,
-                   dt: torch.Tensor):
+                   dt: torch.Tensor, views: Optional[int] = None):
     """The cotangents of a march's ray tensors from K2's per-ray sums
     ``sums`` (N, 12) (:func:`ray_sums`): sample ``s`` sits at ``o + (t0 +
     s*dt) d``, its light at ``o + (0, 1, 0)``, and shading's view direction
     is ``d``.  Returns ``(d_origin (3,), d_dirs (N, 3), d_t0 (N,),
     d_dt (N,))``: ``sum (P - L)``, ``t0 P + dt S + V``, ``d.P`` and
-    ``d.S``."""
+    ``d.S``.  For the rays of ``views`` views (view-major), ``d_origin``
+    is (views, 3): each view's sum over its own rays."""
     P, S, L, V = sums.reshape(-1, 12).split(3, dim=-1)
-    d_origin = (P - L).sum(0)
+    d_origin = ((P - L).sum(0) if views is None
+                else (P - L).reshape(views, -1, 3).sum(1))
     d_dirs = t0[:, None] * P + dt[:, None] * S + V
     return (d_origin, d_dirs, (dirs * P).sum(-1), (dirs * S).sum(-1))
 
@@ -403,11 +421,11 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
     """Validate the operands and fill ``MarchArgs`` for the rays ``soa``
     (:class:`RaySoA`); with a :class:`Segment`, those of the segment
     instantiations (``volume`` the shard's padded block; parity, no ERT);
-    with ``views``, K3's rays of that many views, view-major (``origin``
-    (views, 3), ``image`` (views, H, W, 4)).  Returns the struct and the
-    tensors it points into, which the caller keeps referenced until the
-    launch is enqueued (the caching allocator keeps their memory for the
-    stream after that)."""
+    with ``views``, K1's or K3's rays of that many views, view-major
+    (``origin`` (views, 3), ``image`` (views, H, W, 4)).  Returns the
+    struct and the tensors it points into, which the caller keeps
+    referenced until the launch is enqueued (the caching allocator keeps
+    their memory for the stream after that)."""
     dev = volume.device
     H, W = config.image_shape
     lead = () if views is None else (views,)
@@ -461,18 +479,21 @@ def _march_args(volume, tf, soa, config, sampling_rate, ert, max_steps,
 
 
 def _launch_march(volume, tf, soa, config, sampling_rate, ert,
-                  counts=None, segment=None):
+                  counts=None, segment=None, views=None):
     """Allocate the outputs and call K1 (its segment instantiation with a
-    :class:`Segment`) inside the caller's ``_build.launch`` block;
-    ``counts`` (if given) receives its per-ray counts."""
-    H, W = config.image_shape
+    :class:`Segment`) inside the caller's ``_build.launch`` block, on the
+    rays of ``views`` views (view-major; each output gains a leading
+    ``views``) where given; ``counts`` (if given) receives its per-ray
+    counts."""
+    shape = ((views,) if views else ()) + tuple(config.image_shape)
     dev = volume.device
-    image = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
-    steps = torch.empty((H, W), dtype=torch.int32, device=dev)
+    image = torch.empty(shape + (4,), dtype=torch.float32, device=dev)
+    steps = torch.empty(shape, dtype=torch.int32, device=dev)
     args, keep = _march_args(volume, tf, soa, config, sampling_rate, ert,
                              config.max_samples, image, steps, counts,
-                             segment=segment)
-    _build.call("dr_march_diff_fwd", ctypes.byref(args), like=keep[0])
+                             segment=segment, views=views)
+    _build.call("dr_march_diff_fwd", ctypes.byref(args), views or 1,
+                like=keep[0])
     return image, steps
 
 
@@ -486,20 +507,29 @@ def march_diff_fwd(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     counts per ray: the samples of opacity exactly 0, which K1 composites
     without their gradient and shading, and the samples of the stencil's
     general branch (0 with ``analytic_normals``; K1 only: ``chip_smoke.py``
-    reads them)."""
+    reads them).
+
+    ``rays`` may hold V views of this volume and TF, as
+    :func:`march_nondiff` takes them: then one K1 launch marches them all
+    (the plain march each view in turn on the CPU), the outputs and
+    ``counts`` gain the leading V, each ray's results are those of its view
+    marched alone, and the tally ``march_diff_fwd.views`` counts the V
+    views."""
+    views = _views(rays, config)
     if _build.uses_plain(volume):
         if counts is not None:
             raise ValueError("counts are counted by kernel K1 only; the "
                              "volume is on the CPU")
         with torch.no_grad():
-            return march_diff_plain(volume, tf, rays, config, sampling_rate,
-                                    ert)
+            return _plain_views(march_diff_plain, "march_diff_fwd.views",
+                                volume, tf, rays, views, config,
+                                sampling_rate, ert)
     soa = _ray_soa(rays)
-    with _build.launch("march_diff_fwd"):
-        counts = _build.output("counts", counts, volume.device,
-                               config.image_shape + (2,))
+    with _build.launch("march_diff_fwd", views=views or 0):
+        shape = ((views,) if views else ()) + tuple(config.image_shape)
+        counts = _build.output("counts", counts, volume.device, shape + (2,))
         return _launch_march(volume, tf, soa, config, sampling_rate, ert,
-                             counts)
+                             counts, views=views)
 
 
 def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
@@ -522,14 +552,17 @@ def march_diff_bwd_plain(volume: torch.Tensor, tf: torch.Tensor,
 
 
 def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-               counts=None, sums=None, segment=None, volume_grad=True):
+               counts=None, sums=None, segment=None, volume_grad=True,
+               into=None):
     """Call K2 inside the caller's ``_build.launch`` block: its camera
     instantiation where ``sums`` (an (H, W, 12) f32 tensor) is given to
     receive the per-ray sums, its segment instantiation with a
     :class:`Segment` (``d_volume`` then has the padded block's shape).
     Without ``volume_grad``, its TF-only instantiation (neither ``sums`` nor
     a segment: the C entry refuses them): no ``d_volume`` is allocated or
-    computed, and ``None`` is returned in its place."""
+    computed, and ``None`` is returned in its place.  ``into``, the
+    ``(d_volume, d_tf)`` that an earlier call returned, has K2 add into
+    those buffers in place of new zeroed ones."""
     H, W = config.image_shape
     dev = volume.device
     steps = torch.empty((H, W), dtype=torch.int32, device=dev)
@@ -537,9 +570,12 @@ def _launch_k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
                             config.max_samples, image, steps, counts,
                             segment=segment)
     grad = _build.operand("image cotangent", grad, dev, (H, W, 4))
-    d_volume = (torch.zeros(keep[0].shape, dtype=torch.float32, device=dev)
-                if volume_grad else None)
-    d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
+    if into is not None:
+        d_volume, d_tf = into
+    else:
+        d_volume = (torch.zeros(keep[0].shape, dtype=torch.float32,
+                                device=dev) if volume_grad else None)
+        d_tf = torch.zeros(keep[1].shape, dtype=torch.float32, device=dev)
     args = _MarchBwdArgs(fwd, grad.data_ptr(),
                          d_volume.data_ptr() if volume_grad else None,
                          d_tf.data_ptr(),
@@ -606,43 +642,70 @@ class _MarchDiff(torch.autograd.Function):
     :func:`ray_cotangents` maps them onto the ray tensors.  Where only the
     TF needs one, K2's TF-only instantiation computes ``d_tf`` alone
     (tallied as ``march_diff_bwd.tf_only``, inside the span
-    ``dr.backward.tf_only``)."""
+    ``dr.backward.tf_only``).
+
+    With ``views`` (an ``origin`` of (V, 3) and the rays of V views,
+    view-major), the forward is one K1 launch over the V views, and the
+    backward one K2 launch a view on that view's rays, image and
+    cotangent, each adding into one ``d_volume`` and one ``d_tf`` (zeroed
+    once)."""
 
     @staticmethod
     def forward(ctx, volume, tf, origin, dirs, t0, dt, n, config,
-                sampling_rate, ert):
+                sampling_rate, ert, views=None):
         soa = RaySoA(origin, dirs, t0, dt, n)
-        with _build.launch("march_diff_fwd"):
+        with _build.launch("march_diff_fwd", views=views or 0):
             image, steps = _launch_march(volume, tf, soa, config,
-                                         sampling_rate, ert)
+                                         sampling_rate, ert, views=views)
         ctx.save_for_backward(volume, tf, origin, dirs, t0, dt, n, image)
-        ctx.march = (config, sampling_rate, ert)
+        ctx.march = (config, sampling_rate, ert, views)
         ctx.mark_non_differentiable(steps)
         return image, steps
 
     @staticmethod
     def backward(ctx, g_image, _g_steps):
         volume, tf, origin, dirs, t0, dt, n, image = ctx.saved_tensors
-        config, sampling_rate, ert = ctx.march
+        config, sampling_rate, ert, views = ctx.march
         need = ctx.needs_input_grad
         camera = any(need[2:6])
         tf_only = need[1] and not need[0] and not camera
         with span("dr.backward"), (span("dr.backward.tf_only") if tf_only
                                    else contextlib.nullcontext()):
-            sums = (torch.empty(config.image_shape + (12,),
+            lead = (views,) if views else ()
+            sums = (torch.empty(lead + config.image_shape + (12,),
                                 dtype=torch.float32, device=volume.device)
                     if camera else None)
-            with _build.launch("march_diff_bwd", camera=camera,
-                               tf_only=tf_only):
-                d_volume, d_tf, _ = _launch_k2(
-                    volume, tf, RaySoA(origin, dirs, t0, dt, n), config,
-                    sampling_rate, image, g_image, ert, sums=sums,
-                    volume_grad=not tf_only)
-            d_rays = (ray_cotangents(sums, dirs, t0, dt) if camera
+            grads = None
+            for soa, image_v, g_v, sums_v in _view_slices(
+                    RaySoA(origin, dirs, t0, dt, n), image, g_image, sums,
+                    views):
+                with _build.launch("march_diff_bwd", camera=camera,
+                                   tf_only=tf_only):
+                    grads = _launch_k2(volume, tf, soa, config,
+                                       sampling_rate, image_v, g_v, ert,
+                                       sums=sums_v, volume_grad=not tf_only,
+                                       into=None if grads is None
+                                       else grads[:2])
+            d_rays = (ray_cotangents(sums, dirs, t0, dt, views) if camera
                       else (None,) * 4)
-        grads = (d_volume, d_tf) + d_rays
+        grads = grads[:2] + d_rays
         return tuple(g if k else None for g, k in zip(grads, need[:6])) + \
-            (None,) * 4
+            (None,) * 5
+
+
+def _view_slices(soa: RaySoA, image, grad, sums, views):
+    """Per view of a march's rays, its :class:`RaySoA`, image, image
+    cotangent and sums (None where ``sums`` is): the whole of each for one
+    view's rays (``views`` None), else view ``v``'s rows."""
+    if views is None:
+        yield soa, image, grad, sums
+        return
+    hw = soa.dirs.shape[0] // views
+    for v in range(views):
+        rows = slice(v * hw, (v + 1) * hw)
+        yield (RaySoA(soa.origin[v], soa.dirs[rows], soa.t0[rows],
+                      soa.dt[rows], soa.n[rows]),
+               image[v], grad[v], None if sums is None else sums[v])
 
 
 def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
@@ -651,14 +714,25 @@ def march_diff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
     the ray bundle (so in the camera that built it): K1 forward and K2
     backward on CUDA tensors, :func:`march_diff_plain` (differentiated by
     autograd) on CPU tensors.  Returns ``(image (H, W, 4), valid_steps
-    (H, W))``."""
+    (H, W))``.
+
+    ``rays`` may hold V views of this volume and TF, as
+    :func:`march_nondiff` takes them (:func:`render_batch` stacks them):
+    then the outputs gain a leading V, one K1 launch marches them all and
+    the backward launches K2 once a view, adding into one ``d_volume`` and
+    one ``d_tf``; on the CPU the plain march runs each view in turn over
+    the one volume.  The tally ``march_diff_fwd.views`` counts the V
+    views."""
+    views = _views(rays, config)
     if _build.uses_plain(volume):
-        return march_diff_plain(volume, tf, rays, config, sampling_rate, ert)
+        return _plain_views(march_diff_plain, "march_diff_fwd.views",
+                            volume, tf, rays, views, config, sampling_rate,
+                            ert)
     return _MarchDiff.apply(volume, tf, *_ray_soa(rays), config,
-                            sampling_rate, ert)
+                            sampling_rate, ert, views)
 
 
-# K3's launch grid holds the view in blockIdx.z, at most 65535.
+# K1's and K3's launch grids hold the view in blockIdx.z, at most 65535.
 _MAX_VIEWS = 65535
 
 
@@ -715,14 +789,9 @@ def march_nondiff(volume: torch.Tensor, tf: torch.Tensor, rays: RayBundle,
         if counts is not None:
             raise ValueError("counts are counted by kernel K3 only; the "
                              "volume is on the CPU")
-        if views is None:
-            return march_nondiff_plain(volume, tf, rays, config,
-                                       sampling_rate, occupancy)
-        outs = [march_nondiff_plain(volume, tf, _view_rays(rays, v), config,
-                                    sampling_rate, occupancy)
-                for v in range(views)]
-        _build.count("march_nondiff.views", views)
-        return tuple(torch.stack(o) for o in zip(*outs))
+        return _plain_views(march_nondiff_plain, "march_nondiff.views",
+                            volume, tf, rays, views, config, sampling_rate,
+                            occupancy)
     soa = _ray_soa(rays)
     dev = volume.device
     with _build.launch("march_nondiff", views=views or 0):
@@ -789,6 +858,49 @@ def render(volume: torch.Tensor, tf: torch.Tensor, look_from,
                         n_samples=rays.n_samples)
 
 
+def _batch_rays(look_from: torch.Tensor, config: RenderConfig,
+                sampling_rate, u: Optional[torch.Tensor] = None
+                ) -> RayBundle:
+    """The rays of V views (``look_from`` (V, 3)): each view's
+    :func:`make_rays`, with its own row of ``u`` (V, H, W) where given,
+    stacked view-major."""
+    if look_from.ndim != 2 or look_from.shape[1] != 3:
+        raise ValueError(f"look_from must be (V, 3); got "
+                         f"{tuple(look_from.shape)}")
+    want_u = (look_from.shape[0],) + tuple(config.image_shape)
+    if u is not None and tuple(u.shape) != want_u:
+        raise ValueError(f"u must have shape {want_u}; got "
+                         f"{tuple(u.shape)}")
+    per_view = [make_rays(lf, config, sampling_rate,
+                          u=None if u is None else u[v])
+                for v, lf in enumerate(look_from)]
+    return RayBundle(*(torch.stack(f) for f in zip(*per_view)))
+
+
+def render_batch(volume: torch.Tensor, tf: torch.Tensor, look_from,
+                 config: RenderConfig, sampling_rate: Optional[float] = None,
+                 u: Optional[torch.Tensor] = None,
+                 ert: bool = True) -> RenderOutput:
+    """:func:`render` of V views (``look_from`` (V, 3), ``u`` (V, H, W) if
+    given) of one volume and one TF: each view's rays from
+    :func:`make_rays` stacked view-major, and one :func:`march_diff` of
+    them all.  On CUDA that is one K1 launch forward and, backward, a K2
+    launch a view, each adding into one ``d_volume`` and one ``d_tf``; on
+    the CPU the plain march of each view in turn over the one volume,
+    differentiated by autograd.  Every ray's K1 thread does the work it
+    does in its own view's launch, so the images and ``valid_steps`` are
+    :func:`render`'s bit for bit.  Differentiable as :func:`render` is, in
+    ``look_from`` too where it requires grad.  Returns images
+    (V, H, W, 4), ``valid_steps`` and ``n_samples`` (V, H, W)."""
+    sr = config.sampling_rate if sampling_rate is None else sampling_rate
+    with span("dr.view.batch"):
+        volume, tf, look_from = _inputs(volume, tf, look_from)
+        rays = _batch_rays(look_from, config, sr, u)
+        image, steps = march_diff(volume, tf, rays, config, sr, ert=ert)
+    return RenderOutput(image=image, valid_steps=steps,
+                        n_samples=rays.n_samples)
+
+
 def render_nondiff(volume: torch.Tensor, tf: torch.Tensor, look_from,
                    config: RenderConfig,
                    sampling_rate: Optional[float] = None,
@@ -829,13 +941,9 @@ def render_nondiff_batch(volume: torch.Tensor, tf: torch.Tensor, look_from,
     sr = 4.0 * config.sampling_rate if sampling_rate is None else sampling_rate
     with span("dr.view.batch"):
         volume, tf, look_from = _inputs(volume, tf, look_from)
-        if look_from.ndim != 2 or look_from.shape[1] != 3:
-            raise ValueError(f"look_from must be (V, 3); got "
-                             f"{tuple(look_from.shape)}")
         occupancy = (build_occupancy(volume, tf, config)
                      if config.occupancy_skip else None)
-        per_view = [make_rays(lf, config, sr) for lf in look_from]
-        rays = RayBundle(*(torch.stack(f) for f in zip(*per_view)))
+        rays = _batch_rays(look_from, config, sr)
         image, _, _ = march_nondiff(volume, tf, rays, config, sr, occupancy)
         ones = torch.ones(rays.n_samples.shape, dtype=torch.int32,
                           device=volume.device)
@@ -1205,7 +1313,8 @@ render_nondiff_jit = render_nondiff
 __all__ = ["RenderOutput", "RaySoA", "march_diff", "march_diff_fwd",
            "march_diff_bwd", "march_diff_plain", "march_diff_bwd_plain",
            "ray_cotangents", "march_nondiff", "march_nondiff_plain",
-           "render", "render_nondiff", "render_nondiff_batch", "render_jit",
+           "render", "render_batch", "render_nondiff", "render_nondiff_batch",
+           "render_jit",
            "render_nondiff_jit",
            "render_nondiff_strips", "render_strips", "render_depth_sorted",
            "choose_diff_renderer", "value_and_grad_render",

@@ -119,7 +119,8 @@ def test_cpu_tensors_never_launch():
                                  "march_diff_bwd.camera": 0,
                                  "march_diff_bwd.tf_only": 0,
                                  "march_segment_bwd.camera": 0,
-                                 "march_nondiff.views": 0}
+                                 "march_nondiff.views": 0,
+                                 "march_diff_fwd.views": 0}
     assert P.launch_counts()["march_diff_bwd.camera"] == 0
     assert P.launch_counts()["march_segment_bwd.camera"] == 0
 

@@ -106,7 +106,7 @@ def test_reset_zeroes_every_key():
     P.reset_launch_counts()
     counts = P.launch_counts()
     assert sorted(counts) == sorted(_build.KERNELS + _build.TALLIES)
-    assert len(counts) == 17 and _zero(counts)
+    assert len(counts) == 18 and _zero(counts)
 
 
 def test_the_span_is_dr_launch_kernel():

@@ -211,8 +211,10 @@ def test_k3_starts_inside_its_launch_span_on_the_card(card, tmp_path):
 
 @pytest.mark.card
 def test_backward_spans_on_the_autograd_thread_on_the_card(card, tmp_path):
-    """A traced fitting step: one ``dr.backward`` per view, each holding
-    its K2 launch span, recorded from the autograd engine's thread."""
+    """A traced fitting step of 3 views of one volume: one batched render
+    (``dr.view.batch``, one K1 launch) and one ``dr.backward`` holding its
+    K2 launch spans, one a view, recorded from the autograd engine's
+    thread."""
     rc = P.Raycaster((64, 64, 64), (128, 128), 64, max_samples=64,
                      device="cuda")
     vol = torch.rand((1, 1, 64, 64, 64), device="cuda", requires_grad=True)
@@ -225,8 +227,11 @@ def test_backward_spans_on_the_autograd_thread_on_the_card(card, tmp_path):
 
     _, spans, launched = _traced(2, step, tmp_path)
     names = collections.Counter(s[2] for s in spans)
-    assert names["dr.backward"] == names["dr.launch.march_diff_bwd"] == 6
-    assert names["dr.loss"] == 2 and names["dr.view"] == 6
+    assert names["dr.backward"] == 2
+    assert names["dr.launch.march_diff_bwd"] == 6
+    assert names["dr.launch.march_diff_fwd"] == 2
+    assert names["dr.loss"] == 2 and names["dr.view.batch"] == 2
+    assert names["dr.view"] == 0
     assert launched == sum(n for k, n in names.items()
                            if k.startswith("dr.launch."))
     bwd = [s for s in spans if s[2] == "dr.backward"]

@@ -156,13 +156,14 @@ def test_backward_takes_tf_only_k2_where_only_the_tf_needs_a_gradient(
     calls = []
 
     def k1(volume, tf, soa, config, sampling_rate, ert, counts=None,
-           segment=None):
+           segment=None, views=None):
         H, W = config.image_shape
         return (torch.zeros((H, W, 4)), torch.zeros((H, W),
                                                     dtype=torch.int32))
 
     def k2(volume, tf, soa, config, sampling_rate, image, grad, ert,
-           counts=None, sums=None, segment=None, volume_grad=True):
+           counts=None, sums=None, segment=None, volume_grad=True,
+           into=None):
         calls.append(volume_grad)
         if sums is not None:
             sums.zero_()
