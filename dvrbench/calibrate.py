@@ -8,9 +8,12 @@ short window at its own load through the program, then the plain
 reference: the program's numbers (the lower readings).  For the first
 ``--control`` seeds also the control: the reference with the volumes and
 the TF held in bfloat16, in the program's place (the upper readings).  For
-the first ``--faults`` seeds, each fault of the cell's job
-(:mod:`dvrbench.faults`) planted in the program.  One process for all, so
-the kernels load once.  Writes a JSON summary to ``--out`` and prints it.
+the first ``--faults`` seeds, each fault of the cell's job (its
+``FAULTS``) planted in the program, held to the sound run's reference where
+the job sets ``FAULTS_SHARE_REFERENCE`` and to its own otherwise; a job
+with a ``details(ref)`` method adds what lies under its numbers.  One
+process for all, so the kernels load once.  Writes a JSON summary to
+``--out`` and prints it.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import time
 
 import torch
 
-from . import faults, harness
+from . import harness
 
 
 def bf16(x: torch.Tensor) -> torch.Tensor:
@@ -41,33 +44,13 @@ def _program_numbers(cfg, traffic, seed, seconds, want=None):
     return job, ref, job.compare(job.program, ref), ref_s
 
 
-def volfit_details(job, ref: dict) -> dict:
-    """What lies under a fitting cell's numbers: each step's loss gap, the
-    share of voxels whose first gradients differ in sign, those whose
-    reference gradient is below Adam's eps, and how far the volumes after
-    the checked steps lie apart."""
-    got = job.program
-    g_p, g_r = got["grad1"], ref["grad1"]
-    both = (g_p != 0) & (g_r != 0)
-    flip = both & ((g_p > 0) != (g_r > 0))
-    dv = (got["volume"] - ref["volume"]).abs()
-    return {"loss_gaps": [abs(a - b) / abs(b) for a, b in
-                          zip(got["losses"], ref["losses"])],
-            "flip_share": float(flip.float().mean()),
-            "flip_max_abs_grad": float(g_r.abs()[flip].max())
-            if bool(flip.any()) else 0.0,
-            "tiny_share": float(((g_r != 0) & (g_r.abs() < 1e-8))
-                                .float().mean()),
-            "volume_gap_max": float(dv.max()),
-            "volume_gap_voxels": int((dv > 1e-6).sum())}
-
-
 def calibrate(workload: str, seeds, control: int, fault_seeds: int,
               seconds: float) -> dict:
     bench = harness.benchmark()
     cell = harness.cell(workload, bench)
     cfg = harness.config(cell["config"], bench)
     traffic = harness.traffic(cell["traffic"])
+    share = getattr(harness.job(cfg["job"]), "FAULTS_SHARE_REFERENCE", False)
     out = {"workload": workload, "device": torch.cuda.get_device_name(),
            "program": {}, "control": {}, "faults": {}, "reference_s": []}
     for i, seed in enumerate(seeds):
@@ -75,17 +58,16 @@ def calibrate(workload: str, seeds, control: int, fault_seeds: int,
                                                     seconds)
         out["program"][str(seed)] = numbers
         out["reference_s"].append(ref_s)
-        if cfg["job"] == "volfit":
-            out.setdefault("details", {})[str(seed)] = volfit_details(job,
-                                                                      ref)
+        if hasattr(job, "details"):
+            out.setdefault("details", {})[str(seed)] = job.details(ref)
         if i < control:
             out["control"][str(seed)] = job.compare(job.reference(bf16), ref)
         if i < fault_seeds:
-            for name, plant in faults.FAULTS[cfg["job"]].items():
+            for name, plant in harness.faults(cfg["job"]).items():
                 with plant():
                     _, _, got, _ = _program_numbers(
                         cfg, traffic, seed, seconds,
-                        want=ref if cfg["job"] == "volfit" else None)
+                        want=ref if share else None)
                 out["faults"].setdefault(name, {})[str(seed)] = got
         del job, ref
         torch.cuda.empty_cache()

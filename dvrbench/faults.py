@@ -1,14 +1,18 @@
 """Faults planted in the program underneath the harness, to show that the
-check sees them: each is a context manager that patches the port's entry
-points for the length of a run.  Neither the benchmark's runs nor the
-program use this module; the calibration and the tests do.
+check sees them: each factory returns a context manager that patches the
+port's entry points for the length of a run.  Each job names the faults
+its cells can have in its own ``FAULTS`` table (``jobs/<job>.py``), which
+:func:`dvrbench.harness.faults` reads.  A benchmark run loads this module
+with its job and plants nothing; the calibration and the tests plant.
 
-* ``state_unchanged``: the optimizer's step leaves the volume as it was.
+* ``state_unchanged``: AdamW's step leaves the volume as it was.
 * ``half_batch``: the loss takes the first half of the views and means
   over them, leaving the rest out.
 * ``stale_frame``: each frame shows the view of the frame before it.
 * ``half_rays``: the bottom half of each frame's rows is never rendered.
 * ``altered_answer``: an 8 x 8 block of each frame is off by 0.05.
+* ``tf_state_unchanged``: ``TFMomentum.step`` leaves the TF as it was.
+* ``top_half_loss``: the loss takes the top half of the image's rows only.
 """
 from __future__ import annotations
 
@@ -81,9 +85,18 @@ def altered_answer():
     return _patched(P.Raycaster, "raycast_nondiff", make)
 
 
-# The faults that each job's cells can have.
-FAULTS = {
-    "volfit": {"state_unchanged": state_unchanged, "half_batch": half_batch},
-    "viewer": {"stale_frame": stale_frame, "half_rays": half_rays,
-               "altered_answer": altered_answer},
-}
+def tf_state_unchanged():
+    from differender_tpu_torch.optim import TFMomentum
+    return _patched(TFMomentum, "step",
+                    lambda orig: lambda self, closure=None: None)
+
+
+def top_half_loss():
+    import differender_tpu_torch as P
+
+    def make(orig):
+        def loss(pred, target):
+            h = pred.shape[0] // 2
+            return orig(pred[:h], target[:h])
+        return loss
+    return _patched(P, "mse_loss", make)

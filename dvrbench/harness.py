@@ -1,9 +1,10 @@
 """Finds each piece of a cell by its name: the cell in ``BENCHMARK.json``,
 its configuration in ``configs/<name>.json``, its traffic in
 ``traffic/<name>.json``, its limits in ``limits/<cell>.json``, the job that
-runs its configuration in ``jobs/<job>.py`` and each per-layer metric's
-reader in ``metrics/<metric>.py``.  A new cell, configuration, traffic mix
-or metric is new files and entries, never an edit."""
+runs its configuration in ``jobs/<job>.py`` (with the faults its cells can
+have and the size that runs them on the CPU) and each per-layer metric's
+reader in ``metrics/<metric>.py``.  A new cell, configuration, traffic mix,
+job or metric is new files and entries, never an edit."""
 from __future__ import annotations
 
 import importlib
@@ -54,6 +55,25 @@ def limits(cell_name: str) -> Dict[str, float]:
 def job(name: str):
     """The module that runs a configuration's job (``jobs/<name>.py``)."""
     return importlib.import_module(f"dvrbench.jobs.{name}")
+
+
+def job_of(cell_name: str, bench: dict = None) -> str:
+    """The name of the job that runs a cell: its configuration's ``job``."""
+    bench = bench or benchmark()
+    return config(cell(cell_name, bench)["config"], bench)["job"]
+
+
+def faults(name: str) -> Dict[str, Callable]:
+    """The faults a job's cells can have, each name with the factory of
+    the context manager that plants it (``FAULTS`` of ``jobs/<name>.py``,
+    the factories in :mod:`dvrbench.faults`)."""
+    return dict(job(name).FAULTS)
+
+
+def small(name: str) -> dict:
+    """The configuration's keys that a job's cells replace to run on the
+    CPU in seconds (``SMALL`` of ``jobs/<name>.py``)."""
+    return dict(job(name).SMALL)
 
 
 def metrics_for(cell_name: str, kind: str, bench: dict = None) -> List[dict]:

@@ -29,6 +29,14 @@ TF_POINTS = {
         [0.4655, 0.9843, 0.9843, 0.9843, 0.0000],
         [1.0000, 0.0000, 0.0000, 0.0000, 0.0000],
     ],
+    "tf5": [
+        [0.0000, 0.0000, 0.0000, 0.0000, 0.0000],
+        [0.1300, 0.5000, 0.5000, 0.5000, 0.0000],
+        [0.1350, 0.5000, 0.5000, 0.5000, 0.7500],
+        [0.1600, 0.5000, 0.5000, 0.5000, 0.7500],
+        [0.1700, 0.5000, 0.5000, 0.5000, 0.0000],
+        [1.0000, 0.0000, 0.0000, 0.0000, 0.0000],
+    ],
 }
 
 

@@ -23,10 +23,10 @@ import contextlib
 import math
 import time
 
-import numpy as np
 import torch
 
-from .. import inputs, work, work_tf
+from .. import faults, inputs, work, work_tf
+from ..inputs import transfer_function
 from ..reference import tffit
 
 END_TO_END = ("step_ms",)
@@ -36,27 +36,12 @@ POSES = 64           # the fits' poses drawn in set-up, taken in turn
 WORK_EVERY = 20      # the traced fit's steps whose K2 work is counted
 BLACK = 1e-2         # the upstream "black" TF: 1e-2 in every channel
 
-# Control points (position, r, g, b, alpha) of the upstream target preset.
-TF_POINTS = {
-    "tf5": [
-        [0.0000, 0.0000, 0.0000, 0.0000, 0.0000],
-        [0.1300, 0.5000, 0.5000, 0.5000, 0.0000],
-        [0.1350, 0.5000, 0.5000, 0.5000, 0.7500],
-        [0.1600, 0.5000, 0.5000, 0.5000, 0.7500],
-        [0.1700, 0.5000, 0.5000, 0.5000, 0.0000],
-        [1.0000, 0.0000, 0.0000, 0.0000, 0.0000],
-    ],
-}
-
-
-def transfer_function(name: str, resolution: int, device) -> torch.Tensor:
-    """The preset rasterised at ``linspace(0, 1, R)``, channel-major ``(4,
-    R)``, as :func:`inputs.transfer_function` rasterises its presets."""
-    pts = np.asarray(TF_POINTS[name], np.float64)
-    xs = np.linspace(0.0, 1.0, resolution)
-    tex = np.stack([np.interp(xs, pts[:, 0], pts[:, 1 + c])
-                    for c in range(4)])
-    return torch.tensor(tex.astype(np.float32), device=device)
+# The faults a TF-fitting cell can have.
+FAULTS = {"state_unchanged": faults.tf_state_unchanged,
+          "top_half_loss": faults.top_half_loss}
+# The cells on the CPU in seconds: 16^3, 12^2, 16 texels, fits of 4 steps.
+SMALL = {"volume": [16, 16, 16], "image": [12, 12], "tf_resolution": 16,
+         "iterations": 4}
 
 
 class Job:

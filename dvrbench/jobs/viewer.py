@@ -15,10 +15,15 @@ import time
 
 import torch
 
-from .. import inputs, work
+from .. import faults, inputs, work
 from ..reference import dvr
 
 END_TO_END = ("frame_ms", "frame_p95_ms")
+# The faults a viewer cell can have.
+FAULTS = {"stale_frame": faults.stale_frame, "half_rays": faults.half_rays,
+          "altered_answer": faults.altered_answer}
+# The cells on the CPU in seconds: 16^3 at 16^2.
+SMALL = {"volume": [16, 16, 16], "image": [16, 16], "sampling_rate": 2.0}
 WARM = 3             # frames before the window
 SAMPLED = 2          # frames of the window the check compares
 TRACED = 24          # frames under the profiler
@@ -98,7 +103,7 @@ class Job:
 
         def unit(i):
             if i < WORK_FRAMES:
-                self.work_frames.append(self.k)
+                self.work_frames.append((i, self.k))
             k = self.k
             img = self.frame()
             self._keep(kept, i, k, img)
@@ -109,10 +114,11 @@ class Job:
         return tr
 
     def count_work(self):
+        """K3's work in the traced window's first frames."""
         least = sum(work.least_seconds(*work.k3_launch_work(
             self.vol[0], self.tf, self.camera(k), self.cfg))
-            for k in self.work_frames)
-        self.trace.work["k3"] = {"launches": len(self.work_frames),
+            for _, k in self.work_frames)
+        self.trace.work["k3"] = {"steps": [i for i, _ in self.work_frames],
                                  "least_s": least}
 
     # -- correctness ---------------------------------------------------------

@@ -15,10 +15,20 @@ import time
 
 import torch
 
-from .. import inputs, work
+from .. import faults, inputs, work
 from ..reference import fit
 
 END_TO_END = ("step_ms",)
+# The faults a fitting cell can have.
+FAULTS = {"state_unchanged": faults.state_unchanged,
+          "half_batch": faults.half_batch}
+# The cells on the CPU in seconds: 16^3, two views of 16^2.
+SMALL = {"volume": [16, 16, 16], "image": [16, 16], "views": 2,
+         "gt_sampling_rate": 2.0}
+# A fault's run is held to the sound run's reference of its seed: the
+# reference follows the poses and jitter that set-up drew, which no fault
+# changes.
+FAULTS_SHARE_REFERENCE = True
 CHECKED = 3
 WARM = 2
 TRACED = 12          # steps under the profiler
@@ -147,7 +157,7 @@ class Job:
         def unit(i):
             lfs, u = self.feed()
             if i < WORK_STEPS:
-                self.work_inputs.append((self.vol.detach()[0].clone(),
+                self.work_inputs.append((i, self.vol.detach()[0].clone(),
                                          lfs, u))
             with tracing.annotate("step"):
                 self.step(lfs, u, span=_annotated)
@@ -163,13 +173,14 @@ class Job:
         return tr
 
     def count_work(self):
-        """K2's work in the traced window's first steps (after the window,
-        the program's state freed)."""
+        """K2's work in the traced window's first steps, each view's (after
+        the window, the program's state freed)."""
         least = sum(work.least_seconds(*work.k2_launch_work(
             vol, self.tf, lfs[v], None if u is None else u[v], self.cfg))
-            for vol, lfs, u in self.work_inputs for v in range(lfs.shape[0]))
-        self.trace.work["k2"] = {"launches": len(self.work_inputs)
-                                 * self.cfg["views"], "least_s": least}
+            for _, vol, lfs, u in self.work_inputs
+            for v in range(lfs.shape[0]))
+        self.trace.work["k2"] = {"steps": [i for i, *_ in self.work_inputs],
+                                 "least_s": least}
         del self.work_inputs
 
     # -- correctness ---------------------------------------------------------
@@ -186,6 +197,26 @@ class Job:
     def reference(self, store=None) -> dict:
         return fit.fit_steps(self.vol0, self.vol_gt[0], self.tf, self.poses,
                              self.jitters, self.cfg, store=store)
+
+    def details(self, ref: dict) -> dict:
+        """What lies under the numbers (for the calibration): each step's
+        loss gap, the share of voxels whose first gradients differ in sign,
+        those whose reference gradient is below Adam's eps, and how far the
+        volumes after the checked steps lie apart."""
+        got = self.program
+        g_p, g_r = got["grad1"], ref["grad1"]
+        both = (g_p != 0) & (g_r != 0)
+        flip = both & ((g_p > 0) != (g_r > 0))
+        dv = (got["volume"] - ref["volume"]).abs()
+        return {"loss_gaps": [abs(a - b) / abs(b) for a, b in
+                              zip(got["losses"], ref["losses"])],
+                "flip_share": float(flip.float().mean()),
+                "flip_max_abs_grad": float(g_r.abs()[flip].max())
+                if bool(flip.any()) else 0.0,
+                "tiny_share": float(((g_r != 0) & (g_r.abs() < 1e-8))
+                                    .float().mean()),
+                "volume_gap_max": float(dv.max()),
+                "volume_gap_voxels": int((dv > 1e-6).sum())}
 
     def compare(self, got: dict, want: dict) -> dict:
         """The numbers the check compares: each step's loss (evaluated in

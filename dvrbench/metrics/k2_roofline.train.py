@@ -1,13 +1,8 @@
 """K2's share of its roofline over the traced window's first steps: the
 least time of the work those steps' views need (counted by the benchmark's
-own pass, ``work.k2_launch_work``) over K2's device time in them, in %."""
+own pass, ``work.k2_launch_work``) over the device time of the K2 launches
+those steps made, in %."""
 
 
 def read(trace):
-    w = trace.work.get("k2")
-    if not w:
-        return None
-    times = trace.first_kernels(("march_diff_bwd_kernel",), w["launches"])
-    if len(times) < w["launches"] or sum(times) <= 0:
-        return None
-    return 100.0 * w["least_s"] / sum(times)
+    return trace.roofline("k2", ("march_diff_bwd_kernel",))

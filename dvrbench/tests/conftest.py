@@ -15,14 +15,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# Each job's cells at a size the CPU runs in seconds.
-SMALL = {
-    "volfit": {"volume": [16, 16, 16], "image": [16, 16], "views": 2,
-               "gt_sampling_rate": 2.0},
-    "viewer": {"volume": [16, 16, 16], "image": [16, 16],
-               "sampling_rate": 2.0},
-}
-
 
 def pytest_configure(config):
     config.addinivalue_line(

@@ -4,7 +4,6 @@ cell's limits.  At a small size on the CPU here; at the cell's own size
 on the chip (``card``)."""
 import pytest
 
-from conftest import SMALL
 from dvrbench import calibrate, harness
 
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
@@ -27,7 +26,7 @@ def _control_fails(cell, seed, overrides=None, device="cpu",
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct_small(cell):
     failed, got = _control_fails(cell, 2 ** 31 + 3,
-                                 SMALL[cell.split(".")[0]])
+                                 harness.small(harness.job_of(cell)))
     assert failed, got
 
 

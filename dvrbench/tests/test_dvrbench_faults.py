@@ -3,26 +3,24 @@ the check passes; with each fault a cell can have planted in the program
 underneath the harness, ``correct`` comes out false."""
 import pytest
 
-from conftest import SMALL
-from dvrbench import faults, harness, run
+from dvrbench import harness, run
 
 CASES = [(w["name"], f)
          for w in harness.benchmark()["workloads"]
-         for f in [None] + sorted(faults.FAULTS[
-             harness.config(w["config"])["job"]])]
+         for f in [None] + sorted(harness.faults(harness.job_of(w["name"])))]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_faults_come_out_not_correct(cell, fault):
-    job = cell.split(".")[0]
+    job = harness.job_of(cell)
     seed = 2 ** 32 + 17
 
     def go():
         return run.run_cell(cell, seed, 0.3, False, "cpu",
-                            overrides=SMALL[job])
+                            overrides=harness.small(job))
     if fault is None:
         assert go()["correct"] is True
         return
-    with faults.FAULTS[job][fault]():
+    with harness.faults(job)[fault]():
         r = go()
     assert r["correct"] is False, r["checks"]

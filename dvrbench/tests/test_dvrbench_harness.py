@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from conftest import ROOT, SMALL
+from conftest import ROOT
 from dvrbench import harness, run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -94,7 +94,7 @@ def test_configs_state_the_renderer_and_what_was_assumed():
                                         ("viewer.ct_head", True)])
 def test_result_line_keys(cell, trace):
     r = run.run_cell(cell, 2 ** 33 + 5, 0.3, trace, "cpu",
-                     overrides=SMALL[cell.split(".")[0]])
+                     overrides=harness.small(harness.job_of(cell)))
     want = ["correct", "attempted", "failed", "metrics", "device"]
     want += ["breakdown"] if trace else []
     assert list(r) == want + ["checks"]

@@ -13,10 +13,9 @@ import sys, json
 sys.path.insert(0, {root!r})
 import torch
 torch.set_num_threads(2)
-from dvrbench import run
+from dvrbench import harness, run
 r = run.run_cell("viewer.dense_sim", 5, 0.2, False, "cpu",
-                 overrides={{"volume": [16, 16, 16], "image": [16, 16],
-                            "sampling_rate": 2.0}})
+                 overrides=harness.small(harness.job_of("viewer.dense_sim")))
 print(json.dumps([r["correct"], run.forbidden_modules(),
                   sorted(m for m in sys.modules if m.split(".")[0]
                          in ("jax", "jaxlib", "flax", "differender_tpu"))]))

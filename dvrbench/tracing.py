@@ -3,10 +3,15 @@ or frames, read back from its Chrome trace, and host spans closed by a sync.
 
 Device kernels are told apart by name: the program's own kernels are plain
 global functions (``march_diff_bwd_kernel<...>(...)``), PyTorch's live in
-its namespaces (``at::native::...``, CUB, cuBLAS, cuDNN).
+its namespaces (``at::native::...``, CUB, cuBLAS, cuDNN).  Each unit (a
+step or a frame) runs inside a host range of its own, and a kernel belongs
+to the unit whose range made its launch: the runtime's launch call, which
+the profiler joins to the kernel by its ``correlation`` id.  So a kernel's
+time per unit reads the same however many launches carry its work.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
@@ -18,7 +23,9 @@ LIBRARY_KERNEL = re.compile(
     r"\b(at|c10|at_cuda_detail|cub|thrust|cutlass|cudnn|cublas\w*)::"
     r"|^(sm\d+_|cutlass|nvjet|cudnn|ampere_|cublas)")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 WINDOW = "dvrbench.window"
+UNIT = "dvrbench.unit"
 
 
 def is_library_kernel(name: str) -> bool:
@@ -33,7 +40,9 @@ def kernel_matches(name: str, idents: Sequence[str]) -> bool:
 class Trace:
     """The device activity of a traced window of ``units`` steps or
     frames, and what the harness adds to it: host spans (seconds per span
-    name, summed over ``span_units`` units) and work counts."""
+    name, summed over ``span_units`` units) and work (by kernel: the units
+    whose work the job counted, ``steps``, and its least time,
+    ``least_s``)."""
 
     def __init__(self, events: List[dict], units: int):
         self.units = units
@@ -48,7 +57,23 @@ class Trace:
              e.get("name", ""), e.get("cat"))
             for e in events if e.get("ph") == "X"
             and e.get("cat") in DEVICE_CATS)
-        self.kernels = [d for d in self.device if d[3] == "kernel"]
+        self.unit_ranges = sorted(
+            (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+            for e in events if e.get("name") == UNIT and e.get("ph") == "X"
+            and e.get("cat") == "user_annotation")
+        launched = {e["args"]["correlation"]: float(e["ts"])
+                    for e in events if e.get("ph") == "X"
+                    and e.get("cat") in LAUNCH_CATS
+                    and "correlation" in (e.get("args") or {})}
+        kernels = sorted((
+            (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+             e.get("name", ""), e.get("cat"),
+             launched.get((e.get("args") or {}).get("correlation")))
+            for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+        ), key=lambda k: k[:4])
+        self.kernels = [k[:4] for k in kernels]
+        # The unit whose host range made each kernel's launch, or None.
+        self.kernel_units = [self._unit_at(k[4]) for k in kernels]
         self.host_ops = sorted(
             (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
              e.get("name", ""), e.get("cat"))
@@ -57,6 +82,14 @@ class Trace:
         self.spans: Dict[str, float] = {}
         self.span_units = 0
         self.work: Dict[str, dict] = {}
+
+    def _unit_at(self, ts: Optional[float]) -> Optional[int]:
+        if ts is None:
+            return None
+        i = bisect.bisect_right(self.unit_ranges, (ts, float("inf"))) - 1
+        if i >= 0 and ts <= self.unit_ranges[i][1]:
+            return i
+        return None
 
     @property
     def window_s(self) -> float:
@@ -96,11 +129,32 @@ class Trace:
             return None
         return len(self.kernels) / self.units
 
-    def first_kernels(self, idents: Sequence[str], count: int):
-        """Device seconds of each of the first ``count`` launches of the
-        kernels named ``idents``, in the order they ran."""
-        sel = [k for k in self.kernels if kernel_matches(k[2], idents)]
-        return [(b - a) * 1e-6 for a, b, _, _ in sel[:count]]
+    def kernel_s_per_unit(self, idents: Sequence[str]) -> List[float]:
+        """Device seconds of the kernels named ``idents`` that each unit
+        launched, one entry a unit in the order they ran; a kernel launched
+        outside every unit counts in none."""
+        out = [0.0] * len(self.unit_ranges)
+        for (a, b, name, _), u in zip(self.kernels, self.kernel_units):
+            if u is not None and kernel_matches(name, idents):
+                out[u] += (b - a) * 1e-6
+        return out
+
+    def roofline(self, work: str, idents: Sequence[str]) -> Optional[float]:
+        """The share (%) of their roofline that the kernels named
+        ``idents`` reach: the least time of the work the job counted
+        (``self.work[work]``) over their device time in the units it
+        counted.  None where it counted nothing, or where one of those
+        units launched none of the kernels."""
+        w = self.work.get(work)
+        if not w or not w["steps"]:
+            return None
+        per = self.kernel_s_per_unit(idents)
+        if max(w["steps"]) >= len(per):
+            return None
+        times = [per[s] for s in w["steps"]]
+        if min(times) <= 0:
+            return None
+        return 100.0 * w["least_s"] / sum(times)
 
     def top_device_ops(self, count: int = 10):
         tot: Dict[str, float] = {}
@@ -127,7 +181,7 @@ class Trace:
                 if b < at:
                     continue
                 if cat == "user_annotation" and name.startswith("dvrbench.") \
-                        and name != WINDOW:
+                        and name not in (WINDOW, UNIT):
                     span = name[len("dvrbench."):]
                 elif cat == "cpu_op" and not op:
                     op = name
@@ -137,9 +191,9 @@ class Trace:
 
 def profile_units(run_unit: Callable[[int], None], units: int, sync,
                   path: str) -> Trace:
-    """Runs ``run_unit(i)`` for ``i < units`` under the profiler (CPU and
-    CUDA activity) inside a window annotation that ends after a sync, and
-    reads the trace back."""
+    """Runs ``run_unit(i)`` for ``i < units``, each in a unit annotation of
+    its own, under the profiler (CPU and CUDA activity) inside a window
+    annotation that ends after a sync, and reads the trace back."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     activities = [ProfilerActivity.CPU]
@@ -148,7 +202,8 @@ def profile_units(run_unit: Callable[[int], None], units: int, sync,
     with profile(activities=activities) as prof:
         with record_function(WINDOW):
             for i in range(units):
-                run_unit(i)
+                with record_function(UNIT):
+                    run_unit(i)
             sync()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
