@@ -187,23 +187,6 @@ def _slab_inputs(channels, lf, light, config: RenderConfig,
     return layers, geom, (x0, y0, dx, dy)
 
 
-def _core(channels, tf, lf, light, config: RenderConfig, intermediate: int,
-          planes_per_voxel: float, slab_batch: int, march,
-          row_offset: int = 0, n_rows: Optional[int] = None):
-    """The intermediate rows ``[row_offset, row_offset + n_rows)`` (default
-    all O) of the slab frame (:func:`_slab_inputs`): each row's pixels are
-    computed as in the whole image, so strips join into it bit for bit
-    (:func:`render_fast_sharded`).  ``march(layers, tf, geom, slab_batch)``
-    is :func:`~differender_tpu_torch.ops.shear_warp.shear_warp_march` (K8
-    and K9 on CUDA tensors) or :func:`_march_plain`.  Returns the
-    intermediate RGBA
-    ``(n_rows, O, 4)`` and the grid's extents ``(x0, y0, dx, dy)``."""
-    layers, geom, extents = _slab_inputs(channels, lf, light, config,
-                                         intermediate, planes_per_voxel,
-                                         row_offset, n_rows)
-    return march(layers, tf, geom, slab_batch), extents
-
-
 def _march_plain(layers, tf, geom: SlabGeometry, slab_batch: int):
     """:func:`render_fast_plain`'s march: the plain chunk loop, classified
     by :func:`~differender_tpu_torch.sampling.apply_tf_dot`."""
@@ -214,39 +197,43 @@ def _march_plain(layers, tf, geom: SlabGeometry, slab_batch: int):
 def _warp_to_image(inter, extents, look_from, config: RenderConfig, perm,
                    sign: float):
     """Bilinear warp of the intermediate image onto the pixels: each ray's
-    crossing with the (permuted, flipped) ``z = 0`` plane."""
-    x0, y0, dx, dy = extents
-    dirs = ray_directions(look_from, config)
-    _, _, hit = ray_aabb(look_from, dirs, (-1, -1, -1), (1, 1, 1))
-    with span("dr.sync"):
-        flip = torch.tensor([1.0, 1.0, sign], dtype=torch.float32,
-                            device=look_from.device)
-    lf_p = look_from[list(perm)] * flip
-    d_p = dirs[..., list(perm)] * flip
-    t = (0.0 - lf_p[2]) / d_p[..., 2]
-    a = lf_p[0] + t * d_p[..., 0]
-    b = lf_p[1] + t * d_p[..., 1]
-    O = inter.shape[0]
-    ia = torch.clamp((a - x0) / dx, 0.0, O - 1.0)
-    ib = torch.clamp((b - y0) / dy, 0.0, O - 1.0)
-    a_lo_f = torch.floor(ia)
-    b_lo_f = torch.floor(ib)
-    fa = (ia - a_lo_f)[..., None]
-    fb = (ib - b_lo_f)[..., None]
-    # Clamped again as integers: a ray parallel to the plane gives NaN.
-    a_lo = torch.clamp(a_lo_f.to(torch.int64), 0, O - 1)
-    b_lo = torch.clamp(b_lo_f.to(torch.int64), 0, O - 1)
-    a_hi = torch.clamp(a_lo + 1, max=O - 1)
-    b_hi = torch.clamp(b_lo + 1, max=O - 1)
-    flat = inter.reshape(O * O, 4)
+    crossing with the (permuted, flipped) ``z = 0`` plane; span
+    ``dr.fast.warp``."""
+    with span("dr.fast.warp"):
+        x0, y0, dx, dy = extents
+        dirs = ray_directions(look_from, config)
+        _, _, hit = ray_aabb(look_from, dirs, (-1, -1, -1), (1, 1, 1))
+        with span("dr.sync"):
+            flip = torch.tensor([1.0, 1.0, sign], dtype=torch.float32,
+                                device=look_from.device)
+        lf_p = look_from[list(perm)] * flip
+        d_p = dirs[..., list(perm)] * flip
+        t = (0.0 - lf_p[2]) / d_p[..., 2]
+        a = lf_p[0] + t * d_p[..., 0]
+        b = lf_p[1] + t * d_p[..., 1]
+        O = inter.shape[0]
+        ia = torch.clamp((a - x0) / dx, 0.0, O - 1.0)
+        ib = torch.clamp((b - y0) / dy, 0.0, O - 1.0)
+        a_lo_f = torch.floor(ia)
+        b_lo_f = torch.floor(ib)
+        fa = (ia - a_lo_f)[..., None]
+        fb = (ib - b_lo_f)[..., None]
+        # Clamped again as integers: a ray parallel to the plane gives NaN.
+        a_lo = torch.clamp(a_lo_f.to(torch.int64), 0, O - 1)
+        b_lo = torch.clamp(b_lo_f.to(torch.int64), 0, O - 1)
+        a_hi = torch.clamp(a_lo + 1, max=O - 1)
+        b_hi = torch.clamp(b_lo + 1, max=O - 1)
+        flat = inter.reshape(O * O, 4)
 
-    def fetch(ai, bi):
-        return flat[ai * O + bi]
+        def fetch(ai, bi):
+            return flat[ai * O + bi]
 
-    img = ((fetch(a_lo, b_lo) * (1 - fa) + fetch(a_hi, b_lo) * fa) * (1 - fb)
-           + (fetch(a_lo, b_hi) * (1 - fa) + fetch(a_hi, b_hi) * fa) * fb)
-    img = torch.where(hit[..., None], img, img.new_zeros(()))
-    return img, hit
+        img = ((fetch(a_lo, b_lo) * (1 - fa) + fetch(a_hi, b_lo) * fa)
+               * (1 - fb)
+               + (fetch(a_lo, b_hi) * (1 - fa) + fetch(a_hi, b_hi) * fa)
+               * fb)
+        img = torch.where(hit[..., None], img, img.new_zeros(()))
+        return img, hit
 
 
 def _frame(volume, look_from):
@@ -284,13 +271,21 @@ def _frame(volume, look_from):
 def _intermediate(volume, tf, look_from, config: RenderConfig, O: int,
                   planes_per_voxel, slab_batch, march, row_offset=0,
                   n_rows=None):
-    """The intermediate image rows ``[row_offset, row_offset + n_rows)`` in
-    the frame of the view's principal axis (:func:`_frame`, :func:`_core`),
-    and what the warp needs: ``(inter, extents, perm, sign)``."""
-    ch, lf_f, light_f, perm, sign = _frame(volume, look_from)
-    inter, ext = _core(ch, tf, lf_f, light_f, config, O, planes_per_voxel,
-                       slab_batch, march, row_offset, n_rows)
-    return inter, ext, perm, sign
+    """The intermediate image rows ``[row_offset, row_offset + n_rows)``
+    (default all O) in the frame of the view's principal axis, and what the
+    warp needs: ``(inter, extents, perm, sign)``.  Each row's pixels are
+    computed as in the whole image, so strips join into it bit for bit
+    (:func:`render_fast_sharded`).  The slab frame (:func:`_frame`,
+    :func:`_slab_inputs`) is span ``dr.fast.frame``; ``march(layers, tf,
+    geom, slab_batch)`` is :func:`~differender_tpu_torch.ops.shear_warp.
+    shear_warp_march` (K8 and K9 on CUDA tensors) or :func:`_march_plain`.
+    """
+    with span("dr.fast.frame"):
+        ch, lf_f, light_f, perm, sign = _frame(volume, look_from)
+        layers, geom, ext = _slab_inputs(ch, lf_f, light_f, config, O,
+                                         planes_per_voxel, row_offset,
+                                         n_rows)
+    return march(layers, tf, geom, slab_batch), ext, perm, sign
 
 
 def _fast_inputs(volume, tf, look_from, config: RenderConfig, intermediate):

@@ -20,6 +20,13 @@ of the profiler's state.  The package opens these spans:
   ``dr.view.batch``: one ``render_nondiff_batch``, the inference render of
   a batch of views of one volume and TF (one grid, one K3 launch), or one
   ``render_batch``, their differentiable render (one K1 launch);
+- ``dr.fast.frame``: inside a shear-warp ``dr.view`` (``render_fast``,
+  its plain and sharded forms), the slab frame before the march: the
+  gradient volume, the principal axis's permute and flip, the voxel
+  layers' copy, the grid, the plane tables and the exponent
+  (``fastpath._frame``, ``fastpath._slab_inputs``); ``dr.fast.warp``: the
+  bilinear warp of the intermediate image onto the pixels
+  (``fastpath._warp_to_image``);
 - ``dr.rays``: ``geometry.make_rays``; ``dr.rays.soa``: a march's flat ray
   state (``render._ray_soa``);
 - ``dr.grid``: ``occupancy.build_occupancy``;

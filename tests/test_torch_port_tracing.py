@@ -114,7 +114,8 @@ def _x(name, ts, end, cat="user_annotation", tid=1):
 
 # Device busy [100, 400] and [600, 700] of the window [0, 1000]: idle 600
 # us.  The main thread's spans (a batched inference render, then a
-# single-view render), the autograd thread's (2) overlapping them in time,
+# single-view render, with a shear-warp frame's slab frame and warp inside
+# it), the autograd thread's (2) overlapping them in time,
 # one span before the window (left out) and one past its end (clipped).
 # Two units.
 KERNELS = [_x("march_nondiff_kernel", 100, 300, "kernel", 7),
@@ -124,7 +125,9 @@ SPANS = [_x("dr.raycaster", 0, 500), _x("dr.view.batch", 10, 200),
          _x("dr.rays", 20, 50), _x("dr.rays.soa", 60, 80),
          _x("dr.grid", 90, 150), _x("dr.launch.cell_minmax", 95, 110),
          _x("dr.launch.march_nondiff", 160, 190), _x("dr.view", 300, 480),
-         _x("dr.rays", 310, 330), _x("dr.launch.march_diff_fwd", 450, 470),
+         _x("dr.rays", 310, 330), _x("dr.fast.frame", 340, 400),
+         _x("dr.fast.warp", 400, 440),
+         _x("dr.launch.march_diff_fwd", 450, 470),
          _x("dr.loss", 540, 560), _x("dr.backward", 520, 650, tid=2),
          _x("dr.backward.tf_only", 530, 645, tid=2),
          _x("dr.launch.march_diff_bwd", 600, 640, tid=2),
@@ -141,6 +144,7 @@ EXPECTED = {
     "program_idle_share.train": 50.0, "program_idle_share.viewer": 50.0,
     "grid_builds.train": 0.5, "view_batches.train": 0.5,
     "tf_only_bwd.tffit": 0.5, "optim_host_ms.tffit": 0.02,
+    "slab_frame_host_ms.viewer_fast": 0.03, "warp_host_ms.viewer_fast": 0.02,
 }
 
 
